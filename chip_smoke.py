@@ -1,0 +1,305 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``mt_renderer_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path once at the headline workload: the skinned,
+textured demo scene (1024 instances at subdiv 4, 196,608 triangles) at
+1920x1080 with the quad texel pool, through ``FrameEngine`` and
+``render_frame(packed=True)``. Phases, each of which raises on failure:
+
+1. device: name, count, ``nvidia-smi`` name and power limit;
+2. build K1 (``csrc/raster_fwd.cu``) and print ptxas' register and
+   shared-memory report;
+3. K1 against its plain PyTorch version on the card at the headline
+   shapes: winner ids, tap addresses and coverage equal, z and the tap
+   planes within 2 ulp (bit-equal is expected: both are built without
+   FMA contraction); both timed with CUDA events;
+4. the fixture golden (96x96, ``tests/golden/fixture_scene_96.npz``)
+   under the golden rule (at most 0.3% of pixels with a channel off by
+   more than 1);
+5. the main path: 20 frames through ``FrameEngine`` with the camera yaw
+   and the bone palette varying per frame; at least one K1 launch per
+   frame, no overflow, frame 0 equal under the golden rule to the same
+   frame through the plain raster.
+
+Prints the K1 record as one JSON line before the last, and as its last
+line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
+when no CUDA device is visible.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "tests" / "golden" / "fixture_scene_96.npz"
+KERNEL_SOURCE = "mt_renderer_tpu_torch/csrc/raster_fwd.cu"
+KERNEL_REPLACES = "mt_renderer_tpu/render/pallas_raster.py:618"
+HEADLINE = dict(instances=1024, subdiv=4, width=1920, height=1080)
+FRAMES = 20
+GOLDEN_SHARE = 0.003        # pixels allowed a channel off by more than 1
+ULP_TOL = 2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def golden_share(got_u8: np.ndarray, want_u8: np.ndarray) -> tuple:
+    """(share of pixels with a channel off by more than 1, count of
+    pixels that differ at all)."""
+    diff = np.abs(got_u8.astype(np.int32) - want_u8.astype(np.int32))
+    dmax = diff.max(-1)
+    return float((dmax > 1).mean()), int((dmax > 0).sum())
+
+
+def ulp_dist(a, b):
+    """Per-element distance in units in the last place between two f32
+    tensors (0 for +0 vs -0)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(2**31) - i, i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+    """Mean device time of ``fn`` in ms, CUDA events around ``reps``
+    calls after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_device() -> dict:
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    log(f"device: {name} (count {count}), torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    for line in smi.strip().splitlines():
+        log(line.strip())
+    return dict(kind=name, count=count)
+
+
+def phase_build() -> None:
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    report = rs.kernel_report()
+    log(f"build: K1 {KERNEL_SOURCE} in {time.perf_counter() - t0:.1f} s")
+    for line in report.splitlines():
+        log(f"  {line.strip()}")
+
+
+def headline_case(device, *, instances: int, subdiv: int, width: int,
+                  height: int) -> dict:
+    """The headline scene uploaded to ``device``, its camera, and the
+    caps sized at frame 0 the way ``bench.py`` sizes them."""
+    from mt_renderer_tpu_torch.entry import demo_case
+    from mt_renderer_tpu_torch.render import device as dv
+
+    t0 = time.perf_counter()
+    demo = demo_case(device, instances=instances, subdiv=subdiv,
+                     width=width, height=height)
+    vp = demo.view_proj()
+    bones = demo.bone_mats(0.0)
+    maxc = dv.auto_maxc(demo.batch, vp, bones, width=width, height=height)
+    taps = dv.auto_tap_tiles(demo.batch, vp, bones, width=width,
+                             height=height)
+    log(f"scene: {len(demo.batch.tris)} tris, {width}x{height}, "
+        f"maxc={maxc}, tap_tiles={taps}, set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(demo=demo, scene=demo.scene, vp=vp, bones=bones,
+                maxc=maxc, taps=taps, width=width, height=height)
+
+
+def phase_kernel(case: dict) -> dict:
+    """K1 against its plain version on the same inputs at the case's
+    shapes."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = case["width"], case["height"]
+    pw, ph = dv._padded(w, h)
+    scene = case["scene"]
+    clip = dv.vertex_stage(scene, case["vp"], case["bones"])
+    cols, bbox = dv.setup_packed_cols(scene, clip, w, h)
+    lists, glists, counts, n_over = rs.prebin(
+        cols, bbox, 0, 0, width=pw, height=ph, maxc=case["maxc"])
+    args = (cols, lists, glists, counts, (0, 0))
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS)
+
+    got = rs.raster_fwd(*args, **kw)
+    want = rs.raster_fwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    zk, ik, tk, xk = got
+    zp, ip, tp, xp = want
+    n_id = int((ik != ip).sum())
+    n_cov = int(((ik >= 0) != (ip >= 0)).sum())
+    n_tap = int((xk != xp).sum())
+    z_ulp = int(ulp_dist(zk, zp).max())
+    t_ulp = int(ulp_dist(tk, tp).max())
+    max_err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+    cov = float((ip >= 0).float().mean())
+    log(f"K1 vs plain at {pw}x{ph}, {cols.shape[1]} tris, maxc="
+        f"{lists.shape[1]}, n_over={int(n_over)}, covered {cov:.4f}: "
+        f"id mismatches {n_id}, coverage mismatches {n_cov}, tapidx "
+        f"mismatches {n_tap}, z max ulp {z_ulp}, tattrs max ulp {t_ulp}, "
+        f"max_abs_err {max_err!r}")
+    if n_id or n_cov or n_tap or z_ulp > ULP_TOL or t_ulp > ULP_TOL:
+        raise AssertionError("K1 disagrees with its plain version")
+    if int(n_over):
+        raise AssertionError(f"{int(n_over)} tiles over maxc at frame 0")
+
+    kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw))
+    log(f"raster_kernel_ms {kernel_ms!r}")
+    log(f"raster_plain_ms {plain_ms!r}")
+    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms)
+
+
+def phase_golden(device) -> None:
+    from mt_renderer_tpu_torch.entry import demo_case
+    from mt_renderer_tpu_torch.render import device as dv
+
+    want = np.load(GOLDEN)["color"]
+    case = demo_case(device, instances=4, subdiv=2, width=96, height=96)
+    got, _ = dv.render_frame(case.scene, case.view_proj(),
+                             case.bone_mats(0.6), width=96, height=96)
+    share, n_diff = golden_share(got.cpu().numpy(), want)
+    log(f"golden fixture_scene_96: {share:.5f} of pixels off by > 1 "
+        f"({n_diff} differ at all), limit {GOLDEN_SHARE}")
+    if share > GOLDEN_SHARE:
+        raise AssertionError("fixture golden fails the golden rule")
+
+
+def phase_main(case: dict) -> dict:
+    """FRAMES frames of the production loop → the K1 launch count of
+    this run, coverage and frame times."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import engine as en
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h, demo = case["width"], case["height"], case["demo"]
+    cam = demo.camera
+    frames = FRAMES
+    base_yaw = cam.yaw
+    eng = en.FrameEngine(demo.scene, demo.batch, width=w, height=h)
+    rs.flush_overflow_checks()
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events "
+                             "before the main path")
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(frames + 1)]
+    t0 = time.perf_counter()
+    rs.raster_fwd.launches = 0
+    ev[0].record()
+    for t in range(frames):
+        cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
+        vp = demo.view_proj()
+        bones = demo.bone_mats(0.3 * t)
+        color, depth = eng.render(vp, bones)
+        if t == 0:
+            first = (color, depth, vp, bones, eng.maxc, eng.tap_tiles)
+        ev[t + 1].record()
+    ev[-1].synchronize()
+    launches = rs.raster_fwd.launches
+    wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    cam.yaw = base_yaw
+    eng.check()
+    rs.flush_overflow_checks()
+    log(f"main path: {frames} frames, K1 launches {launches}, overflow "
+        f"events {rs.OVERFLOW_EVENTS}, caps maxc={eng.maxc} "
+        f"tap_tiles={eng.tap_tiles}, recoveries {eng.recoveries}")
+    if launches < frames:
+        raise AssertionError(f"K1 launched {launches} times in {frames} "
+                             "frames")
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError("overflow on the main path")
+
+    color0, depth0, vp0, bones0, maxc0, taps0 = first
+    if (tuple(color0.shape) != (h, w) or color0.dtype != torch.int32
+            or tuple(depth0.shape) != (h, w)
+            or not bool(torch.isfinite(depth0).all())):
+        raise AssertionError(f"frame 0 malformed: {color0.dtype} "
+                             f"{tuple(color0.shape)}")
+    coverage = float((depth0 < 1.0).float().mean())
+    plain, _, _ = dv._render_frame_core(
+        case["scene"], vp0, bones0, width=w, height=h,
+        clear_color=(255, 255, 255, 255), maxc=maxc0, tap_tiles=taps0,
+        raster=rs.raster_fwd_reference)
+    share, n_diff = golden_share(dv.unpack_rgba(color0),
+                                 dv.unpack_rgba(plain))
+    log(f"frame 0 vs plain raster: {share:.6f} of pixels off by > 1, "
+        f"{n_diff} pixels differ; coverage {coverage:.4f}")
+    if share > GOLDEN_SHARE or not 0.0 < coverage < 1.0:
+        raise AssertionError("main-path frame 0 is wrong")
+    per = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+    frame_ms = ev[0].elapsed_time(ev[-1]) / frames
+    log(f"frame_ms {frame_ms!r} (CUDA events over {frames} frames; host "
+        f"clock {wall_ms!r} ms/frame); per frame: median "
+        f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
+    return dict(launches=launches, coverage=coverage, frame_ms=frame_ms)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    import mt_renderer_tpu_torch  # noqa: F401  (sets fp32 matmul rules)
+
+    dev_info = phase_device()
+    device = torch.device("cuda", 0)
+    phase_build()
+    case = headline_case(device, **HEADLINE)
+    k1 = phase_kernel(case)
+    phase_golden(device)
+    main_run = phase_main(case)
+    record = dict(name="raster_fwd", route="cuda", source=KERNEL_SOURCE,
+                  replaces=KERNEL_REPLACES,
+                  launches=main_run["launches"], **k1)
+    for v in (record["max_abs_err"], record["ms"], record["plain_ms"]):
+        if not math.isfinite(v):
+            raise AssertionError(f"non-finite reading in {record}")
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev_info["kind"],
+        "count": dev_info["count"]}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

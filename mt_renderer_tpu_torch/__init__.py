@@ -1,0 +1,29 @@
+"""mt_renderer_tpu_torch — the renderer's device path in PyTorch and CUDA.
+
+The counterpart of ``mt_renderer_tpu`` for one NVIDIA Hopper GPU. The
+host layers (asset formats, scene assembly, camera, the NumPy oracle)
+are shared with ``mt_renderer_tpu`` and imported from it unchanged; this
+package holds the device stages (``render.device``), the binned tile
+raster and its hand-written CUDA kernel (``render.raster``,
+``csrc/raster_fwd.cu``) and the frame loop (``render.engine``).
+
+It never imports ``jax``: the machine that runs it on the card has none.
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def setup_runtime() -> None:
+    """Keep fp32 geometry at full precision. A TF32 product keeps ~10
+    mantissa bits, far too few for edge functions at 1080p: coverage
+    would collapse the way bf16 matmuls collapsed it on the TPU. The port
+    uses no matmul on its geometry today; this pins the rule for any
+    that is added."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+setup_runtime()

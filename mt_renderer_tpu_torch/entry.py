@@ -1,0 +1,64 @@
+"""Entry point: the production render step on the flagship scene.
+
+The counterpart of ``__graft_entry__.entry``: the textured + skinned
+instanced demo scene through the binned tile raster with the in-kernel
+tap epilogue, returning the packed frame. ``demo_case`` builds that
+scene at any size, so scripts reach it through the port alone.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from mt_renderer_tpu.scene import demo
+
+from .render import device as dv
+
+
+@dataclass
+class DemoCase:
+    """The skinned demo scene at one size: the host batch the cap
+    predictors read, the scene uploaded to a device, and the camera that
+    frames it."""
+    batch: object               # host DrawBatch
+    scene: dv.DeviceScene
+    camera: object              # app.camera.Camera; its yaw may be moved
+    width: int
+    height: int
+
+    def view_proj(self) -> np.ndarray:
+        return np.asarray(self.camera.view_proj())
+
+    @staticmethod
+    def bone_mats(t: float) -> np.ndarray:
+        """The demo's two-bone palette at animation phase ``t``."""
+        return demo.demo_bone_mats(t)
+
+
+def demo_case(device, *, instances: int, width: int, height: int,
+              subdiv: int = 0) -> DemoCase:
+    """``instances`` skinned, textured demo cubes (12·max(subdiv, 1)²
+    triangles each) uploaded to ``device`` with the quad texel pool, and
+    a camera framing them at ``width`` x ``height``."""
+    batch = demo.build_demo_batch(instances=instances, skinned=True,
+                                  subdiv=subdiv)
+    return DemoCase(batch=batch, scene=dv.upload(batch, device=device),
+                    camera=demo.demo_camera(instances, width, height),
+                    width=width, height=height)
+
+
+def entry(device):
+    """(fn, example_args) — ``fn(scene, view_proj, bone_mats)`` renders
+    one 256x256 packed frame (int32 RGBA8 bits) of the 16-instance
+    skinned demo scene uploaded to ``device``."""
+    case = demo_case(device, instances=16, width=256, height=256)
+
+    def fn(scene, view_proj, bone_mats):
+        color, _ = dv.render_frame(
+            scene, view_proj, bone_mats, width=case.width,
+            height=case.height, backend="pallas", packed=True)
+        return color
+
+    return fn, (case.scene, case.view_proj(), case.bone_mats(0.5))

@@ -1,0 +1,214 @@
+"""Where a frame's time goes: host cap guard, device path, stages, kernels.
+
+    python -m mt_renderer_tpu_torch.frame_profile            # headline, GPU
+    python -m mt_renderer_tpu_torch.frame_profile --device cpu \\
+        --instances 4 --subdiv 1 --width 256 --height 128     # rehearsal
+
+At the headline workload (the skinned demo scene, 1024 instances at
+subdiv 4, 1920x1080) it prints, one reading per line:
+
+* the host predictors ``FrameEngine`` runs before each frame
+  (``predict_bin_counts`` + ``auto_tap_tiles``), and ``auto_maxc`` and
+  ``skin_positions`` they are built on, in ms over ``--views`` views;
+* ``render_frame`` with the caps fixed (no host guard): view and bones
+  sent from the host each frame, then already on the device;
+* each stage of the frame timed alone;
+* the frame's binning (chunks per tile, live (tile, group) pairs);
+* from ``torch.profiler`` over ``--prof-frames`` device-resident frames:
+  device busy time per frame (the union of the kernel and copy
+  intervals), the device's idle share against the unprofiled frame, and
+  the largest kernels.
+
+Device times use CUDA events on a CUDA device and the host clock on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from mt_renderer_tpu.render import cpu_reference as cr
+
+from .entry import demo_case
+from .render import device as dv
+from .render import raster as rs
+
+
+def _timed(fn, dev: torch.device, reps: int, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _device_busy(prof, frames: int) -> tuple[float, float, list]:
+    """(busy ms per frame: the union of device-event intervals, span ms
+    per frame from the first device event's start to the last one's end,
+    the five largest kernels as (name, ms per frame))."""
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return float("nan"), float("nan"), []
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    per_name: dict[str, float] = {}
+    for e in evs:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    return (busy / 1e3 / frames, span / 1e3 / frames,
+            [(name[:80], us / 1e3 / frames) for name, us in top])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--instances", type=int, default=1024)
+    ap.add_argument("--subdiv", type=int, default=4)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--views", type=int, default=5)
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--prof-frames", type=int, default=5)
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    w, h = args.width, args.height
+    pw, ph = dv._padded(w, h)
+
+    case = demo_case(dev, instances=args.instances, subdiv=args.subdiv,
+                     width=w, height=h)
+    batch, scene, cam = case.batch, case.scene, case.camera
+    vp, bones = case.view_proj(), case.bone_mats(0.0)
+    maxc = dv.auto_maxc(batch, vp, bones, width=w, height=h)
+    taps = dv.auto_tap_tiles(batch, vp, bones, width=w, height=h)
+    print(f"scene: {len(batch.tris)} tris, {w}x{h}, maxc={maxc}, "
+          f"tap_tiles={taps}, device {dev}")
+
+    # host predictors at views that vary as the smoke's main path does
+    host = {k: [] for k in ("predict_bin_counts", "auto_tap_tiles",
+                            "auto_maxc", "skin_positions")}
+    base_yaw = cam.yaw
+    for t in range(args.views):
+        cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
+        v, b = case.view_proj(), case.bone_mats(0.3 * t)
+        kw = dict(width=w, height=h)
+        host["predict_bin_counts"].append(_host_ms(
+            lambda: dv.predict_bin_counts(batch, v, b, **kw)))
+        host["auto_tap_tiles"].append(_host_ms(
+            lambda: dv.auto_tap_tiles(batch, v, b, **kw)))
+        host["auto_maxc"].append(_host_ms(
+            lambda: dv.auto_maxc(batch, v, b, **kw)))
+        host["skin_positions"].append(_host_ms(
+            lambda: cr.skin_positions(batch, b)))
+    cam.yaw = base_yaw
+    for k, ms in host.items():
+        print(f"host {k} ms: {json.dumps(ms)}")
+    guard = [a + b for a, b in zip(host["predict_bin_counts"],
+                                   host["auto_tap_tiles"])]
+    print(f"host guard per frame (predict_bin_counts + auto_tap_tiles) "
+          f"ms: {json.dumps(guard)}")
+
+    def frame(v, b):
+        return dv.render_frame(scene, v, b, width=w, height=h, maxc=maxc,
+                               tap_tiles=taps, packed=True)
+
+    vp_d, bones_d = dv._f32(vp, dev), dv._f32(bones, dev)
+    host_in = _timed(lambda: frame(vp, bones), dev, args.frames)
+    dev_in = _timed(lambda: frame(vp_d, bones_d), dev, args.frames)
+    rs.flush_overflow_checks()
+    print(f"render_frame, caps fixed, view+bones from host: {host_in!r} "
+          f"ms/frame")
+    print(f"render_frame, caps fixed, view+bones on device: {dev_in!r} "
+          f"ms/frame")
+
+    clip = dv.vertex_stage(scene, vp_d, bones_d)
+    cols, bbox = dv.setup_packed_cols(scene, clip, w, h)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph, maxc=maxc)
+    ras = rs.raster_fwd(cols, lists, glists, counts, (0, 0), width=pw,
+                        height=ph, w_eps=dv.W_EPS)
+    zb, ib, tattrs, tapidx = ras
+    colort, _, _ = dv.shade_finish_tap_flat(scene, tattrs, tapidx, ib,
+                                            (255,) * 4, tap_tiles=taps)
+    stages = {
+        "vertex_stage": lambda: dv.vertex_stage(scene, vp_d, bones_d),
+        "setup_packed_cols": lambda: dv.setup_packed_cols(scene, clip, w, h),
+        "prebin": lambda: rs.prebin(cols, bbox, 0, 0, width=pw, height=ph,
+                                    maxc=maxc),
+        "raster_fwd": lambda: rs.raster_fwd(
+            cols, lists, glists, counts, (0, 0), width=pw, height=ph,
+            w_eps=dv.W_EPS),
+        "shade_finish_tap_flat": lambda: dv.shade_finish_tap_flat(
+            scene, tattrs, tapidx, ib, (255,) * 4, tap_tiles=taps),
+        "shade_finish_tap_flat, dense": lambda: dv.shade_finish_tap_flat(
+            scene, tattrs, tapidx, ib, (255,) * 4, tap_tiles=None),
+        "unflatten+crop": lambda: rs.unflatten_tiles(
+            colort, ph, pw)[:h, :w].contiguous(),
+    }
+    print("stages ms: " + json.dumps(
+        {k: _timed(fn, dev, args.frames) for k, fn in stages.items()}))
+    rs.flush_overflow_checks()
+
+    bits = sum(int(((glists >> g) & 1).sum()) for g in range(rs.G))
+    print(f"binning: chunks per tile max {int(counts.max())} mean "
+          f"{float(counts.float().mean())!r}; live (tile, group) pairs "
+          f"{bits}, i.e. {bits * rs.KG * rs.TILE_H * rs.TILE_W} "
+          f"(triangle, pixel) pairs")
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.prof_frames):
+            frame(vp_d, bones_d)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    rs.flush_overflow_checks()
+    busy, span, top = _device_busy(prof, args.prof_frames)
+    if top:
+        print(f"profiler, {args.prof_frames} frames: device busy "
+              f"{busy!r} ms/frame over a span of {span!r} ms/frame; idle "
+              f"share against the unprofiled {dev_in!r} ms frame: "
+              f"{1.0 - busy / dev_in!r}")
+        for name, ms in top:
+            print(f"  kernel {ms!r} ms/frame  {name}")
+    else:
+        print("profiler: no device events recorded; device busy time and "
+              "idle share not measured")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

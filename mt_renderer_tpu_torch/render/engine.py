@@ -1,0 +1,152 @@
+"""Production frame engine — sized caps + overflow recovery.
+
+The counterpart of ``mt_renderer_tpu/render/engine.py`` for the
+single-layer packed frame. ``FrameEngine`` owns the frame loop's
+wiring:
+
+* lazy sizing at the first rendered view: ``auto_maxc`` for the binning
+  cap and ``auto_tap_tiles`` for the compacted texture tap, with a
+  ``headroom`` factor over the measured need;
+* a per-frame host-side cap guard (no device sync): the binning need is
+  predicted exactly (``predict_bin_counts`` mirrors ``bin_chunks``) and
+  the tap liveness bounded from above (``predict_live_rows``), so the
+  engine grows a cap before a frame that would overflow it;
+* overflow recovery as the backstop: every ``check_every`` frames the
+  deferred overflow queue flushes (one device→host transfer); any
+  overflow re-sizes the affected cap at the current view (never below 2x
+  the overflowed cap) and logs.
+
+Depth peeling (``peel``) is not ported yet: slice 3 of the ROADMAP.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+
+from . import device
+from . import raster as rs
+
+logger = logging.getLogger("mt_renderer_tpu_torch.render")
+
+
+class FrameEngine:
+    def __init__(self, scene, batch, *, width: int, height: int,
+                 peel: int = 0, headroom: float = 1.5,
+                 check_every: int = 16):
+        if peel:
+            raise device._not_ported(
+                "FrameEngine(peel=...)", "slice 3 (ROADMAP Queue 1 item 11)")
+        self.scene = scene
+        self.batch = batch
+        self.width = width
+        self.height = height
+        self.headroom = headroom
+        self.check_every = check_every
+        self.maxc: int | None = None
+        self.tap_tiles: int | None = None
+        self.sized = False
+        self.recoveries = 0            # cap bumps taken so far
+        self._since_check = 0
+
+    def _predict(self, fn, view_proj, bone_mats, **kw):
+        return fn(self.batch, np.asarray(view_proj), bone_mats,
+                  width=self.width, height=self.height, **kw)
+
+    def size(self, view_proj, bone_mats=None) -> None:
+        """Size the binning and compacted-tap caps for this view (host
+        NumPy only)."""
+        self.maxc = self._predict(device.auto_maxc, view_proj, bone_mats,
+                                  margin=self.headroom)
+        self.tap_tiles = self._predict(device.auto_tap_tiles, view_proj,
+                                       bone_mats, margin=self.headroom)
+        self.sized = True
+        logger.info("FrameEngine sized: maxc=%s tap_tiles=%s (%dx%d)",
+                    self.maxc, self.tap_tiles, self.width, self.height)
+
+    def render(self, view_proj, bone_mats=None):
+        """One production frame → (packed color (H, W) i32, depth)."""
+        if not self.sized:
+            # drain counts queued by earlier renders so the first check
+            # attributes overflow to this engine's frames only
+            rs.flush_overflow_checks()
+            self.size(view_proj, bone_mats)
+        else:
+            self._guard(view_proj, bone_mats)
+        out = device.render_frame(
+            self.scene, view_proj, bone_mats, width=self.width,
+            height=self.height, maxc=self.maxc, packed=True,
+            tap_tiles=self.tap_tiles)
+        self._since_check += 1
+        if self._since_check >= self.check_every:
+            self.check(view_proj, bone_mats)
+        return out
+
+    def _guard(self, view_proj, bone_mats) -> None:
+        """Pre-render host-side cap guard (no device sync): grow the
+        caps before a frame that would overflow them."""
+        need = int(self._predict(device.predict_bin_counts, view_proj,
+                                 bone_mats).max())
+        if need > (self.maxc or 0):
+            old = self.maxc
+            self.maxc = self._predict(device.auto_maxc, view_proj,
+                                      bone_mats, margin=self.headroom)
+            self.recoveries += 1
+            logger.info("FrameEngine guard: view needs %d candidate chunks "
+                        "> maxc=%s — grew to %s before rendering",
+                        need, old, self.maxc)
+        bound = self._predict(device.auto_tap_tiles, view_proj, bone_mats,
+                              margin=self.headroom)
+        if bound > (self.tap_tiles or 0):
+            old = self.tap_tiles
+            self.tap_tiles = bound
+            self.recoveries += 1
+            logger.info("FrameEngine guard: tap row bound grew — %s -> %s "
+                        "before rendering", old, self.tap_tiles)
+
+    @staticmethod
+    def _grow(old: int, new: int) -> int:
+        """Monotone cap growth: at least the fresh measurement, at least
+        2x the overflowed cap (the overflow may have happened at an
+        earlier view than the one just re-measured)."""
+        return max(int(new), 2 * int(old))
+
+    def check(self, view_proj=None, bone_mats=None) -> dict:
+        """Flush the deferred overflow queue; on any overflow, re-size
+        the affected cap at the current view and log. Returns the
+        drained ``{what: (count, cap)}`` dict."""
+        self._since_check = 0
+        counts = rs.flush_overflow_counts()
+        if not any(n > 0 for n, _ in counts.values()):
+            return counts
+        if view_proj is None:
+            for what, (n, cap) in counts.items():
+                rs._overflow_report(n, cap, what)
+            return counts
+        for what, (n, cap) in counts.items():
+            if n <= 0:
+                continue
+            self.recoveries += 1
+            if what.startswith("bin"):
+                old = self.maxc
+                self.maxc = self._grow(old, self._predict(
+                    device.auto_maxc, view_proj, bone_mats,
+                    margin=self.headroom))
+                logger.warning(
+                    "FrameEngine: bin overflow on %d tile-frame(s) at "
+                    "maxc=%s — recovered to maxc=%s", n, old, self.maxc)
+            else:
+                old = self.tap_tiles
+                need = self._predict(device.auto_tap_tiles, view_proj,
+                                     bone_mats, margin=self.headroom)
+                grown = self._grow(old, need) if old else need
+                # a cap past "every row live" buys nothing
+                pw, ph = device._padded(self.width, self.height)
+                nrows = (pw // rs.TILE_W) * (ph // (device.SEG_PX
+                                                    // rs.TILE_W))
+                self.tap_tiles = min(grown, nrows)
+                logger.warning(
+                    "FrameEngine: tap overflow on %d row(s) at "
+                    "tap_tiles=%s — recovered to %s", n, old, self.tap_tiles)
+        return counts

@@ -1,0 +1,394 @@
+"""Binned tile raster: binning, the K1 raster kernel and the overflow queue.
+
+The counterpart of ``mt_renderer_tpu/render/pallas_raster.py`` on the
+single-layer tap path. It keeps the reference's geometry (16x128-px
+tiles, 384-triangle chunks, 32-triangle culling groups), so binning
+compares bit for bit with the JAX package's.
+
+Per-triangle setup arrives as one column-major ``(ncol, Tp)`` f32 matrix
+(``device.setup_packed_cols``): rows 0-14 are the raster columns
+
+    0:3 ea   3:6 eb   6:9 ec   9:12 edge bias   12:15 z plane
+
+and rows 15-32 the 18 coefficient columns the tap epilogue reads
+
+    15:18 u/w plane   18:21 v/w plane   21:24 1/w plane   24 tex
+    25:29 C rgba      29:31 mip-0 pool offset hi/lo      31 th   32 tw
+
+Chunk ``c`` is triangles ``[c*CT, (c+1)*CT)`` and its group ``g`` is
+triangles ``[c*CT + g*KG, +KG)``, so a triangle's global id is its
+column index.
+
+``raster_fwd`` dispatches on the tensors' device: a CPU tensor runs the
+plain PyTorch version ``raster_fwd_reference``; a CUDA tensor launches
+the hand-written kernel ``csrc/raster_fwd.cu`` or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import warnings
+
+import torch
+
+from .. import _build
+
+logger = logging.getLogger("mt_renderer_tpu_torch.render")
+
+TILE_H = 16
+TILE_W = 128
+P = TILE_H * TILE_W      # flattened pixels per tile
+CT = 384                 # triangles per chunk
+KG = 32                  # triangles per culling group
+G = CT // KG             # culling groups per chunk (12): ascending g is
+                         # ascending triangle index
+MAXC_DEFAULT = 256       # binning cap: candidate chunks per tile
+REJECT = 3.0e38          # edge bias that is never reached: always outside
+N_RAST = 15              # raster columns
+ATTRS_BASE = 12          # attribute planes of the unlit variant
+N_COEF = 18              # coefficient columns after the raster columns
+ATTRS_TAP = 6            # tap epilogue output planes: fx, fy, C rgba
+
+_SOURCES = ["raster_fwd.cu"]
+
+
+# ------------------------------------------------------------------ binning
+
+
+def bin_chunks(bbox, n_ty: int, n_tx: int, maxc: int, x0: int, y0: int):
+    """Order-preserving per-tile chunk lists + per-group overlap masks.
+
+    ``bbox`` = (xmin, xmax, ymin, ymax, zmin), each (C*G,) f32 at group
+    granularity. Returns (lists (n_tiles, maxc) i32 with -1 padding,
+    glists (n_tiles, maxc) i32 with bit g set iff group g of that chunk
+    overlaps the tile, counts (n_tiles,) i32 capped at maxc,
+    counts_true (n_tiles,) i32 uncapped).
+
+    Candidate chunks come nearest first (by chunk min depth). The order
+    does not change the image: exact-z ties resolve by global triangle
+    id in the raster. Over the cap, the farthest chunks are dropped."""
+    xmin, xmax, ymin, ymax, zmin = bbox
+    dev = xmin.device
+    c = xmin.shape[0] // G
+    n_tiles = n_ty * n_tx
+    ty0 = torch.arange(n_ty, dtype=torch.float32, device=dev) * TILE_H \
+        + float(y0)
+    tx0 = torch.arange(n_tx, dtype=torch.float32, device=dev) * TILE_W \
+        + float(x0)
+    ovy = (ymax[:, None] >= ty0) & (ymin[:, None] <= ty0 + TILE_H)
+    ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + TILE_W)
+    ov_g = (ovy[:, :, None] & ovx[:, None, :]).reshape(c, G, n_tiles)
+    bits = 1 << torch.arange(G, dtype=torch.int32, device=dev)
+    gbit = (ov_g.to(torch.int32) * bits[None, :, None]).sum(
+        1, dtype=torch.int32).T.contiguous()              # (tiles, C)
+    ov = gbit > 0
+
+    counts_true = ov.sum(1, dtype=torch.int32)
+    counts = counts_true.clamp(max=maxc)
+    # z-rank per chunk: perm[i] = chunk id of the i-th nearest chunk
+    zmin_c = zmin.reshape(c, G).amin(1)
+    perm = torch.argsort(zmin_c, stable=True).to(torch.int32)
+    rank = torch.empty(c, dtype=torch.int32, device=dev)
+    rank[perm.long()] = torch.arange(c, dtype=torch.int32, device=dev)
+    # top-k over key = C - rank keeps the nearest chunks, nearest first;
+    # positive keys are unique, zero keys (no overlap) mask to -1
+    key = torch.where(ov, c - rank, 0)
+    topk = torch.topk(key, maxc, dim=1).values
+    lists = torch.where(topk > 0,
+                        perm[(c - topk).clamp(max=c - 1).long()], -1)
+    glists = torch.gather(gbit, 1, lists.clamp(min=0).long())
+    glists = torch.where(lists >= 0, glists, 0)
+    return lists, glists, counts, counts_true
+
+
+def prebin(cols, bbox, x0: int, y0: int, *, width: int, height: int,
+           maxc: int = MAXC_DEFAULT):
+    """Bin a frame's triangles → (lists, glists, counts, n_over) for
+    ``raster_fwd``. ``n_over`` is a device i32 scalar: tiles whose true
+    candidate count exceeded the cap (queue it with
+    ``queue_overflow_check``). ``maxc`` is capped at the chunk count."""
+    maxc = min(maxc, cols.shape[1] // CT)
+    lists, glists, counts, counts_true = bin_chunks(
+        bbox, height // TILE_H, width // TILE_W, maxc, x0, y0)
+    n_over = (counts_true > maxc).sum(dtype=torch.int32)
+    return lists, glists, counts, n_over
+
+
+# ------------------------------------------------------------ overflow queue
+
+# A tile whose true candidate count exceeds ``maxc`` drops its farthest
+# chunks, and a compacted tap over its cap loses texture. Frame wrappers
+# queue the device counts here without a sync; they stay on the device
+# (summed there every _COMPRESS entries) until ``flush_overflow_checks``,
+# the only transfer. Any overflow bumps OVERFLOW_EVENTS and warns;
+# MTR_STRICT_OVERFLOW=1 makes it fatal.
+OVERFLOW_EVENTS = 0
+_WHAT_BINS = "bin overflow: candidate chunks dropped triangles; raise " \
+             "maxc (see device.auto_maxc)"
+_PENDING: dict = {}       # what -> [device counts]
+_PENDING_CAP: dict = {}   # what -> largest cap seen
+_COMPRESS = 512
+
+
+def _overflow_report(n: int, cap: int, what: str = _WHAT_BINS):
+    global OVERFLOW_EVENTS
+    if n > 0:
+        OVERFLOW_EVENTS += 1
+        msg = f"raster: {n} tile-frame(s) exceeded cap={cap} — {what}"
+        logger.error(msg)
+        if os.environ.get("MTR_STRICT_OVERFLOW"):
+            raise RuntimeError(msg)
+        warnings.warn(msg, RuntimeWarning)
+
+
+def _sum_grouped(q) -> list:
+    """Device-side partial sums of queued scalars, one per device."""
+    groups: dict = {}
+    for x in q:
+        groups.setdefault(x.device, []).append(x)
+    return [g[0] if len(g) == 1 else torch.stack(g).sum(dtype=torch.int64)
+            for g in groups.values()]
+
+
+def queue_overflow_check(n_over, maxc: int, what: str = _WHAT_BINS):
+    """Queue a device scalar (count over a static cap) for host
+    checking. No sync: the queue only sums on the device once it grows
+    past _COMPRESS entries."""
+    q = _PENDING.setdefault(what, [])
+    q.append(n_over)
+    _PENDING_CAP[what] = max(_PENDING_CAP.get(what, 0), int(maxc))
+    if len(q) >= _COMPRESS:
+        _PENDING[what] = _sum_grouped(q)
+
+
+def flush_overflow_counts() -> dict:
+    """Drain the queue and return ``{what: (total, cap)}`` without
+    reporting (one device→host transfer per overflow kind and device).
+    ``engine.FrameEngine`` reads the counts itself and resizes."""
+    pending = {w: q for w, q in _PENDING.items() if q}
+    _PENDING.clear()
+    caps = _PENDING_CAP.copy()
+    _PENDING_CAP.clear()
+    return {what: (sum(int(part) for part in _sum_grouped(q)),
+                   caps.get(what, 0))
+            for what, q in pending.items()}
+
+
+def flush_overflow_checks():
+    """Check all queued overflow counts. Call at the end of a frame loop
+    or periodically."""
+    for what, (total, cap) in flush_overflow_counts().items():
+        _overflow_report(total, cap, what)
+
+
+# ------------------------------------------------------------ K1: raster
+
+
+def _trunc_i32(x):
+    """f32 → i32 toward zero, saturating, NaN → 0: the CUDA kernel's
+    ``__float2int_rz``, so both versions agree on every input."""
+    big = x >= 2147483648.0
+    i = torch.where(big | x.isnan(), 0.0,
+                    x.clamp(min=-2147483648.0)).to(torch.int32)
+    return torch.where(big, 2147483647, i)
+
+
+def _tap_epilogue(a, px, py, w_eps: float):
+    """The winner's coefficients ``a`` (N_COEF, ...) → (tattrs
+    (..., 6 planes) as a list [fx, fy, C rgba], tapidx i32): the
+    bilinear tap address of the mip-0 quad-pool row, evaluated at the
+    pixel centers. Zero coefficients (uncovered pixels) give tapidx 0,
+    fx = fy = 0 and C = 0, as in the reference."""
+
+    def ev(i):
+        return a[i] * px + a[i + 1] * py + a[i + 2]
+
+    w1 = ev(6)
+    inv = torch.reciprocal(torch.where(w1.abs() < w_eps, w_eps, w1))
+    u = ev(0) * inv
+    v = ev(3) * inv
+    th = a[16]
+    tw = a[17]
+    x = u * tw - 0.5
+    y = v * th - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = torch.where(x0f < 0, 0.0, x - x0f)
+    fy = torch.where(y0f < 0, 0.0, y - y0f)
+    wwi = _trunc_i32(tw)
+    hhi = _trunc_i32(th)
+    x0c = torch.minimum(_trunc_i32(x0f).clamp(min=0), (wwi - 1).clamp(min=0))
+    y0c = torch.minimum(_trunc_i32(y0f).clamp(min=0), (hhi - 1).clamp(min=0))
+    offi = _trunc_i32(a[14]) * 4096 + _trunc_i32(a[15])
+    idx = offi + y0c * wwi + x0c
+    tapidx = torch.where(a[9] >= 0.0, idx, -1)
+    return [fx, fy, a[10], a[11], a[12], a[13]], tapidx
+
+
+def _check_raster_args(cols, lists, glists, counts, width, height):
+    if width % TILE_W or height % TILE_H:
+        raise ValueError(f"band {width}x{height} not tile-aligned "
+                         f"({TILE_W}x{TILE_H})")
+    n_tiles = (height // TILE_H) * (width // TILE_W)
+    if (cols.dtype != torch.float32 or cols.dim() != 2
+            or cols.shape[0] < N_RAST + N_COEF or cols.shape[1] % CT):
+        raise ValueError(f"cols must be f32 (>= {N_RAST + N_COEF}, k*{CT}),"
+                         f" got {cols.dtype} {tuple(cols.shape)}")
+    for name, x, shape in (("lists", lists, (n_tiles, lists.shape[-1])),
+                           ("glists", glists, (n_tiles, lists.shape[-1])),
+                           ("counts", counts, (n_tiles,))):
+        if x.dtype != torch.int32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be i32 {shape}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if x.device != cols.device:
+            raise ValueError(f"{name} on {x.device}, cols on {cols.device}")
+
+
+def raster_fwd(cols, lists, glists, counts, origin, *, width: int,
+               height: int, w_eps: float):
+    """Binned single-layer raster with the tap epilogue over a band of
+    ``width`` x ``height`` px (tile-aligned) whose top-left pixel is
+    ``origin`` = (x0, y0).
+
+    Returns tile-major (zb (n_tiles, 1, P) f32 with 1.0 where uncovered,
+    ib (n_tiles, 1, P) i32 winner id or -1, tattrs (n_tiles, 6, P) f32
+    [fx, fy, C rgba], tapidx (n_tiles, 1, P) i32 quad-pool row or -1 for
+    untextured winners).
+
+    A CPU tensor runs ``raster_fwd_reference``. A CUDA tensor launches
+    ``csrc/raster_fwd.cu`` (counted in ``raster_fwd.launches``) or
+    raises."""
+    _check_raster_args(cols, lists, glists, counts, width, height)
+    if cols.device.type == "cpu":
+        return raster_fwd_reference(cols, lists, glists, counts, origin,
+                                    width=width, height=height, w_eps=w_eps)
+    if cols.device.type != "cuda":
+        raise ValueError(f"raster_fwd runs on CPU or CUDA, not "
+                         f"{cols.device}")
+    return _raster_fwd_cuda(cols, lists, glists, counts, origin,
+                            width=width, height=height, w_eps=w_eps)
+
+
+raster_fwd.launches = 0
+
+
+def _load_kernel():
+    lib = _build.load("raster_fwd", _SOURCES)
+    fn = lib.mtr_raster_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, i, i, i, i, i, ctypes.c_float,
+                       p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_report() -> str:
+    """Build K1 if needed; its ``ptxas info`` lines."""
+    return _build.ptxas_report("raster_fwd", _SOURCES)
+
+
+def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
+                     height, w_eps):
+    fn = _load_kernel()
+    cols = cols.contiguous()
+    lists = lists.contiguous()
+    glists = glists.contiguous()
+    counts = counts.contiguous()
+    n_tx = width // TILE_W
+    n_tiles = (height // TILE_H) * n_tx
+    dev = cols.device
+    zb = torch.empty((n_tiles, 1, P), dtype=torch.float32, device=dev)
+    ib = torch.empty((n_tiles, 1, P), dtype=torch.int32, device=dev)
+    tattrs = torch.empty((n_tiles, ATTRS_TAP, P), dtype=torch.float32,
+                         device=dev)
+    tapidx = torch.empty((n_tiles, 1, P), dtype=torch.int32, device=dev)
+    x0, y0 = (int(o) for o in origin)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cols.data_ptr(), cols.shape[1], lists.data_ptr(),
+                 glists.data_ptr(), counts.data_ptr(), n_tiles,
+                 lists.shape[1], n_tx, x0, y0, w_eps, zb.data_ptr(),
+                 ib.data_ptr(), tattrs.data_ptr(), tapidx.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"raster_fwd kernel launch failed: cudaError {err}")
+    raster_fwd.launches += 1
+    return zb, ib, tattrs, tapidx
+
+
+def raster_fwd_reference(cols, lists, glists, counts, origin, *,
+                         width: int, height: int, w_eps: float):
+    """Plain PyTorch version of ``raster_fwd``, same contract. Batches
+    over the tiles that are live at each (list slot, group) step; reads
+    no chunk beyond a tile's ``counts`` and skips groups whose mask bit
+    is clear. Per pixel it keeps the lexicographic minimum of
+    (z, -global id) over candidates inside all three edges with
+    0 <= z: each group's nearest (latest on ties) candidate replaces the
+    running winner if nearer, or equally near with a larger id."""
+    _check_raster_args(cols, lists, glists, counts, width, height)
+    dev = cols.device
+    n_tx = width // TILE_W
+    n_tiles = (height // TILE_H) * n_tx
+    x0, y0 = (int(o) for o in origin)
+    t = torch.arange(n_tiles, device=dev)
+    flat = torch.arange(P, device=dev)
+    px0 = ((t % n_tx) * TILE_W + x0).to(torch.float32)
+    py0 = ((t // n_tx) * TILE_H + y0).to(torch.float32)
+    px = (flat % TILE_W).to(torch.float32)[None, :] + (px0 + 0.5)[:, None]
+    py = (flat // TILE_W).to(torch.float32)[None, :] + (py0 + 0.5)[:, None]
+    zbuf = torch.full((n_tiles, P), float("inf"), device=dev)
+    win = torch.full((n_tiles, P), -1, dtype=torch.int32, device=dev)
+    kk = torch.arange(KG, dtype=torch.int32, device=dev)
+
+    n_slots = int(counts.max()) if n_tiles else 0
+    for s in range(n_slots):
+        cid = lists[:, s]
+        gm = glists[:, s]
+        in_list = counts > s
+        for g in range(G):
+            act = torch.nonzero(in_list & (((gm >> g) & 1) != 0)).squeeze(1)
+            if act.numel() == 0:
+                continue
+            ids = cid[act, None] * CT + g * KG + kk              # (A, KG)
+            blk = cols[:N_RAST][:, ids.long()][..., None]     # (15, A, KG, 1)
+            pxa = px[act][:, None, :]                         # (A, 1, P)
+            pya = py[act][:, None, :]
+
+            def edge_ok(i):
+                e = blk[i] * pxa + blk[3 + i] * pya + blk[6 + i]
+                return e > blk[9 + i]
+
+            inside = edge_ok(0) & edge_ok(1) & edge_ok(2)
+            z = blk[12] * pxa + blk[13] * pya + blk[14]        # (A, KG, P)
+            zb_a = zbuf[act]
+            wn_a = win[act]
+            zok = inside & (z >= 0.0) & (z <= zb_a[:, None, :])
+            zm = torch.where(zok, z, float("inf"))
+            zmin = zm.amin(1)                                 # (A, P)
+            winner_k = torch.where(zok & (zm == zmin[:, None, :]),
+                                   kk[None, :, None], -1).amax(1)
+            new_id = cid[act, None] * CT + g * KG + winner_k
+            upd = torch.isfinite(zmin) & (
+                (zmin < zb_a) | ((zmin == zb_a) & (new_id > wn_a)))
+            zbuf[act] = torch.where(upd, zmin, zb_a)
+            win[act] = torch.where(upd, new_id, wn_a)
+
+    covered = win >= 0
+    coef = cols[N_RAST:N_RAST + N_COEF][:, win.clamp(min=0).long()]
+    coef = torch.where(covered, coef, 0.0)                # (18, tiles, P)
+    planes, tapidx = _tap_epilogue(coef, px, py, w_eps)
+    zb = torch.where(covered, zbuf, 1.0)
+    return (zb[:, None, :], win[:, None, :], torch.stack(planes, 1),
+            tapidx[:, None, :])
+
+
+def unflatten_tiles(x, height: int, width: int):
+    """(n_tiles, 1, P) or (n_tiles, P) tile-major → (height, width)."""
+    n_ty = height // TILE_H
+    n_tx = width // TILE_W
+    return (x.reshape(n_ty, n_tx, TILE_H, TILE_W)
+            .permute(0, 2, 1, 3)
+            .reshape(height, width))

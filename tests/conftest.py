@@ -37,6 +37,10 @@ def pytest_configure(config):
         "slow: expensive interpret-mode/multiprocess test — skipped "
         "unless --runslow (CI tier: run BOTH `pytest tests/` and "
         "`pytest tests/ --runslow` before shipping)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (a hand-written kernel of "
+        "mt_renderer_tpu_torch); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
