@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once at the headline workload: the skinned,
-textured demo scene (1024 instances at subdiv 4, 196,608 triangles) at
-1920x1080 with the quad texel pool, through ``FrameEngine`` and
-``render_frame(packed=True)``. Phases, each of which raises on failure:
+Drives the port's two main paths once at the headline sizes: the
+skinned, textured demo scene (1024 instances at subdiv 4, 196,608
+triangles) at 1920x1080 with the quad texel pool, single-layer through
+``FrameEngine`` and ``render_frame(packed=True)``; and its glass variant
+(every 4th instance translucent, the camera inside the cube field)
+through ``FrameEngine(peel=4, peel_mode="split")`` and
+``render_frame_peeled``. Phases, each of which raises on failure:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build K1 (``csrc/raster_fwd.cu``) and print ptxas' register and
-   shared-memory report;
+2. build K1 (``csrc/raster_fwd.cu``) and K2 (``csrc/raster_fwd_ml.cu``),
+   both ``nvcc`` processes at once, and print ptxas' register, shared
+   memory and spill report;
 3. K1 against its plain PyTorch version on the card at the headline
    shapes: winner ids, tap addresses and coverage equal, z and the tap
    planes within 2 ulp (bit-equal is expected: both are built without
@@ -18,14 +22,29 @@ textured demo scene (1024 instances at subdiv 4, 196,608 triangles) at
 4. the fixture golden (96x96, ``tests/golden/fixture_scene_96.npz``)
    under the golden rule (at most 0.3% of pixels with a channel off by
    more than 1);
-5. the main path: 20 frames through ``FrameEngine`` with the camera yaw
-   and the bone palette varying per frame; at least one K1 launch per
-   frame, no overflow, frame 0 equal under the golden rule to the same
-   frame through the plain raster.
+5. the single-layer main path: 20 frames through ``FrameEngine`` with
+   the camera yaw and the bone palette varying per frame; at least one
+   K1 launch per frame, no overflow, frame 0 equal under the golden rule
+   to the same frame through the plain raster;
+6. K2 against its plain version at the glass headline (the translucent
+   set's binning, no opaque cull, K1's opaque z-buffer as ``zhi``,
+   L = 4) and, with the opaque cull, on the opaque headline scene: in
+   every layer ids and coverage equal, tap addresses equal, z and the
+   tap planes within 2 ulp; the glass case timed with CUDA events;
+7. the split peel equals the ml peel bit for bit, color and depth, on
+   opaque scenes: at the reference's verify-leg size (256x256, 9
+   instances, subdiv 2, L = 3, caps from ``measure_live_tap_tiles``)
+   and at the opaque headline with L = 4;
+8. the glass main path: 20 frames through ``FrameEngine(peel=4,
+   peel_mode="split")`` with yaw and bones varying as in phase 5; at
+   least one K1 and one K2 launch in every frame, no overflow, frame 0
+   equal under the golden rule to the same frame through both plain
+   rasters.
 
-Prints the K1 record as one JSON line before the last, and as its last
-line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
-when no CUDA device is visible.
+Each main path runs with every launch count set to 0 just before it and
+read just after. Prints the K1 and K2 records as one JSON line before
+the last, and as its last line ``{"ok": true, "device": {...}}``. Exits
+non-zero, with no result, when no CUDA device is visible.
 """
 
 from __future__ import annotations
@@ -43,7 +62,12 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "fixture_scene_96.npz"
 KERNEL_SOURCE = "mt_renderer_tpu_torch/csrc/raster_fwd.cu"
 KERNEL_REPLACES = "mt_renderer_tpu/render/pallas_raster.py:618"
+ML_KERNEL_SOURCE = "mt_renderer_tpu_torch/csrc/raster_fwd_ml.cu"
+ML_KERNEL_REPLACES = "mt_renderer_tpu/render/pallas_raster.py:843"
 HEADLINE = dict(instances=1024, subdiv=4, width=1920, height=1080)
+GLASS = dict(HEADLINE, translucent=True, cam_scale=0.3)
+VERIFY_LEG = dict(instances=9, subdiv=2, width=256, height=256)
+LAYERS = 4                  # the glass preset's peel depth
 FRAMES = 20
 GOLDEN_SHARE = 0.003        # pixels allowed a channel off by more than 1
 ULP_TOL = 2
@@ -111,32 +135,72 @@ def phase_build() -> None:
     from mt_renderer_tpu_torch.render import raster as rs
 
     t0 = time.perf_counter()
-    report = rs.kernel_report()
-    log(f"build: K1 {KERNEL_SOURCE} in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        log(f"  {line.strip()}")
+    rs.build_kernels()
+    log(f"build: K1 {KERNEL_SOURCE} and K2 {ML_KERNEL_SOURCE} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in rs.KERNELS:
+        log(f"ptxas report of {name}:")
+        for line in rs.kernel_report(name).splitlines():
+            log(f"  {line.strip()}")
+
+
+def reset_launches() -> None:
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    rs.raster_fwd.launches = 0
+    rs.raster_fwd_ml.launches = 0
 
 
 def headline_case(device, *, instances: int, subdiv: int, width: int,
-                  height: int) -> dict:
-    """The headline scene uploaded to ``device``, its camera, and the
-    caps sized at frame 0 the way ``bench.py`` sizes them."""
+                  height: int, translucent: bool = False,
+                  cam_scale: float = 1.0, phase: float = 0.0) -> dict:
+    """The headline scene (or its glass variant) uploaded to ``device``,
+    its camera, the bone palette at animation ``phase``, and the caps
+    sized for that view the way ``bench.py`` sizes them."""
     from mt_renderer_tpu_torch.entry import demo_case
     from mt_renderer_tpu_torch.render import device as dv
 
     t0 = time.perf_counter()
     demo = demo_case(device, instances=instances, subdiv=subdiv,
-                     width=width, height=height)
+                     width=width, height=height, translucent=translucent,
+                     cam_scale=cam_scale)
     vp = demo.view_proj()
-    bones = demo.bone_mats(0.0)
+    bones = demo.bone_mats(phase)
     maxc = dv.auto_maxc(demo.batch, vp, bones, width=width, height=height)
     taps = dv.auto_tap_tiles(demo.batch, vp, bones, width=width,
                              height=height)
     log(f"scene: {len(demo.batch.tris)} tris, {width}x{height}, "
-        f"maxc={maxc}, tap_tiles={taps}, set-up "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"translucent={translucent}, cam_scale={cam_scale}, maxc={maxc}, "
+        f"tap_tiles={taps}, set-up {time.perf_counter() - t0:.1f} s")
     return dict(demo=demo, scene=demo.scene, vp=vp, bones=bones,
                 maxc=maxc, taps=taps, width=width, height=height)
+
+
+def compare_outputs(got, want, what: str) -> float:
+    """Hold a raster's (z, ids, tattrs, tapidx) against its plain
+    version's: ids, coverage and tap addresses equal in every layer, z
+    and the tap planes within ULP_TOL. Returns the max abs error."""
+    zk, ik, tk, xk = got
+    zp, ip, tp, xp = want
+    n_id = [int((ik[:, i] != ip[:, i]).sum()) for i in range(ik.shape[1])]
+    n_cov = [int(((ik[:, i] >= 0) != (ip[:, i] >= 0)).sum())
+             for i in range(ik.shape[1])]
+    n_tap = int((xk != xp).sum())
+    z_ulp = int(ulp_dist(zk, zp).max())
+    t_ulp = int(ulp_dist(tk, tp).max())
+    max_err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+    cov = [round(float((ip[:, i] >= 0).float().mean()), 4)
+           for i in range(ip.shape[1])]
+    log(f"{what}: coverage per layer {cov}; id mismatches per layer "
+        f"{n_id}, coverage mismatches per layer {n_cov}, tapidx "
+        f"mismatches {n_tap}, z max ulp {z_ulp}, tattrs max ulp {t_ulp}, "
+        f"max_abs_err {max_err!r}")
+    if any(n_id) or any(n_cov) or n_tap or z_ulp > ULP_TOL \
+            or t_ulp > ULP_TOL:
+        raise AssertionError(f"{what}: the kernel disagrees with its plain "
+                             "version")
+    return max_err
 
 
 def phase_kernel(case: dict) -> dict:
@@ -160,23 +224,9 @@ def phase_kernel(case: dict) -> dict:
     got = rs.raster_fwd(*args, **kw)
     want = rs.raster_fwd_reference(*args, **kw)
     torch.cuda.synchronize()
-    zk, ik, tk, xk = got
-    zp, ip, tp, xp = want
-    n_id = int((ik != ip).sum())
-    n_cov = int(((ik >= 0) != (ip >= 0)).sum())
-    n_tap = int((xk != xp).sum())
-    z_ulp = int(ulp_dist(zk, zp).max())
-    t_ulp = int(ulp_dist(tk, tp).max())
-    max_err = max(float((a.double() - b.double()).abs().max())
-                  for a, b in zip(got, want))
-    cov = float((ip >= 0).float().mean())
-    log(f"K1 vs plain at {pw}x{ph}, {cols.shape[1]} tris, maxc="
-        f"{lists.shape[1]}, n_over={int(n_over)}, covered {cov:.4f}: "
-        f"id mismatches {n_id}, coverage mismatches {n_cov}, tapidx "
-        f"mismatches {n_tap}, z max ulp {z_ulp}, tattrs max ulp {t_ulp}, "
-        f"max_abs_err {max_err!r}")
-    if n_id or n_cov or n_tap or z_ulp > ULP_TOL or t_ulp > ULP_TOL:
-        raise AssertionError("K1 disagrees with its plain version")
+    max_err = compare_outputs(
+        got, want, f"K1 vs plain at {pw}x{ph}, {cols.shape[1]} tris, maxc="
+        f"{lists.shape[1]}")
     if int(n_over):
         raise AssertionError(f"{int(n_over)} tiles over maxc at frame 0")
 
@@ -223,7 +273,7 @@ def phase_main(case: dict) -> dict:
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(frames + 1)]
     t0 = time.perf_counter()
-    rs.raster_fwd.launches = 0
+    reset_launches()
     ev[0].record()
     for t in range(frames):
         cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
@@ -273,6 +323,169 @@ def phase_main(case: dict) -> dict:
     return dict(launches=launches, coverage=coverage, frame_ms=frame_ms)
 
 
+def phase_ml_kernel(glass: dict, opaque: dict) -> dict:
+    """K2 against its plain version: on the glass headline as the split
+    peel calls it (translucent set, no opaque cull, K1's opaque z-buffer
+    as ``zhi``), and with the opaque cull on the opaque headline."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = glass["width"], glass["height"]
+    pw, ph = dv._padded(w, h)
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS)
+    scene = glass["scene"]
+    clip = dv.vertex_stage(scene, glass["vp"], glass["bones"])
+    (cols_op, bbox_op), (cols_tr, bbox_tr) = dv.setup_packed_cols(
+        scene, clip, w, h, opacity_split=True)
+    pre = rs.prebin(cols_op, bbox_op, 0, 0, width=pw, height=ph,
+                    maxc=glass["maxc"])
+    zo, io, _, _ = rs.raster_fwd(cols_op, *pre[:3], (0, 0), **kw)
+    zhi = torch.where(io >= 0, zo, float("inf"))
+    lists, glists, counts, n_over = rs.prebin(
+        cols_tr, bbox_tr, 0, 0, width=pw, height=ph, maxc=glass["maxc"])
+    if int(n_over) or int(pre[3]):
+        raise AssertionError("glass frame 0 overflows maxc")
+    args = (cols_tr, lists, glists, counts, (0, 0))
+    mlkw = dict(kw, layers=LAYERS, opaque_cull=False, zhi=zhi)
+    got = rs.raster_fwd_ml(*args, **mlkw)
+    want = rs.raster_fwd_ml_reference(*args, **mlkw)
+    torch.cuda.synchronize()
+    err = compare_outputs(
+        got, want, f"K2 vs plain, glass headline {pw}x{ph}, translucent "
+        f"set, nocull + zhi, L={LAYERS}, maxc={lists.shape[1]}")
+    kernel_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_ml_reference(*args, **mlkw),
+                       warmup=1, reps=5)
+    log(f"raster_ml_kernel_ms {kernel_ms!r}")
+    log(f"raster_ml_plain_ms {plain_ms!r}")
+
+    scene = opaque["scene"]
+    cols, bbox = dv.setup_packed_cols(
+        scene, dv.vertex_stage(scene, opaque["vp"], opaque["bones"]), w, h)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph, maxc=opaque["maxc"])
+    args = (cols, lists, glists, counts, (0, 0))
+    mlkw = dict(kw, layers=LAYERS, opaque_cull=True)
+    err = max(err, compare_outputs(
+        rs.raster_fwd_ml(*args, **mlkw),
+        rs.raster_fwd_ml_reference(*args, **mlkw),
+        f"K2 vs plain, opaque headline, full (opaque cull), L={LAYERS}"))
+    full_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    log(f"raster_ml_kernel_ms, opaque headline, full: {full_ms!r}")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms)
+
+
+def split_equals_ml(case: dict, layers: int, what: str) -> None:
+    """The split peel (packed, caps measured for it) against the ml peel
+    (unpacked, dense), color and depth bit for bit: the reference's
+    ``peel_split`` verify leg."""
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    kw = dict(width=case["width"], height=case["height"], layers=layers,
+              maxc=case["maxc"])
+    caps = dv.measure_live_tap_tiles(case["scene"], case["vp"],
+                                     case["bones"], mode="split", **kw)
+    sc, sd = dv.render_frame_peeled(case["scene"], case["vp"],
+                                    case["bones"], peel_mode="split",
+                                    packed=True, tap_tiles=caps, **kw)
+    mc, md = dv.render_frame_peeled(case["scene"], case["vp"],
+                                    case["bones"], peel_mode="ml", **kw)
+    rs.flush_overflow_checks()
+    n_color = int((dv.unpack_rgba(sc) != mc.cpu().numpy()).any(-1).sum())
+    n_depth = int((sd != md).sum())
+    cover = float((md < 1.0).float().mean())
+    log(f"split vs ml, {what}, L={layers}, split caps {caps}: {n_color} "
+        f"pixels differ in color, {n_depth} in depth; coverage {cover:.4f}")
+    if n_color or n_depth or not 0.0 < cover or rs.OVERFLOW_EVENTS:
+        raise AssertionError(f"split peel differs from ml peel ({what})")
+
+
+def phase_split_vs_ml(device, opaque: dict) -> None:
+    leg = headline_case(device, **VERIFY_LEG, phase=0.6)
+    split_equals_ml(leg, 3, "verify-leg size 256x256, 9 instances")
+    split_equals_ml(opaque, LAYERS, "opaque headline")
+
+
+def phase_peel_main(glass: dict) -> dict:
+    """FRAMES frames of the glass production loop (split peel, L=4) →
+    the K1 and K2 launch counts of this run and frame times."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import engine as en
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h, demo = glass["width"], glass["height"], glass["demo"]
+    cam = demo.camera
+    frames = FRAMES
+    base_yaw = cam.yaw
+    eng = en.FrameEngine(demo.scene, demo.batch, width=w, height=h,
+                         peel=LAYERS, peel_mode="split")
+    rs.flush_overflow_checks()
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events "
+                             "before the glass main path")
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(frames + 1)]
+    per_frame = []
+    t0 = time.perf_counter()
+    reset_launches()
+    ev[0].record()
+    for t in range(frames):
+        before = (rs.raster_fwd.launches, rs.raster_fwd_ml.launches)
+        cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
+        vp = demo.view_proj()
+        bones = demo.bone_mats(0.3 * t)
+        color, depth = eng.render(vp, bones)
+        per_frame.append((rs.raster_fwd.launches - before[0],
+                          rs.raster_fwd_ml.launches - before[1]))
+        if t == 0:
+            first = (color, depth, vp, bones, eng.maxc, eng.tap_tiles)
+        ev[t + 1].record()
+    ev[-1].synchronize()
+    k1, k2 = rs.raster_fwd.launches, rs.raster_fwd_ml.launches
+    wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    cam.yaw = base_yaw
+    eng.check()
+    rs.flush_overflow_checks()
+    log(f"glass main path: {frames} frames, K1 launches {k1}, K2 launches "
+        f"{k2} (per frame {per_frame}), overflow events "
+        f"{rs.OVERFLOW_EVENTS}, caps maxc={eng.maxc} "
+        f"tap_tiles={eng.tap_tiles}, recoveries {eng.recoveries}")
+    if any(a < 1 or b < 1 for a, b in per_frame):
+        raise AssertionError("a glass frame launched no K1 or no K2")
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError("overflow on the glass main path")
+
+    color0, depth0, vp0, bones0, maxc0, taps0 = first
+    if (tuple(color0.shape) != (h, w) or color0.dtype != torch.int32
+            or tuple(depth0.shape) != (h, w)
+            or not bool(torch.isfinite(depth0).all())):
+        raise AssertionError(f"glass frame 0 malformed: {color0.dtype} "
+                             f"{tuple(color0.shape)}")
+    coverage = float((depth0 < 1.0).float().mean())
+    plain, _, _ = dv._render_frame_peeled_core(
+        glass["scene"], vp0, bones0, width=w, height=h, layers=LAYERS,
+        clear_color=(255, 255, 255, 255), maxc=maxc0, peel_mode="split",
+        tap_tiles=taps0, raster=rs.raster_fwd_reference,
+        raster_ml=rs.raster_fwd_ml_reference)
+    share, n_diff = golden_share(dv.unpack_rgba(color0),
+                                 dv.unpack_rgba(plain))
+    log(f"glass frame 0 vs plain rasters: {share:.6f} of pixels off by > 1, "
+        f"{n_diff} pixels differ; coverage {coverage:.4f}")
+    if share > GOLDEN_SHARE or not 0.0 < coverage <= 1.0:
+        raise AssertionError("glass main-path frame 0 is wrong")
+    per = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+    frame_ms = ev[0].elapsed_time(ev[-1]) / frames
+    log(f"peel_frame_ms {frame_ms!r} (CUDA events over {frames} frames; "
+        f"host clock {wall_ms!r} ms/frame); per frame: median "
+        f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
+    return dict(k1=k1, k2=k2, frame_ms=frame_ms)
+
+
 def main() -> int:
     import torch
 
@@ -288,13 +501,21 @@ def main() -> int:
     k1 = phase_kernel(case)
     phase_golden(device)
     main_run = phase_main(case)
-    record = dict(name="raster_fwd", route="cuda", source=KERNEL_SOURCE,
-                  replaces=KERNEL_REPLACES,
-                  launches=main_run["launches"], **k1)
-    for v in (record["max_abs_err"], record["ms"], record["plain_ms"]):
-        if not math.isfinite(v):
-            raise AssertionError(f"non-finite reading in {record}")
-    print(json.dumps({"kernels": [record]}))
+    glass = headline_case(device, **GLASS)
+    k2 = phase_ml_kernel(glass, case)
+    phase_split_vs_ml(device, case)
+    peel_run = phase_peel_main(glass)
+    records = [
+        dict(name="raster_fwd", route="cuda", source=KERNEL_SOURCE,
+             replaces=KERNEL_REPLACES, launches=main_run["launches"], **k1),
+        dict(name="raster_fwd_ml", route="cuda", source=ML_KERNEL_SOURCE,
+             replaces=ML_KERNEL_REPLACES, launches=peel_run["k2"], **k2),
+    ]
+    for record in records:
+        for v in (record["max_abs_err"], record["ms"], record["plain_ms"]):
+            if not math.isfinite(v):
+                raise AssertionError(f"non-finite reading in {record}")
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_info["kind"],
         "count": dev_info["count"]}}), flush=True)

@@ -4,8 +4,10 @@ The counterpart of ``mt_renderer_tpu`` for one NVIDIA Hopper GPU. The
 host layers (asset formats, scene assembly, camera, the NumPy oracle)
 are shared with ``mt_renderer_tpu`` and imported from it unchanged; this
 package holds the device stages (``render.device``), the binned tile
-raster and its hand-written CUDA kernel (``render.raster``,
-``csrc/raster_fwd.cu``) and the frame loop (``render.engine``).
+rasters and their hand-written CUDA kernels (``render.raster``;
+``csrc/raster_fwd.cu``, single layer, and ``csrc/raster_fwd_ml.cu``,
+multi-layer for order-independent transparency) and the frame loop
+(``render.engine``).
 
 It never imports ``jax``: the machine that runs it on the card has none.
 """

@@ -3,7 +3,8 @@
 Each kernel is a plain ``extern "C"`` launcher compiled into its own
 shared library: no PyTorch headers, so a build takes seconds. Libraries
 are cached under ``<repo>/build/torch_kernels/`` by a hash of the
-sources and flags, and built at first use — never at import.
+sources, the shared headers and the flags, and built at first use —
+never at import.
 """
 
 from __future__ import annotations
@@ -41,28 +42,51 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str, sources: list[str]) -> Path:
-    """Compile ``csrc/<sources>`` into ``lib<name>-<hash>.so`` unless a
-    library built from the same sources and flags exists. Returns its
-    path; the compiler's ``-Xptxas -v`` report sits beside it as
-    ``.log``."""
+def _target(name: str, sources: list[str]) -> Path:
+    """The library path for ``sources``: keyed by a hash of the flags,
+    the sources and every shared header under ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in [*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))]:
         h.update((CSRC / s).read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)          # atomic: concurrent builds agree
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(specs: dict[str, list[str]]) -> dict[str, Path]:
+    """Compile each ``name: csrc sources`` entry into
+    ``lib<name>-<hash>.so`` unless a library built from the same sources,
+    headers and flags exists. The ``nvcc`` processes all start at once;
+    every one is waited for before any failure raises. Returns the
+    library paths; each compiler's ``-Xptxas -v`` report sits beside its
+    library as ``.log``."""
+    out = {name: _target(name, srcs) for name, srcs in specs.items()}
+    procs = {}
+    for name, srcs in specs.items():
+        if out[name].exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(CSRC / s) for s in srcs)]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        out[name].with_suffix(".log").write_text(log)
+        os.replace(tmp, out[name])    # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
+
+
+def build(name: str, sources: list[str]) -> Path:
+    """``build_all`` for one library."""
+    return build_all({name: sources})[name]
 
 
 def load(name: str, sources: list[str]) -> ctypes.CDLL:
@@ -73,8 +97,9 @@ def load(name: str, sources: list[str]) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str, sources: list[str]) -> str:
-    """The ``ptxas info`` lines (registers, shared memory, spills) of
-    the library's last build."""
+    """The ``ptxas`` report of the library's build: each kernel's
+    registers, shared memory, stack frame and spill bytes."""
     log = build(name, sources).with_suffix(".log")
     return "\n".join(ln for ln in log.read_text().splitlines()
-                     if "ptxas info" in ln)
+                     if "Used" in ln or "spill" in ln
+                     or "Compiling entry" in ln)

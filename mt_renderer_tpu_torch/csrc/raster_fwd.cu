@@ -22,8 +22,9 @@
 // lexicographic minimum of (z, -global id) over candidates that pass
 // all three edge tests (e > bias) and 0 <= z < inf, which is the
 // reference's group-min-then-update rule, so chunk order is invisible.
-// The epilogue loads the winner's 18 coefficient columns by global id
-// (no one-hot select) and evaluates the tap address, fx, fy and C rgba.
+// The epilogue (tap_epilogue.cuh, shared with K2) loads the winner's 18
+// coefficient columns by global id (no one-hot select) and evaluates the
+// tap address, fx, fy and C rgba.
 // Uncovered pixels evaluate zero coefficients, as the reference does:
 // tapidx 0, fx = fy = 0, C = 0.
 //
@@ -31,24 +32,11 @@
 // PyTorch version's separate ops. TMA, cp.async double buffering and
 // warp specialisation are left for later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "tap_epilogue.cuh"
 
 namespace {
 
-constexpr int TILE_H = 16;
-constexpr int TILE_W = 128;
-constexpr int P = TILE_H * TILE_W;   // pixels per tile
-constexpr int CT = 384;              // triangles per chunk
-constexpr int KG = 32;               // triangles per culling group
-constexpr int G = CT / KG;           // groups per chunk
-constexpr int NRAST = 15;            // ea[3] eb[3] ec[3] bias[3] z-plane[3]
-constexpr int NCOEF = 18;            // u/w v/w 1/w planes, tex, C rgba,
-                                     // off hi/lo, th, tw
-constexpr int NTAP = 6;              // fx, fy, C rgba
-constexpr int THREADS = 256;
-constexpr int PPT = P / THREADS;     // pixels per thread
-constexpr int ROWS_PER_PASS = THREADS / TILE_W;
+using namespace mtr;
 
 __global__ void __launch_bounds__(THREADS)
 raster_fwd_kernel(const float* __restrict__ cols, int tp,
@@ -120,42 +108,11 @@ raster_fwd_kernel(const float* __restrict__ cols, int tp,
   for (int j = 0; j < PPT; ++j) {
     const int p = tid + j * THREADS;
     const int w = wid[j];
-    float a[NCOEF];
-#pragma unroll
-    for (int i = 0; i < NCOEF; ++i)
-      a[i] = w >= 0 ? cols[(size_t)(NRAST + i) * tp + w] : 0.0f;
-    const float y = py[j];
-    const float w1 = a[6] * px + a[7] * y + a[8];
-    const float inv = 1.0f / (fabsf(w1) < w_eps ? w_eps : w1);
-    const float u = (a[0] * px + a[1] * y + a[2]) * inv;
-    const float v = (a[3] * px + a[4] * y + a[5]) * inv;
-    const float th = a[16];
-    const float tw = a[17];
-    const float xs = u * tw - 0.5f;
-    const float ys = v * th - 0.5f;
-    const float x0f = floorf(xs);
-    const float y0f = floorf(ys);
-    const float fx = x0f < 0.0f ? 0.0f : xs - x0f;
-    const float fy = y0f < 0.0f ? 0.0f : ys - y0f;
-    // truncation toward zero, saturating, NaN -> 0 (cvt.rzi.s32.f32)
-    const int wwi = __float2int_rz(tw);
-    const int hhi = __float2int_rz(th);
-    const int x0c = min(max(__float2int_rz(x0f), 0), max(wwi - 1, 0));
-    const int y0c = min(max(__float2int_rz(y0f), 0), max(hhi - 1, 0));
-    const int offi = __float2int_rz(a[14]) * 4096 + __float2int_rz(a[15]);
-    const int idx = offi + y0c * wwi + x0c;
-
     const size_t o = (size_t)t * P + p;
     zb_out[o] = w >= 0 ? zbest[j] : 1.0f;
     ib_out[o] = w;
-    tapidx_out[o] = a[9] >= 0.0f ? idx : -1;
-    float* ta = tattrs_out + (size_t)t * NTAP * P + p;
-    ta[0 * P] = fx;
-    ta[1 * P] = fy;
-    ta[2 * P] = a[10];
-    ta[3 * P] = a[11];
-    ta[4 * P] = a[12];
-    ta[5 * P] = a[13];
+    tap_epilogue(cols, tp, w, px, py[j], w_eps,
+                 tattrs_out + (size_t)t * NTAP * P + p, tapidx_out + o);
   }
 }
 

@@ -3,7 +3,8 @@
 The counterpart of ``__graft_entry__.entry``: the textured + skinned
 instanced demo scene through the binned tile raster with the in-kernel
 tap epilogue, returning the packed frame. ``demo_case`` builds that
-scene at any size, so scripts reach it through the port alone.
+scene, and its glass variant with translucent instances, at any size,
+so scripts reach it through the port alone.
 """
 
 from __future__ import annotations
@@ -38,15 +39,24 @@ class DemoCase:
 
 
 def demo_case(device, *, instances: int, width: int, height: int,
-              subdiv: int = 0) -> DemoCase:
+              subdiv: int = 0, translucent: bool = False,
+              cam_scale: float = 1.0) -> DemoCase:
     """``instances`` skinned, textured demo cubes (12·max(subdiv, 1)²
     triangles each) uploaded to ``device`` with the quad texel pool, and
-    a camera framing them at ``width`` x ``height``."""
+    a camera framing them at ``width`` x ``height``.
+
+    ``translucent`` builds the glass variant: every 4th instance takes
+    material slot 1, whose alpha is 0.5 (``demo.make_translucent``).
+    ``cam_scale`` scales the camera position; 0.3 puts the camera inside
+    the cube field, as the reference's dense and glass presets do."""
     batch = demo.build_demo_batch(instances=instances, skinned=True,
                                   subdiv=subdiv)
+    if translucent:
+        batch = demo.make_translucent(batch, instances)
+    camera = demo.demo_camera(instances, width, height)
+    camera.position = camera.position * cam_scale
     return DemoCase(batch=batch, scene=dv.upload(batch, device=device),
-                    camera=demo.demo_camera(instances, width, height),
-                    width=width, height=height)
+                    camera=camera, width=width, height=height)
 
 
 def entry(device):

@@ -1,19 +1,28 @@
 """Where a frame's time goes: host cap guard, device path, stages, kernels.
 
     python -m mt_renderer_tpu_torch.frame_profile            # headline, GPU
+    python -m mt_renderer_tpu_torch.frame_profile --translucent --peel 4
     python -m mt_renderer_tpu_torch.frame_profile --device cpu \\
         --instances 4 --subdiv 1 --width 256 --height 128     # rehearsal
 
 At the headline workload (the skinned demo scene, 1024 instances at
-subdiv 4, 1920x1080) it prints, one reading per line:
+subdiv 4, 1920x1080) it prints, one reading per line, for the packed
+single-layer frame or, with ``--peel L``, the packed split-peel frame
+(``render_frame_peeled(peel_mode="split")``, caps measured by
+``measure_live_tap_tiles``). ``--translucent`` renders the glass scene:
+every 4th instance translucent, the camera position scaled by 0.3.
 
 * the host predictors ``FrameEngine`` runs before each frame
   (``predict_bin_counts`` + ``auto_tap_tiles``), and ``auto_maxc`` and
   ``skin_positions`` they are built on, in ms over ``--views`` views;
-* ``render_frame`` with the caps fixed (no host guard): view and bones
-  sent from the host each frame, then already on the device;
-* each stage of the frame timed alone;
-* the frame's binning (chunks per tile, live (tile, group) pairs);
+* the frame with the caps fixed (no host guard): view and bones sent
+  from the host each frame, then already on the device;
+* each stage of the frame timed alone (for the split peel: the opacity
+  split setup, binning and K1 over the opaque set, binning and K2 over
+  the translucent set, the opaque tap shade and blend, the translucent
+  composite, the pack);
+* the frame's binning (chunks per tile, live (tile, group) pairs), per
+  set for the split peel;
 * from ``torch.profiler`` over ``--prof-frames`` device-resident frames:
   device busy time per frame (the union of the kernel and copy
   intervals), the device's idle share against the unprofiled frame, and
@@ -91,6 +100,86 @@ def _device_busy(prof, frames: int) -> tuple[float, float, list]:
             [(name[:80], us / 1e3 / frames) for name, us in top])
 
 
+def _single_stages(scene, clip, w, h, maxc, taps, _layers):
+    """The single-layer frame's stages after the vertex stage, each a
+    thunk, and its binning {"": (counts, glists)}."""
+    pw, ph = dv._padded(w, h)
+    cols, bbox = dv.setup_packed_cols(scene, clip, w, h)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph, maxc=maxc)
+    zb, ib, tattrs, tapidx = rs.raster_fwd(cols, lists, glists, counts,
+                                           (0, 0), width=pw, height=ph,
+                                           w_eps=dv.W_EPS)
+    colort, _, _ = dv.shade_finish_tap_flat(scene, tattrs, tapidx, ib,
+                                            (255,) * 4, tap_tiles=taps)
+    return {
+        "setup_packed_cols": lambda: dv.setup_packed_cols(scene, clip, w, h),
+        "prebin": lambda: rs.prebin(cols, bbox, 0, 0, width=pw, height=ph,
+                                    maxc=maxc),
+        "raster_fwd": lambda: rs.raster_fwd(
+            cols, lists, glists, counts, (0, 0), width=pw, height=ph,
+            w_eps=dv.W_EPS),
+        "shade_finish_tap_flat": lambda: dv.shade_finish_tap_flat(
+            scene, tattrs, tapidx, ib, (255,) * 4, tap_tiles=taps),
+        "shade_finish_tap_flat, dense": lambda: dv.shade_finish_tap_flat(
+            scene, tattrs, tapidx, ib, (255,) * 4, tap_tiles=None),
+        "unflatten+crop": lambda: rs.unflatten_tiles(
+            colort, ph, pw)[:h, :w].contiguous(),
+    }, {"": (counts, glists)}
+
+
+def _peel_stages(scene, clip, w, h, maxc, taps, layers):
+    """The split-peel frame's stages after the vertex stage, each a
+    thunk, and the binning of its two sets."""
+    pw, ph = dv._padded(w, h)
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS)
+    clear = (255,) * 4
+    (cols_op, bbox_op), (cols_tr, bbox_tr) = dv.setup_packed_cols(
+        scene, clip, w, h, opacity_split=True)
+    pre_op = rs.prebin(cols_op, bbox_op, 0, 0, width=pw, height=ph,
+                       maxc=maxc)
+    pre_tr = rs.prebin(cols_tr, bbox_tr, 0, 0, width=pw, height=ph,
+                       maxc=maxc)
+    zo, io, tat_op, tid_op = rs.raster_fwd(cols_op, *pre_op[:3], (0, 0),
+                                           **kw)
+    zhi = torch.where(io >= 0, zo, float("inf"))
+    ml = dict(kw, layers=layers, opaque_cull=False, zhi=zhi)
+    zt, it, tat_tr, tid_tr = rs.raster_fwd_ml(cols_tr, *pre_tr[:3], (0, 0),
+                                              **ml)
+    src_op, cov_op, _ = dv.shade_tap_flat_channels(scene, tat_op, tid_op,
+                                                   io, tap_tiles=taps[0])
+    dst0 = dv._blend_channels(src_op, cov_op, clear)
+    cov_tr = (it >= 0) & ((zt < zhi) | ((zt == zhi) & (it > io)))
+    dst, _ = dv.composite_peeled_tap_flat(scene, tat_tr, tid_tr, it, layers,
+                                          clear, tap_tiles=taps[1],
+                                          covered=cov_tr, dst0=dst0)
+
+    def shade_opaque():
+        src, cov, _ = dv.shade_tap_flat_channels(scene, tat_op, tid_op, io,
+                                                 tap_tiles=taps[0])
+        return dv._blend_channels(src, cov, clear)
+
+    return {
+        "setup_packed_cols, opacity split": lambda: dv.setup_packed_cols(
+            scene, clip, w, h, opacity_split=True),
+        "prebin, opaque set": lambda: rs.prebin(
+            cols_op, bbox_op, 0, 0, width=pw, height=ph, maxc=maxc),
+        "raster_fwd (K1), opaque set": lambda: rs.raster_fwd(
+            cols_op, *pre_op[:3], (0, 0), **kw),
+        "prebin, translucent set": lambda: rs.prebin(
+            cols_tr, bbox_tr, 0, 0, width=pw, height=ph, maxc=maxc),
+        "raster_fwd_ml (K2), translucent set": lambda: rs.raster_fwd_ml(
+            cols_tr, *pre_tr[:3], (0, 0), **ml),
+        "opaque tap shade + blend": shade_opaque,
+        "composite_peeled_tap_flat": lambda: dv.composite_peeled_tap_flat(
+            scene, tat_tr, tid_tr, it, layers, clear, tap_tiles=taps[1],
+            covered=cov_tr, dst0=dst0),
+        "pack+unflatten+crop": lambda: rs.unflatten_tiles(
+            dv.pack_u32_channels(dst), ph, pw)[:h, :w].contiguous(),
+    }, {", opaque set": (pre_op[2], pre_op[1]),
+        ", translucent set": (pre_tr[2], pre_tr[1])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -101,18 +190,28 @@ def main(argv=None) -> int:
     ap.add_argument("--views", type=int, default=5)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--prof-frames", type=int, default=5)
+    ap.add_argument("--translucent", action="store_true",
+                    help="the glass scene and camera")
+    ap.add_argument("--peel", type=int, default=0,
+                    help="layers of the split-peel frame; 0 = single layer")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     w, h = args.width, args.height
-    pw, ph = dv._padded(w, h)
 
     case = demo_case(dev, instances=args.instances, subdiv=args.subdiv,
-                     width=w, height=h)
+                     width=w, height=h, translucent=args.translucent,
+                     cam_scale=0.3 if args.translucent else 1.0)
     batch, scene, cam = case.batch, case.scene, case.camera
     vp, bones = case.view_proj(), case.bone_mats(0.0)
     maxc = dv.auto_maxc(batch, vp, bones, width=w, height=h)
-    taps = dv.auto_tap_tiles(batch, vp, bones, width=w, height=h)
-    print(f"scene: {len(batch.tris)} tris, {w}x{h}, maxc={maxc}, "
+    if args.peel:
+        taps = dv.measure_live_tap_tiles(scene, vp, bones, width=w,
+                                         height=h, layers=args.peel,
+                                         maxc=maxc, mode="split")
+    else:
+        taps = dv.auto_tap_tiles(batch, vp, bones, width=w, height=h)
+    print(f"scene: {len(batch.tris)} tris, {w}x{h}, translucent="
+          f"{args.translucent}, peel={args.peel}, maxc={maxc}, "
           f"tap_tiles={taps}, device {dev}")
 
     # host predictors at views that vary as the smoke's main path does
@@ -140,6 +239,10 @@ def main(argv=None) -> int:
           f"ms: {json.dumps(guard)}")
 
     def frame(v, b):
+        if args.peel:
+            return dv.render_frame_peeled(
+                scene, v, b, width=w, height=h, layers=args.peel,
+                maxc=maxc, peel_mode="split", packed=True, tap_tiles=taps)
         return dv.render_frame(scene, v, b, width=w, height=h, maxc=maxc,
                                tap_tiles=taps, packed=True)
 
@@ -147,44 +250,25 @@ def main(argv=None) -> int:
     host_in = _timed(lambda: frame(vp, bones), dev, args.frames)
     dev_in = _timed(lambda: frame(vp_d, bones_d), dev, args.frames)
     rs.flush_overflow_checks()
-    print(f"render_frame, caps fixed, view+bones from host: {host_in!r} "
-          f"ms/frame")
-    print(f"render_frame, caps fixed, view+bones on device: {dev_in!r} "
-          f"ms/frame")
+    name = "render_frame_peeled" if args.peel else "render_frame"
+    print(f"{name}, caps fixed, view+bones from host: {host_in!r} ms/frame")
+    print(f"{name}, caps fixed, view+bones on device: {dev_in!r} ms/frame")
 
     clip = dv.vertex_stage(scene, vp_d, bones_d)
-    cols, bbox = dv.setup_packed_cols(scene, clip, w, h)
-    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
-                                         height=ph, maxc=maxc)
-    ras = rs.raster_fwd(cols, lists, glists, counts, (0, 0), width=pw,
-                        height=ph, w_eps=dv.W_EPS)
-    zb, ib, tattrs, tapidx = ras
-    colort, _, _ = dv.shade_finish_tap_flat(scene, tattrs, tapidx, ib,
-                                            (255,) * 4, tap_tiles=taps)
-    stages = {
-        "vertex_stage": lambda: dv.vertex_stage(scene, vp_d, bones_d),
-        "setup_packed_cols": lambda: dv.setup_packed_cols(scene, clip, w, h),
-        "prebin": lambda: rs.prebin(cols, bbox, 0, 0, width=pw, height=ph,
-                                    maxc=maxc),
-        "raster_fwd": lambda: rs.raster_fwd(
-            cols, lists, glists, counts, (0, 0), width=pw, height=ph,
-            w_eps=dv.W_EPS),
-        "shade_finish_tap_flat": lambda: dv.shade_finish_tap_flat(
-            scene, tattrs, tapidx, ib, (255,) * 4, tap_tiles=taps),
-        "shade_finish_tap_flat, dense": lambda: dv.shade_finish_tap_flat(
-            scene, tattrs, tapidx, ib, (255,) * 4, tap_tiles=None),
-        "unflatten+crop": lambda: rs.unflatten_tiles(
-            colort, ph, pw)[:h, :w].contiguous(),
-    }
+    stages, bins = (_peel_stages if args.peel else _single_stages)(
+        scene, clip, w, h, maxc, taps, args.peel)
+    stages = {"vertex_stage": lambda: dv.vertex_stage(scene, vp_d, bones_d),
+              **stages}
     print("stages ms: " + json.dumps(
         {k: _timed(fn, dev, args.frames) for k, fn in stages.items()}))
     rs.flush_overflow_checks()
 
-    bits = sum(int(((glists >> g) & 1).sum()) for g in range(rs.G))
-    print(f"binning: chunks per tile max {int(counts.max())} mean "
-          f"{float(counts.float().mean())!r}; live (tile, group) pairs "
-          f"{bits}, i.e. {bits * rs.KG * rs.TILE_H * rs.TILE_W} "
-          f"(triangle, pixel) pairs")
+    for name, (counts, glists) in bins.items():
+        bits = sum(int(((glists >> g) & 1).sum()) for g in range(rs.G))
+        print(f"binning{name}: chunks per tile max {int(counts.max())} "
+              f"mean {float(counts.float().mean())!r}; live (tile, group) "
+              f"pairs {bits}, i.e. {bits * rs.KG * rs.TILE_H * rs.TILE_W} "
+              f"(triangle, pixel) pairs")
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":

@@ -1,7 +1,10 @@
 """Device stages of a frame — vertex, setup, binning, raster, tap shade, pack.
 
 The counterpart of ``mt_renderer_tpu/render/device.py`` on the packed
-single-layer tap path (``render_frame(backend="pallas", packed=True)``):
+single-layer tap path (``render_frame(backend="pallas", packed=True)``)
+and the peeled (order-independent transparency) tap path
+(``render_frame_peeled``, ``peel_mode="split"`` and ``"ml"``). The
+single-layer frame runs:
 
 1. ``vertex_stage`` — bone-palette skinning (a gather and a weighted
    sum) + MVP, written as elementwise fp32 ops;
@@ -15,6 +18,13 @@ single-layer tap path (``render_frame(backend="pallas", packed=True)``):
 5. ``shade_finish_tap_flat`` — the compacted quad-pool gather, bilinear
    filter, color modulate, src-alpha blend and RGBA pack;
 6. ``raster.unflatten_tiles`` + the deferred overflow queue.
+
+The split peel partitions the setup by opacity
+(``setup_packed_cols(opacity_split=True)``), rasters the opaque set
+through K1 and the translucent set through the multi-layer kernel K2
+(``raster.raster_fwd_ml``) behind the opaque z, shades the opaque pass
+and composites the translucent layers in front of it
+(``composite_peeled_tap_flat``).
 
 Pixel rules (coverage at centers with the top-left rule and edge-snap
 band folded into a per-edge bias, back-face cull of area2 >= 0, the
@@ -49,11 +59,16 @@ W_EPS = 1e-6
 SEG_PX = 2048          # tap-compaction row: one whole flattened tile
 TRI_PAD = 384          # triangle-count padding quantum: one raster chunk
 
+_WHY_SCAN = ("the port keeps only the binned tile raster; scan stays a "
+             "reference harness")
+
 # modes and options of the reference that later slices port
+_SLICE_MIP = "slice 3 (ROADMAP Queue 1 item 8)"
+_SLICE_LIGHT = "slice 3 (ROADMAP Queue 1 item 9)"
 _SLICE_POOL = {
-    "narrow": "slice 2 (ROADMAP Queue 1 item 8)",
-    "tri": "slice 2 (ROADMAP Queue 1 item 8)",
-    "auto": "slice 2 (ROADMAP Queue 1 item 8)",
+    "narrow": _SLICE_MIP,
+    "tri": _SLICE_MIP,
+    "auto": _SLICE_MIP,
     "bc1": "slice 4 (ROADMAP Queue 1 item 12)",
     "bc7": "slice 4 (ROADMAP Queue 1 item 13)",
 }
@@ -61,6 +76,12 @@ _SLICE_POOL = {
 
 def _not_ported(what: str, where: str):
     return NotImplementedError(f"{what} is not ported yet: {where}")
+
+
+def _by_decision(what: str, why: str):
+    return NotImplementedError(
+        f"{what} is not ported, by decision: {why} (ROADMAP Queue 1, "
+        "'Not ported, by decision')")
 
 
 TENSOR_FIELDS = (
@@ -323,11 +344,20 @@ def vertex_stage(scene: DeviceScene, view_proj, bone_mats) -> torch.Tensor:
          + vp[i, 3] for i in range(4)], 1)
 
 
-def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int):
+def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int,
+                      opacity_split: bool = False):
     """Per-triangle setup + forward-attribute planes → (cols (33, Tp)
     f32 column-major in the layout of ``raster``'s module docstring,
     bbox (xmin, xmax, ymin, ymax, zmin) each (Tp/32,) at group
-    granularity, over valid triangles only)."""
+    granularity, over valid triangles only).
+
+    ``opacity_split=True`` partitions the triangles by opacity (the
+    predicate K2's opaque cull reads from the tex column) and returns
+    ((cols_opaque, bbox_opaque), (cols_translucent, bbox_translucent)):
+    the same columns, except that each set's complement has its first
+    edge bias set to ``REJECT`` (never inside) and is left out of the
+    set's group bboxes (never binned). The split peel rasters the
+    opaque set single-layer and only the translucent set multi-layer."""
     tp = scene.tri_valid.shape[0]
     cc = clip.reshape(3, tp, 4)                           # corner-planar
     w = [cc[i, :, 3] for i in range(3)]
@@ -390,21 +420,27 @@ def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int):
 
     tail = (zp + up + vp_ + wp
             + [tex_enc] + c_cols + [cst[5], cst[6], cst[7], cst[8]])
-    cols = torch.stack(ea + eb + ec + bias + tail, 0)     # (33, Tp)
 
     big = 1e30
     cg = tp // rs.KG
 
-    def cmin(vals):
+    def cmin(vals, v):
         m = torch.minimum(torch.minimum(vals[0], vals[1]), vals[2])
-        return torch.where(valid, m, big).reshape(cg, rs.KG).amin(1)
+        return torch.where(v, m, big).reshape(cg, rs.KG).amin(1)
 
-    def cmax(vals):
+    def cmax(vals, v):
         m = torch.maximum(torch.maximum(vals[0], vals[1]), vals[2])
-        return torch.where(valid, m, -big).reshape(cg, rs.KG).amax(1)
+        return torch.where(v, m, -big).reshape(cg, rs.KG).amax(1)
 
-    bbox = (cmin(sx), cmax(sx), cmin(sy), cmax(sy), cmin(sz))
-    return cols, bbox
+    def finish(bias0, v):
+        cols = torch.stack(ea + eb + ec + [bias0] + bias[1:] + tail, 0)
+        return cols, (cmin(sx, v), cmax(sx, v), cmin(sy, v), cmax(sy, v),
+                      cmin(sz, v))                        # (33, Tp), bbox
+
+    if opacity_split:
+        return (finish(torch.where(opq, bias[0], rs.REJECT), valid & opq),
+                finish(torch.where(opq, rs.REJECT, bias[0]), valid & ~opq))
+    return finish(bias[0], valid)
 
 
 def _mat_select(mat_color, tri_material) -> torch.Tensor:
@@ -525,6 +561,66 @@ def shade_finish_tap_flat(scene: DeviceScene, tattrs, tapidx, ib,
     src, covered, n_over_tap = shade_tap_flat_channels(
         scene, tattrs, tapidx, ib, tap_tiles=tap_tiles)
     return _blend_pack_u32(src, covered, clear_color), covered, n_over_tap
+
+
+def composite_peeled_tap_flat(scene: DeviceScene, tattrs, tapidx, il,
+                              layers: int, clear_color,
+                              tap_tiles: int | None = None,
+                              covered=None, dst0=None):
+    """Tile-major multi-layer composite over ``raster_fwd_ml``'s tap
+    outputs (tattrs (n_tiles, 6L, P), tapidx and il (n_tiles, L, P),
+    nearest layer first): one quad-pool gather for every layer's
+    bilinear tap, then the layers blend back to front with src-alpha.
+
+    ``tap_tiles`` compacts the gather + contraction to that many live
+    (textured and covered) SEG_PX-px rows, i.e. (tile, layer) pairs;
+    None/0 = dense. Size it with ``measure_live_tap_tiles``: live rows
+    beyond the cap lose their texture and are counted in n_over_tap.
+    ``covered`` overrides the per-(tile, layer, pixel) liveness (default
+    ``il >= 0``): the split peel culls there the translucent fragments
+    behind the opaque winner. ``dst0`` overrides the blend destination
+    (a channel list; default the clear color): the split peel starts
+    from the shaded opaque frame.
+
+    Returns (channels [r, g, b, a] each (n_tiles, P) f32 0-255, still
+    tile-major, n_over_tap)."""
+    nt, _, p = tapidx.shape
+    a4 = tattrs.reshape(nt, layers, rs.ATTRS_TAP, p)
+    textured = tapidx >= 0
+    if covered is None:
+        covered = il >= 0
+    n = nt * layers * (p // SEG_PX)
+    cap = 0 if tap_tiles is None else min(tap_tiles, n)
+    if cap and cap < n:
+        # untextured fragments never read their albedo
+        live = (covered & textured).reshape(n, SEG_PX).any(1)
+        src_rows, slot, n_over_tap = _compact_live_rows(live, cap)
+        rows = src_rows.long()
+        tic = tapidx.reshape(n, SEG_PX)[rows]
+        fxc = a4[:, :, 0].reshape(n, SEG_PX)[rows]
+        fyc = a4[:, :, 1].reshape(n, SEG_PX)[rows]
+        albc = _tap_albedo_channels(scene.mip_pool, tic, fxc, fyc)
+        alb = [a.reshape(nt, layers, p) for a in _expand_rows(albc, slot, n)]
+    else:
+        alb = _tap_albedo_channels(scene.mip_pool, tapidx, a4[:, :, 0],
+                                   a4[:, :, 1])
+        n_over_tap = torch.zeros((), dtype=torch.int32, device=il.device)
+    if dst0 is None:
+        clear = np.asarray(clear_color, np.float32)
+        dst = [torch.full((nt, p), float(clear[c]), device=il.device)
+               for c in range(4)]
+    else:
+        dst = list(dst0)
+    for layer in reversed(range(layers)):
+        src = [torch.where(textured[:, layer],
+                           alb[c][:, layer] * a4[:, layer, 2 + c],
+                           a4[:, layer, 2 + c]) for c in range(4)]
+        a = src[3] / 255.0
+        cov = covered[:, layer]
+        dst = ([torch.where(cov, src[c] * a + dst[c] * (1.0 - a), dst[c])
+                for c in range(3)]
+               + [torch.where(cov, src[3], dst[3])])
+    return dst, n_over_tap
 
 
 # ------------------------------------------------------- host predictors
@@ -677,14 +773,11 @@ def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
     ``packed``: color is (H, W) int32 holding RGBA8 bits; otherwise it
     is the (H, W, 4) uint8 view of the same plane."""
     if backend != "pallas":
-        raise _not_ported(f"backend={backend!r}",
-                          "the port keeps only the binned tile raster; "
-                          "scan stays a reference harness (ROADMAP Queue 1, "
-                          "'Not ported, by decision')")
+        raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
     if mipmap:
-        raise _not_ported("mipmap=True", "slice 2 (ROADMAP Queue 1 item 8)")
+        raise _not_ported("mipmap=True", _SLICE_MIP)
     if lighting:
-        raise _not_ported("lighting=True", "slice 2 (ROADMAP Queue 1 item 9)")
+        raise _not_ported("lighting=True", _SLICE_LIGHT)
     if scene.pool_mode != "quad":
         raise _not_ported(f"pool_mode={scene.pool_mode!r}",
                           _SLICE_POOL.get(scene.pool_mode, "unknown mode"))
@@ -699,12 +792,239 @@ def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
 
 
 def _queue_frame_overflow(n_over, maxc, tap_tiles, width, height):
-    """Queue the frame's (bins, compacted-tap rows) overflow counts."""
+    """Queue the frame's (bins, compacted-tap rows) overflow counts. The
+    split peel's (opaque, translucent) cap pair reports as its sum."""
     n_bins, n_tap = n_over
     pw, ph = _padded(width, height)
     nrows = (pw // rs.TILE_W) * (ph // (SEG_PX // rs.TILE_W))
+    if isinstance(tap_tiles, tuple):
+        cap = sum((c if c else nrows) for c in tap_tiles)
+    else:
+        cap = tap_tiles if tap_tiles else nrows
     rs.queue_overflow_check(
-        n_tap, tap_tiles if tap_tiles else nrows,
+        n_tap, cap,
         what="tap overflow: live compacted tap rows lost their "
              "texture; raise tap_tiles")
     rs.queue_overflow_check(n_bins, maxc or rs.MAXC_DEFAULT)
+
+
+# ------------------------------------------------------------ peeled frame
+
+
+def _live_rows(mask) -> torch.Tensor:
+    """(n_tiles, L, P) bool → device count of live SEG_PX-px rows."""
+    return mask.reshape(-1, SEG_PX).any(1).sum(dtype=torch.int32)
+
+
+def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
+                           *, width: int, height: int, layers: int,
+                           maxc: int | None = None, margin: float = 1.5,
+                           mode: str = "ml", bands: int = 1):
+    """Size ``tap_tiles`` for the peeled composite (see
+    ``composite_peeled_tap_flat``), in SEG_PX-px (tile, layer) rows: run
+    the frame's rasters once for this view, count the live rows on the
+    device, and return count x ``margin``, rounded up to a multiple of 8
+    and clamped to the grid (one device→host transfer; call it at load
+    or on a scene change, like ``auto_maxc``).
+
+    ``mode="ml"`` runs K2 with the opaque cull over every triangle and
+    returns one cap. ``mode="split"`` runs K1 over the opaque set and K2
+    over the translucent set behind the opaque z, and returns the
+    (opaque, translucent) cap pair that ``render_frame_peeled(...,
+    peel_mode="split")`` takes."""
+    if bands > 1:
+        raise _not_ported("measure_live_tap_tiles(bands > 1)",
+                          "slice 6 (ROADMAP Queue 1 item 18)")
+    if mode not in ("ml", "split"):
+        raise ValueError(f"unknown mode {mode!r}")
+    pw, ph = _padded(width, height)
+    nrows = (pw // rs.TILE_W) * (ph // (SEG_PX // rs.TILE_W))
+    mc = maxc or rs.MAXC_DEFAULT
+    kw = dict(width=pw, height=ph, w_eps=W_EPS)
+    clip = vertex_stage(scene, view_proj, bone_mats)
+
+    def cap(live: int, hi: int) -> int:
+        return min(max(8, -(-int(np.ceil(live * margin)) // 8) * 8), hi)
+
+    if mode == "split":
+        (_, io, _, tio), (_, it, _, tit), front, _ = _split_rasters(
+            *setup_packed_cols(scene, clip, width, height,
+                               opacity_split=True),
+            pw=pw, ph=ph, layers=layers, maxc=mc)
+        live_op, live_tr = torch.stack(
+            [_live_rows((io >= 0) & (tio >= 0)),
+             _live_rows(front & (tit >= 0))]).tolist()
+        return cap(live_op, nrows), cap(live_tr, nrows * layers)
+
+    cols, bbox = setup_packed_cols(scene, clip, width, height)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph, maxc=mc)
+    _, il, _, ti = rs.raster_fwd_ml(cols, lists, glists, counts, (0, 0),
+                                    layers=layers, opaque_cull=True, **kw)
+    return cap(int(_live_rows((il >= 0) & (ti >= 0))), nrows * layers)
+
+
+def _split_rasters(setup_op, setup_tr, *, pw: int, ph: int, layers: int,
+                   maxc: int, raster=rs.raster_fwd,
+                   raster_ml=rs.raster_fwd_ml):
+    """The split peel's two rasters over the padded ``pw`` x ``ph``
+    frame: K1 over the opaque set, then K2 over the translucent set
+    (variant "nocull") with the opaque z-buffer as its ``zhi`` horizon.
+    ``setup_op``/``setup_tr`` are the (cols, bbox) pairs of
+    ``setup_packed_cols(opacity_split=True)``.
+
+    Returns (K1's (z, ids, tattrs, tapidx), K2's (zl, il, tattrs,
+    tapidx), front (n_tiles, L, P) bool: the translucent fragments kept
+    and in front of the opaque winner under the exact (z asc, id desc)
+    order, the device count of tiles over ``maxc`` in either binning)."""
+    kw = dict(width=pw, height=ph, w_eps=W_EPS)
+    (cols_op, bbox_op), (cols_tr, bbox_tr) = setup_op, setup_tr
+    lists, glists, counts, nov_op = rs.prebin(cols_op, bbox_op, 0, 0,
+                                              width=pw, height=ph, maxc=maxc)
+    opaque = raster(cols_op, lists, glists, counts, (0, 0), **kw)
+    zo, io = opaque[:2]
+    # raw opaque z where covered, +inf where not (the raster maps
+    # uncovered z to 1.0, which a real z may exceed)
+    zo_eff = torch.where(io >= 0, zo, float("inf"))
+    lists, glists, counts, nov_tr = rs.prebin(cols_tr, bbox_tr, 0, 0,
+                                              width=pw, height=ph, maxc=maxc)
+    translucent = raster_ml(cols_tr, lists, glists, counts, (0, 0),
+                            layers=layers, opaque_cull=False, zhi=zo_eff,
+                            **kw)
+    zt, it = translucent[:2]
+    front = (it >= 0) & ((zt < zo_eff) | ((zt == zo_eff) & (it > io)))
+    return opaque, translucent, front, nov_op + nov_tr
+
+
+def _split_peel_flat(scene: DeviceScene, setup_op, setup_tr, *, pw: int,
+                     ph: int, layers: int, maxc: int, tap_tiles,
+                     clear_color, raster=rs.raster_fwd,
+                     raster_ml=rs.raster_fwd_ml, mipmap: bool = False,
+                     light=None):
+    """The split peel over the padded ``pw`` x ``ph`` frame: the two
+    rasters of ``_split_rasters``, the opaque tap shade and blend, then
+    the translucent layers in front of the opaque winner composited over
+    it. ``tap_tiles`` is one cap or the (opaque, translucent) pair.
+
+    Returns (channels [r, g, b, a] each (n_tiles, P) f32 tile-major, z0
+    (n_tiles, P) nearest depth with 1.0 where empty, (n_over bins,
+    n_over taps))."""
+    if mipmap:
+        raise _not_ported("the split peel's mip-tap composite",
+                          _SLICE_MIP)
+    if light is not None:
+        raise _not_ported("the split peel's lit epilogue",
+                          _SLICE_LIGHT)
+    (zo, io, tat_op, tid_op), (zt, it, tat_tr, tid_tr), front, nov = \
+        _split_rasters(setup_op, setup_tr, pw=pw, ph=ph, layers=layers,
+                       maxc=maxc, raster=raster, raster_ml=raster_ml)
+    cap_op, cap_tr = (tap_tiles if isinstance(tap_tiles, tuple)
+                      else (tap_tiles, tap_tiles))
+    src_op, cov_op, novt_op = shade_tap_flat_channels(
+        scene, tat_op, tid_op, io, tap_tiles=cap_op)
+    dst, novt_tr = composite_peeled_tap_flat(
+        scene, tat_tr, tid_tr, it, layers, clear_color, tap_tiles=cap_tr,
+        covered=front, dst0=_blend_channels(src_op, cov_op, clear_color))
+    inf = float("inf")
+    z0 = torch.minimum(torch.where(it[:, 0] >= 0, zt[:, 0], inf),
+                       torch.where(io[:, 0] >= 0, zo[:, 0], inf))
+    z0 = torch.where(torch.isfinite(z0), z0, 1.0)
+    return dst, z0, (nov, novt_op + novt_tr)
+
+
+def _render_frame_peeled_core(scene: DeviceScene, view_proj, bone_mats=None,
+                              *, width: int, height: int, layers: int,
+                              clear_color: tuple, maxc: int | None,
+                              peel_mode: str, tap_tiles,
+                              raster=rs.raster_fwd,
+                              raster_ml=rs.raster_fwd_ml):
+    """Peeled frame body → (packed color (H, W) i32, nearest depth
+    (H, W) f32, (n_over, n_over_tap) device counts). ``raster`` and
+    ``raster_ml`` are the K1 and K2 stages; passing their plain versions
+    renders the same frame through them on any device."""
+    pw, ph = _padded(width, height)
+    mc = maxc or rs.MAXC_DEFAULT
+    clip = vertex_stage(scene, view_proj, bone_mats)
+    if peel_mode == "split":
+        setup_op, setup_tr = setup_packed_cols(scene, clip, width, height,
+                                               opacity_split=True)
+        dst, z0, n_over = _split_peel_flat(
+            scene, setup_op, setup_tr, pw=pw, ph=ph, layers=layers,
+            maxc=mc, tap_tiles=tap_tiles, clear_color=clear_color,
+            raster=raster, raster_ml=raster_ml)
+    else:
+        cols, bbox = setup_packed_cols(scene, clip, width, height)
+        lists, glists, counts, nov = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                               height=ph, maxc=mc)
+        zl, il, tattrs, tapidx = raster_ml(
+            cols, lists, glists, counts, (0, 0), width=pw, height=ph,
+            layers=layers, w_eps=W_EPS, opaque_cull=True)
+        dst, novt = composite_peeled_tap_flat(
+            scene, tattrs, tapidx, il, layers, clear_color,
+            tap_tiles=tap_tiles)
+        z0 = zl[:, 0, :]
+        n_over = (nov, novt)
+    color = rs.unflatten_tiles(pack_u32_channels(dst), ph, pw)
+    depth = rs.unflatten_tiles(z0, ph, pw)
+    return (color[:height, :width].contiguous(),
+            depth[:height, :width].contiguous(), n_over)
+
+
+def render_frame_peeled(scene: DeviceScene, view_proj, bone_mats=None, *,
+                        width: int = 512, height: int = 512,
+                        layers: int = 4,
+                        clear_color: tuple = (255, 255, 255, 255),
+                        backend: str = "pallas", maxc: int | None = None,
+                        mipmap: bool = False, lighting: bool = False,
+                        check_overflow: bool = True, peel_mode: str = "ml",
+                        packed: bool = False, tap_tiles=None):
+    """Order-independent transparency → (color, (H, W) f32 nearest depth
+    on the scene's device).
+
+    ``peel_mode="ml"`` rasters every triangle in one pass of K2, which
+    keeps the ``layers`` (2..8) nearest fragments per pixel under
+    (z asc, id desc) with the opaque cull, and composites them back to
+    front. ``"split"``, the production mode, rasters the opaque
+    triangles through K1 and only the translucent ones through K2, and
+    keeps the translucent fragments in front of the opaque winner: the
+    opaque surface plus the L nearest translucent fragments in front of
+    it. It equals "ml" wherever fewer than ``layers`` translucent
+    fragments cover a pixel. ``tap_tiles`` compacts the texture taps
+    (size it with ``measure_live_tap_tiles``; for "split" it may be the
+    (opaque, translucent) pair); None = dense. Bin and tap overflow go
+    to the deferred queue (``check_overflow``), as in ``render_frame``.
+
+    ``packed``: color is (H, W) int32 holding RGBA8 bits; otherwise it
+    is the (H, W, 4) uint8 view of the same plane."""
+    if peel_mode not in ("ml", "multipass", "split"):
+        raise ValueError(f"unknown peel_mode {peel_mode!r}")
+    if peel_mode == "multipass":
+        raise _by_decision(
+            "peel_mode='multipass'", "it re-rasters the frame once per "
+            "layer and stays the reference's differential oracle for 'ml'")
+    if backend != "pallas":
+        raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
+    if mipmap:
+        raise _not_ported("mipmap=True", _SLICE_MIP)
+    if lighting:
+        raise _not_ported("lighting=True", _SLICE_LIGHT)
+    if scene.pool_mode != "quad":
+        raise _not_ported(f"pool_mode={scene.pool_mode!r}",
+                          _SLICE_POOL.get(scene.pool_mode, "unknown mode"))
+    if peel_mode == "split" and layers < 2:
+        raise ValueError("peel_mode='split' requires layers >= 2")
+    if not 2 <= layers <= rs.MAX_LAYERS:
+        raise ValueError(f"layers={layers} out of range "
+                         f"[2, {rs.MAX_LAYERS}]")
+    if isinstance(tap_tiles, tuple) and peel_mode != "split":
+        raise ValueError("tuple tap_tiles is the split peel's "
+                         "(opaque, translucent) cap pair")
+    color, depth, n_over = _render_frame_peeled_core(
+        scene, view_proj, bone_mats, width=width, height=height,
+        layers=layers, clear_color=clear_color, maxc=maxc,
+        peel_mode=peel_mode, tap_tiles=tap_tiles)
+    if check_overflow:
+        _queue_frame_overflow(n_over, maxc, tap_tiles, width, height)
+    if not packed:
+        color = color.view(torch.uint8).reshape(height, width, 4)
+    return color, depth

@@ -1,22 +1,27 @@
 """Production frame engine — sized caps + overflow recovery.
 
-The counterpart of ``mt_renderer_tpu/render/engine.py`` for the
-single-layer packed frame. ``FrameEngine`` owns the frame loop's
+The counterpart of ``mt_renderer_tpu/render/engine.py`` for the packed
+single-layer frame and the packed peeled frame (``peel`` layers,
+``peel_mode`` "split" or "ml"). ``FrameEngine`` owns the frame loop's
 wiring:
 
 * lazy sizing at the first rendered view: ``auto_maxc`` for the binning
-  cap and ``auto_tap_tiles`` for the compacted texture tap, with a
-  ``headroom`` factor over the measured need;
+  cap; for the single-layer frame ``auto_tap_tiles`` for the compacted
+  texture tap, for the peeled frame ``measure_live_tap_tiles`` (one run
+  of the rasters and one device→host transfer); a ``headroom`` factor
+  over the measured need;
 * a per-frame host-side cap guard (no device sync): the binning need is
   predicted exactly (``predict_bin_counts`` mirrors ``bin_chunks``) and
-  the tap liveness bounded from above (``predict_live_rows``), so the
-  engine grows a cap before a frame that would overflow it;
+  the single-layer tap liveness bounded from above
+  (``predict_live_rows``), so the engine grows a cap before a frame that
+  would overflow it. When that row bound grows past the one seen at
+  sizing, the peeled caps are measured again and grow element by
+  element;
 * overflow recovery as the backstop: every ``check_every`` frames the
   deferred overflow queue flushes (one device→host transfer); any
   overflow re-sizes the affected cap at the current view (never below 2x
-  the overflowed cap) and logs.
-
-Depth peeling (``peel``) is not ported yet: slice 3 of the ROADMAP.
+  the overflowed cap) and logs. This is the only recovery of the peeled
+  caps from a spike in translucent depth, which has no cheap host bound.
 """
 
 from __future__ import annotations
@@ -33,37 +38,55 @@ logger = logging.getLogger("mt_renderer_tpu_torch.render")
 
 class FrameEngine:
     def __init__(self, scene, batch, *, width: int, height: int,
-                 peel: int = 0, headroom: float = 1.5,
-                 check_every: int = 16):
-        if peel:
-            raise device._not_ported(
-                "FrameEngine(peel=...)", "slice 3 (ROADMAP Queue 1 item 11)")
+                 peel: int = 0, peel_mode: str = "split",
+                 headroom: float = 1.5, check_every: int = 16):
+        if peel and peel_mode == "multipass":
+            raise device._by_decision(
+                "FrameEngine(peel_mode='multipass')", "the engine runs the "
+                "single-pass peels, 'split' and 'ml'")
         self.scene = scene
         self.batch = batch
         self.width = width
         self.height = height
+        self.peel = peel
+        self.peel_mode = peel_mode
         self.headroom = headroom
         self.check_every = check_every
         self.maxc: int | None = None
-        self.tap_tiles: int | None = None
+        self.tap_tiles = None          # int, or the split peel's pair
         self.sized = False
         self.recoveries = 0            # cap bumps taken so far
         self._since_check = 0
+        self._tap_bound = 0            # host row bound seen at sizing
 
     def _predict(self, fn, view_proj, bone_mats, **kw):
         return fn(self.batch, np.asarray(view_proj), bone_mats,
                   width=self.width, height=self.height, **kw)
 
+    def _measure_peel(self, view_proj, bone_mats):
+        """The peeled frame's tap caps at this view (one device run)."""
+        return device.measure_live_tap_tiles(
+            self.scene, np.asarray(view_proj),
+            bone_mats if self.batch.skinned else None, width=self.width,
+            height=self.height, layers=self.peel, maxc=self.maxc,
+            mode=self.peel_mode, margin=self.headroom)
+
     def size(self, view_proj, bone_mats=None) -> None:
-        """Size the binning and compacted-tap caps for this view (host
-        NumPy only)."""
+        """Size the binning and compacted-tap caps for this view: host
+        NumPy only, plus one device run on the peeled frame."""
         self.maxc = self._predict(device.auto_maxc, view_proj, bone_mats,
                                   margin=self.headroom)
-        self.tap_tiles = self._predict(device.auto_tap_tiles, view_proj,
-                                       bone_mats, margin=self.headroom)
+        self._tap_bound = self._predict(device.auto_tap_tiles, view_proj,
+                                        bone_mats, margin=self.headroom)
+        if self.peel:
+            self.tap_tiles = self._measure_peel(view_proj, bone_mats)
+        else:
+            self.tap_tiles = self._tap_bound
         self.sized = True
-        logger.info("FrameEngine sized: maxc=%s tap_tiles=%s (%dx%d)",
-                    self.maxc, self.tap_tiles, self.width, self.height)
+        logger.info("FrameEngine sized: maxc=%s tap_tiles=%s (%dx%d%s)",
+                    self.maxc, self.tap_tiles, self.width, self.height,
+                    f" peel{self.peel}/{self.peel_mode}" if self.peel
+                    else "")
 
     def render(self, view_proj, bone_mats=None):
         """One production frame → (packed color (H, W) i32, depth)."""
@@ -74,18 +97,26 @@ class FrameEngine:
             self.size(view_proj, bone_mats)
         else:
             self._guard(view_proj, bone_mats)
-        out = device.render_frame(
-            self.scene, view_proj, bone_mats, width=self.width,
-            height=self.height, maxc=self.maxc, packed=True,
-            tap_tiles=self.tap_tiles)
+        if self.peel:
+            out = device.render_frame_peeled(
+                self.scene, view_proj, bone_mats, width=self.width,
+                height=self.height, layers=self.peel, maxc=self.maxc,
+                peel_mode=self.peel_mode, packed=True,
+                tap_tiles=self.tap_tiles)
+        else:
+            out = device.render_frame(
+                self.scene, view_proj, bone_mats, width=self.width,
+                height=self.height, maxc=self.maxc, packed=True,
+                tap_tiles=self.tap_tiles)
         self._since_check += 1
         if self._since_check >= self.check_every:
             self.check(view_proj, bone_mats)
         return out
 
     def _guard(self, view_proj, bone_mats) -> None:
-        """Pre-render host-side cap guard (no device sync): grow the
-        caps before a frame that would overflow them."""
+        """Pre-render host-side cap guard (no device sync, except the
+        peel caps' re-measurement): grow the caps before a frame that
+        would overflow them."""
         need = int(self._predict(device.predict_bin_counts, view_proj,
                                  bone_mats).max())
         if need > (self.maxc or 0):
@@ -98,18 +129,31 @@ class FrameEngine:
                         need, old, self.maxc)
         bound = self._predict(device.auto_tap_tiles, view_proj, bone_mats,
                               margin=self.headroom)
-        if bound > (self.tap_tiles or 0):
-            old = self.tap_tiles
-            self.tap_tiles = bound
+        if bound <= self._tap_bound:
+            return
+        self._tap_bound = bound
+        old = self.tap_tiles
+        if self.peel:
+            fresh = self._measure_peel(view_proj, bone_mats)
+            if isinstance(old, tuple):
+                self.tap_tiles = tuple(max(o, n) for o, n in zip(old, fresh))
+            else:
+                self.tap_tiles = max(old or 0, fresh)
+        else:
+            self.tap_tiles = max(old or 0, bound)
+        if self.tap_tiles != old:
             self.recoveries += 1
-            logger.info("FrameEngine guard: tap row bound grew — %s -> %s "
-                        "before rendering", old, self.tap_tiles)
+            logger.info("FrameEngine guard: tap row bound grew past the "
+                        "sized caps — %s -> %s before rendering", old,
+                        self.tap_tiles)
 
-    @staticmethod
-    def _grow(old: int, new: int) -> int:
-        """Monotone cap growth: at least the fresh measurement, at least
-        2x the overflowed cap (the overflow may have happened at an
-        earlier view than the one just re-measured)."""
+    def _grow(self, old, new):
+        """Monotone cap growth, element by element for the split pair: at
+        least the fresh measurement, at least 2x the overflowed cap (the
+        overflow may have happened at an earlier view than the one just
+        re-measured)."""
+        if isinstance(old, tuple):
+            return tuple(self._grow(o, n) for o, n in zip(old, new))
         return max(int(new), 2 * int(old))
 
     def check(self, view_proj=None, bone_mats=None) -> dict:
@@ -138,14 +182,22 @@ class FrameEngine:
                     "maxc=%s — recovered to maxc=%s", n, old, self.maxc)
             else:
                 old = self.tap_tiles
-                need = self._predict(device.auto_tap_tiles, view_proj,
-                                     bone_mats, margin=self.headroom)
+                if self.peel:
+                    need = self._measure_peel(view_proj, bone_mats)
+                else:
+                    need = self._predict(device.auto_tap_tiles, view_proj,
+                                         bone_mats, margin=self.headroom)
                 grown = self._grow(old, need) if old else need
                 # a cap past "every row live" buys nothing
                 pw, ph = device._padded(self.width, self.height)
                 nrows = (pw // rs.TILE_W) * (ph // (device.SEG_PX
                                                     // rs.TILE_W))
-                self.tap_tiles = min(grown, nrows)
+                if isinstance(grown, tuple):
+                    grown = (min(grown[0], nrows),
+                             min(grown[1], nrows * self.peel))
+                else:
+                    grown = min(grown, nrows * max(self.peel, 1))
+                self.tap_tiles = grown
                 logger.warning(
                     "FrameEngine: tap overflow on %d row(s) at "
                     "tap_tiles=%s — recovered to %s", n, old, self.tap_tiles)

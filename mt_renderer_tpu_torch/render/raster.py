@@ -1,7 +1,9 @@
-"""Binned tile raster: binning, the K1 raster kernel and the overflow queue.
+"""Binned tile raster: binning, the raster kernels K1 and K2, the overflow
+queue.
 
 The counterpart of ``mt_renderer_tpu/render/pallas_raster.py`` on the
-single-layer tap path. It keeps the reference's geometry (16x128-px
+tap paths: the single-layer raster K1 and the multi-layer
+(order-independent transparency) raster K2. It keeps the reference's geometry (16x128-px
 tiles, 384-triangle chunks, 32-triangle culling groups), so binning
 compares bit for bit with the JAX package's.
 
@@ -19,9 +21,10 @@ Chunk ``c`` is triangles ``[c*CT, (c+1)*CT)`` and its group ``g`` is
 triangles ``[c*CT + g*KG, +KG)``, so a triangle's global id is its
 column index.
 
-``raster_fwd`` dispatches on the tensors' device: a CPU tensor runs the
-plain PyTorch version ``raster_fwd_reference``; a CUDA tensor launches
-the hand-written kernel ``csrc/raster_fwd.cu`` or raises.
+``raster_fwd`` and ``raster_fwd_ml`` dispatch on the tensors' device: a
+CPU tensor runs the plain PyTorch version (``raster_fwd_reference``,
+``raster_fwd_ml_reference``); a CUDA tensor launches the hand-written
+kernel (``csrc/raster_fwd.cu``, ``csrc/raster_fwd_ml.cu``) or raises.
 """
 
 from __future__ import annotations
@@ -50,8 +53,12 @@ N_RAST = 15              # raster columns
 ATTRS_BASE = 12          # attribute planes of the unlit variant
 N_COEF = 18              # coefficient columns after the raster columns
 ATTRS_TAP = 6            # tap epilogue output planes: fx, fy, C rgba
+TEX_ROW = N_RAST + 9     # tex column: an integer value marks an opaque row
+MAX_LAYERS = 8           # K2 keeps 2..MAX_LAYERS fragments per pixel
 
-_SOURCES = ["raster_fwd.cu"]
+# kernel name -> its csrc sources (each also depends on csrc/*.cuh)
+KERNELS = {"raster_fwd": ["raster_fwd.cu"],
+           "raster_fwd_ml": ["raster_fwd_ml.cu"]}
 
 
 # ------------------------------------------------------------------ binning
@@ -274,25 +281,37 @@ def raster_fwd(cols, lists, glists, counts, origin, *, width: int,
 raster_fwd.launches = 0
 
 
-def _load_kernel():
-    lib = _build.load("raster_fwd", _SOURCES)
-    fn = lib.mtr_raster_fwd
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "raster_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                   _P, _P, _P, _P, _P],
+    "raster_fwd_ml": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                      _I, _I, _P, _P, _P, _P, _P, _P],
+}
+
+
+def _load_kernel(name: str):
+    fn = getattr(_build.load(name, KERNELS[name]), f"mtr_{name}")
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, i, i, i, i, i, ctypes.c_float,
-                       p, p, p, p, p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def kernel_report() -> str:
-    """Build K1 if needed; its ``ptxas info`` lines."""
-    return _build.ptxas_report("raster_fwd", _SOURCES)
+def build_kernels() -> dict:
+    """Build every kernel of ``KERNELS`` that is not built yet, all
+    ``nvcc`` processes at once → {name: library path}."""
+    return _build.build_all(KERNELS)
+
+
+def kernel_report(name: str) -> str:
+    """Build the kernel ``name`` if needed; its ``ptxas info`` lines."""
+    return _build.ptxas_report(name, KERNELS[name])
 
 
 def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
                      height, w_eps):
-    fn = _load_kernel()
+    fn = _load_kernel("raster_fwd")
     cols = cols.contiguous()
     lists = lists.contiguous()
     glists = glists.contiguous()
@@ -319,6 +338,21 @@ def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
     return zb, ib, tattrs, tapidx
 
 
+def _pixel_centers(width: int, height: int, origin, dev):
+    """Tile-major pixel-center coordinates (px, py), each (n_tiles, P)
+    f32, of a band whose top-left pixel is ``origin``."""
+    n_tx = width // TILE_W
+    n_tiles = (height // TILE_H) * n_tx
+    x0, y0 = (int(o) for o in origin)
+    t = torch.arange(n_tiles, device=dev)
+    flat = torch.arange(P, device=dev)
+    px0 = ((t % n_tx) * TILE_W + x0).to(torch.float32)
+    py0 = ((t // n_tx) * TILE_H + y0).to(torch.float32)
+    px = (flat % TILE_W).to(torch.float32)[None, :] + (px0 + 0.5)[:, None]
+    py = (flat // TILE_W).to(torch.float32)[None, :] + (py0 + 0.5)[:, None]
+    return px, py
+
+
 def raster_fwd_reference(cols, lists, glists, counts, origin, *,
                          width: int, height: int, w_eps: float):
     """Plain PyTorch version of ``raster_fwd``, same contract. Batches
@@ -330,15 +364,8 @@ def raster_fwd_reference(cols, lists, glists, counts, origin, *,
     running winner if nearer, or equally near with a larger id."""
     _check_raster_args(cols, lists, glists, counts, width, height)
     dev = cols.device
-    n_tx = width // TILE_W
-    n_tiles = (height // TILE_H) * n_tx
-    x0, y0 = (int(o) for o in origin)
-    t = torch.arange(n_tiles, device=dev)
-    flat = torch.arange(P, device=dev)
-    px0 = ((t % n_tx) * TILE_W + x0).to(torch.float32)
-    py0 = ((t // n_tx) * TILE_H + y0).to(torch.float32)
-    px = (flat % TILE_W).to(torch.float32)[None, :] + (px0 + 0.5)[:, None]
-    py = (flat // TILE_W).to(torch.float32)[None, :] + (py0 + 0.5)[:, None]
+    n_tiles = (height // TILE_H) * (width // TILE_W)
+    px, py = _pixel_centers(width, height, origin, dev)
     zbuf = torch.full((n_tiles, P), float("inf"), device=dev)
     win = torch.full((n_tiles, P), -1, dtype=torch.int32, device=dev)
     kk = torch.arange(KG, dtype=torch.int32, device=dev)
@@ -383,6 +410,193 @@ def raster_fwd_reference(cols, lists, glists, counts, origin, *,
     zb = torch.where(covered, zbuf, 1.0)
     return (zb[:, None, :], win[:, None, :], torch.stack(planes, 1),
             tapidx[:, None, :])
+
+
+# ------------------------------------------------------------ K2: raster ML
+
+
+def _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi):
+    _check_raster_args(cols, lists, glists, counts, width, height)
+    if not 2 <= layers <= MAX_LAYERS:
+        raise ValueError(f"layers={layers} out of range [2, {MAX_LAYERS}]")
+    if zhi is not None:
+        shape = (counts.shape[0], 1, P)
+        if zhi.dtype != torch.float32 or tuple(zhi.shape) != shape:
+            raise ValueError(f"zhi must be f32 {shape}, got {zhi.dtype} "
+                             f"{tuple(zhi.shape)}")
+        if zhi.device != cols.device:
+            raise ValueError(f"zhi on {zhi.device}, cols on {cols.device}")
+
+
+def raster_fwd_ml(cols, lists, glists, counts, origin, *, width: int,
+                  height: int, layers: int, w_eps: float,
+                  opaque_cull: bool, zhi=None):
+    """Binned multi-layer (order-independent transparency) raster with
+    the tap epilogue per layer, over a band of ``width`` x ``height`` px
+    (tile-aligned) whose top-left pixel is ``origin`` = (x0, y0).
+
+    Per pixel it keeps the ``layers`` (2..8) nearest fragments, ordered
+    by z ascending and then by global id descending on exact ties, among
+    the candidates inside all three edges with 0 <= z <= ``zhi`` (a
+    tile-major (n_tiles, 1, P) f32 depth horizon, when given; the split
+    peel passes the opaque pass's z-buffer). ``opaque_cull`` also culls
+    candidates behind the nearest opaque one (integer tex column) and
+    invalidates kept entries strictly behind it: the reference's
+    ``variant="full"``; without it, ``"nocull"``.
+
+    Returns tile-major (zl (n_tiles, L, P) f32 with 1.0 where the id is
+    < 0, il (n_tiles, L, P) i32 kept id or -1, tattrs (n_tiles, 6L, P)
+    f32 with layer l's [fx, fy, C rgba] at rows 6l..6l+5, tapidx
+    (n_tiles, L, P) i32), nearest layer first.
+
+    A CPU tensor runs ``raster_fwd_ml_reference``. A CUDA tensor
+    launches ``csrc/raster_fwd_ml.cu`` (counted in
+    ``raster_fwd_ml.launches``) or raises."""
+    _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi)
+    kw = dict(width=width, height=height, layers=layers, w_eps=w_eps,
+              opaque_cull=opaque_cull, zhi=zhi)
+    if cols.device.type == "cpu":
+        return raster_fwd_ml_reference(cols, lists, glists, counts, origin,
+                                       **kw)
+    if cols.device.type != "cuda":
+        raise ValueError(f"raster_fwd_ml runs on CPU or CUDA, not "
+                         f"{cols.device}")
+    return _raster_fwd_ml_cuda(cols, lists, glists, counts, origin, **kw)
+
+
+raster_fwd_ml.launches = 0
+
+
+def _raster_fwd_ml_cuda(cols, lists, glists, counts, origin, *, width,
+                        height, layers, w_eps, opaque_cull, zhi):
+    fn = _load_kernel("raster_fwd_ml")
+    cols = cols.contiguous()
+    lists = lists.contiguous()
+    glists = glists.contiguous()
+    counts = counts.contiguous()
+    zhi = None if zhi is None else zhi.contiguous()
+    n_tx = width // TILE_W
+    n_tiles = (height // TILE_H) * n_tx
+    dev = cols.device
+    zl = torch.empty((n_tiles, layers, P), dtype=torch.float32, device=dev)
+    il = torch.empty((n_tiles, layers, P), dtype=torch.int32, device=dev)
+    tattrs = torch.empty((n_tiles, layers * ATTRS_TAP, P),
+                         dtype=torch.float32, device=dev)
+    tapidx = torch.empty((n_tiles, layers, P), dtype=torch.int32,
+                         device=dev)
+    x0, y0 = (int(o) for o in origin)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cols.data_ptr(), cols.shape[1], lists.data_ptr(),
+                 glists.data_ptr(), counts.data_ptr(), n_tiles,
+                 lists.shape[1], n_tx, x0, y0, w_eps, layers,
+                 int(opaque_cull), None if zhi is None else zhi.data_ptr(),
+                 zl.data_ptr(), il.data_ptr(), tattrs.data_ptr(),
+                 tapidx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"raster_fwd_ml kernel launch failed: cudaError "
+                           f"{err}")
+    raster_fwd_ml.launches += 1
+    return zl, il, tattrs, tapidx
+
+
+def raster_fwd_ml_reference(cols, lists, glists, counts, origin, *,
+                            width: int, height: int, layers: int,
+                            w_eps: float, opaque_cull: bool, zhi=None):
+    """Plain PyTorch version of ``raster_fwd_ml``, same contract, in the
+    reference's per-group form. Batches over the tiles that are live at
+    each (list slot, group) step. Each group culls its candidates against
+    min(list's deepest z, ``zhi``, nearest opaque z so far), where the
+    opaque z first takes in the group's own opaque candidates; then each
+    pixel extracts the group's remaining candidates nearest first (ties:
+    larger id first), up to ``layers`` of them, inserting each at the
+    number of kept entries that precede it under (z asc, id desc). With
+    ``opaque_cull``, kept entries strictly behind the final opaque z are
+    invalidated. Coefficients are gathered by id, and each layer runs
+    the single-layer raster's tap epilogue."""
+    _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi)
+    dev = cols.device
+    n_tiles = counts.shape[0]
+    px, py = _pixel_centers(width, height, origin, dev)
+    inf = float("inf")
+    zl = torch.full((n_tiles, layers, P), inf, device=dev)
+    il = torch.full((n_tiles, layers, P), -1, dtype=torch.int32, device=dev)
+    zop = torch.full((n_tiles, P), inf, device=dev)
+    kk = torch.arange(KG, dtype=torch.int32, device=dev)
+    li = torch.arange(layers, device=dev)[None, :, None]
+
+    n_slots = int(counts.max()) if n_tiles else 0
+    for s in range(n_slots):
+        cid = lists[:, s]
+        gm = glists[:, s]
+        in_list = counts > s
+        for g in range(G):
+            act = torch.nonzero(in_list & (((gm >> g) & 1) != 0)).squeeze(1)
+            if act.numel() == 0:
+                continue
+            ids = cid[act, None] * CT + g * KG + kk              # (A, KG)
+            blk = cols[:N_RAST][:, ids.long()][..., None]     # (15, A, KG, 1)
+            pxa = px[act][:, None, :]                         # (A, 1, P)
+            pya = py[act][:, None, :]
+
+            def edge_ok(i):
+                e = blk[i] * pxa + blk[3 + i] * pya + blk[6 + i]
+                return e > blk[9 + i]
+
+            inside = edge_ok(0) & edge_ok(1) & edge_ok(2)
+            z = blk[12] * pxa + blk[13] * pya + blk[14]        # (A, KG, P)
+            zl_a = zl[act]
+            il_a = il[act]
+            zlim = zl_a[:, layers - 1, :]
+            if zhi is not None:
+                zlim = torch.minimum(zlim, zhi[act, 0, :])
+            if opaque_cull:
+                zlim = torch.minimum(zlim, zop[act])
+            zok = inside & (z >= 0.0) & (z <= zlim[:, None, :])
+            zm = torch.where(zok, z, inf)
+            if opaque_cull:
+                tex = cols[TEX_ROW][ids.long()]                 # (A, KG)
+                op_row = (tex == torch.floor(tex))[..., None]
+                opz = torch.minimum(
+                    torch.where(zok & op_row, z, inf).amin(1), zop[act])
+                zop[act] = opz
+                zm = torch.where(zm <= opz[:, None, :], zm, inf)
+            if not bool(torch.isfinite(zm).any()):
+                continue
+            for _ in range(layers):
+                zmin = zm.amin(1)                             # (A, P)
+                winner_k = torch.where(
+                    (zm == zmin[:, None, :])
+                    & torch.isfinite(zmin)[:, None, :],
+                    kk[None, :, None], -1).amax(1)
+                new_id = torch.where(winner_k >= 0,
+                                     cid[act, None] * CT + g * KG + winner_k,
+                                     -1)
+                prec = (zl_a < zmin[:, None, :]) | (
+                    (zl_a == zmin[:, None, :]) & (il_a > new_id[:, None, :]))
+                pos = prec.sum(1, keepdim=True)               # (A, 1, P)
+                zprev = torch.cat([zl_a[:, :1], zl_a[:, :-1]], 1)
+                iprev = torch.cat([il_a[:, :1], il_a[:, :-1]], 1)
+                take = li == pos
+                shift = li > pos
+                zl_a = torch.where(take, zmin[:, None, :],
+                                   torch.where(shift, zprev, zl_a))
+                il_a = torch.where(take, new_id[:, None, :],
+                                   torch.where(shift, iprev, il_a))
+                zm = torch.where(kk[None, :, None] == winner_k[:, None, :],
+                                 inf, zm)
+            zl[act] = zl_a
+            il[act] = il_a
+
+    if opaque_cull:
+        il = torch.where(zl > zop[:, None, :], -1, il)
+    covered = il >= 0
+    coef = cols[N_RAST:N_RAST + N_COEF][:, il.clamp(min=0).long()]
+    coef = torch.where(covered, coef, 0.0)             # (18, tiles, L, P)
+    planes, tapidx = _tap_epilogue(coef, px[:, None, :], py[:, None, :],
+                                   w_eps)
+    tattrs = torch.stack(planes, 2).reshape(n_tiles, layers * ATTRS_TAP, P)
+    return torch.where(covered, zl, 1.0), il, tattrs, tapidx
 
 
 def unflatten_tiles(x, height: int, width: int):

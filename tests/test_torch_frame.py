@@ -211,9 +211,12 @@ def test_frame_engine_recovers_from_overflow(case):
 
 
 def test_frame_engine_peel_raises(case):
+    """The peeled engine runs the single-pass peels; the multipass peel
+    is not ported, by decision."""
     batch, _, _, _, ts, _, _ = case
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        te.FrameEngine(ts, batch, width=W, height=H, peel=2)
+    with pytest.raises(NotImplementedError, match="by decision"):
+        te.FrameEngine(ts, batch, width=W, height=H, peel=2,
+                       peel_mode="multipass")
 
 
 def test_frame_profile_runs_at_a_small_size(capsys):

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
+card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 ``cuda`` fixture, so every pytest worker collects the same tests). The
@@ -6,16 +7,20 @@ file imports no jax, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
-Tolerance: none. K1 is built without FMA contraction, so it rounds
-every plane evaluation like the plain version's separate ops: all four
-outputs are expected bit-equal.
+Tolerance: none. K1 and K2 are built without FMA contraction, so they
+round every plane evaluation like the plain versions' separate ops: all
+four outputs of each are expected bit-equal. The frames on the card are
+held to the CPU's under the golden rule (coverage exact, at most 0.3% of
+pixels with a channel off by more than 1).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mt_renderer_tpu.app.camera import Camera
 from mt_renderer_tpu.scene import demo
+from mt_renderer_tpu.scene.model import DrawBatch
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 
@@ -29,19 +34,85 @@ def cuda():
     return torch.device("cuda")
 
 
+def _glass(instances=9, subdiv=2, width=W, height=H):
+    """The glass demo scene (every 4th instance translucent, the camera
+    inside the field) → (batch, view_proj, bones)."""
+    batch = demo.make_translucent(demo.build_demo_batch(
+        instances=instances, skinned=True, subdiv=subdiv), instances)
+    cam = demo.demo_camera(instances, width, height)
+    cam.position = cam.position * 0.3
+    return batch, np.asarray(cam.view_proj()), demo.demo_bone_mats(0.5)
+
+
+def stack_batch(seed: int = 0, quads: int = 12) -> DrawBatch:
+    """A seeded stack of overlapping, textured, screen-facing quads, one
+    per depth in [-1, 0.8): about a third opaque, the rest alpha 100.
+    Under ``stack_view_proj`` most pixels see many fragments, so K2's
+    lists fill to any depth. (The demo cubes seldom overlap more than
+    twice.)"""
+    rng = np.random.default_rng(seed)
+    textures = []
+    for alpha in (255, 100):
+        tex = rng.integers(0, 256, (8, 8, 4)).astype(np.uint8)
+        tex[..., 3] = alpha
+        textures.append(tex)
+    pos, uvs, tris, tex_ids = [], [], [], []
+    for i in range(quads):
+        z = -1.0 + 1.8 * i / quads
+        cx, cy = rng.uniform(-0.6, 0.6, 2)
+        s = rng.uniform(0.5, 1.3)
+        b = len(pos)
+        pos += [[cx - s, cy - s, z], [cx + s, cy - s, z],
+                [cx - s, cy + s, z], [cx + s, cy + s, z]]
+        uvs += [[0, 0], [1, 0], [0, 1], [1, 1]]
+        tris += [[b, b + 1, b + 2], [b + 2, b + 1, b + 3]]
+        tex_ids += [int(rng.random() > 1 / 3)] * 2
+    n, t = len(pos), len(tris)
+    return DrawBatch(
+        positions=np.asarray(pos, np.float32),
+        uvs=np.asarray(uvs, np.float32),
+        joints=np.zeros((n, 4), np.int32),
+        weights=np.zeros((n, 4), np.float32),
+        tris=np.asarray(tris, np.int32),
+        tri_texture=np.asarray(tex_ids, np.int32),
+        tri_parts=np.zeros(t, np.int32),
+        tri_debug_id=np.zeros(t, np.int32),
+        textures=textures)
+
+
+def stack_view_proj(width: int, height: int) -> np.ndarray:
+    cam = Camera(position=[0.0, 0.0, 3.0])
+    cam.aspect = width / height
+    return np.asarray(cam.view_proj())
+
+
 def _binned(device, *, maxc=None, instances=9, subdiv=2, width=W,
-            height=H):
+            height=H, glass=None):
     """The port's own vertex, setup and binning stages on ``device`` →
-    the raster's positional arguments."""
-    batch = demo.build_demo_batch(instances=instances, skinned=True,
-                                  subdiv=subdiv)
-    vp = np.asarray(demo.demo_camera(instances, width, height).view_proj())
-    bones = demo.demo_bone_mats(0.5)
+    the raster's positional arguments. ``glass`` bins the glass scene
+    instead of the demo scene: "all" its every triangle, "opaque" or
+    "translucent" one set of its opacity split; "stack" bins
+    ``stack_batch`` instead."""
+    if glass == "stack":
+        batch, vp, bones = stack_batch(), stack_view_proj(width, height), None
+    elif glass:
+        batch, vp, bones = _glass(instances, subdiv, width, height)
+    else:
+        batch = demo.build_demo_batch(instances=instances, skinned=True,
+                                      subdiv=subdiv)
+        vp = np.asarray(demo.demo_camera(instances, width,
+                                         height).view_proj())
+        bones = demo.demo_bone_mats(0.5)
     if maxc is None:
         maxc = td.auto_maxc(batch, vp, bones, width=width, height=height)
     scene = td.upload(batch, device=device)
-    cols, bbox = td.setup_packed_cols(
-        scene, td.vertex_stage(scene, vp, bones), width, height)
+    clip = td.vertex_stage(scene, vp, bones)
+    if glass in ("opaque", "translucent"):
+        setup = td.setup_packed_cols(scene, clip, width, height,
+                                     opacity_split=True)
+        cols, bbox = setup[glass == "translucent"]
+    else:
+        cols, bbox = td.setup_packed_cols(scene, clip, width, height)
     lists, glists, counts, n_over = tr.prebin(cols, bbox, 0, 0, width=width,
                                               height=height, maxc=maxc)
     return (cols, lists, glists, counts, (0, 0)), n_over
@@ -103,6 +174,105 @@ def test_packed_frame_on_card_matches_cpu(cuda):
             packed=True, maxc=maxc, tap_tiles=taps)
     tr.flush_overflow_checks()
     (gc, gd), (wc, wd) = out["cuda"], out["cpu"]
+    assert gc.device.type == "cuda" and gc.dtype == torch.int32
+    assert torch.equal(gd.cpu() < 1.0, wd < 1.0)
+    diff = np.abs(td.unpack_rgba(gc).astype(np.int32)
+                  - td.unpack_rgba(wc).astype(np.int32)).max(-1)
+    assert (diff > 1).mean() <= 0.003
+
+
+def _opaque_horizon(device):
+    """K1's opaque z-buffer of the glass scene, +inf where uncovered: the
+    split peel's ``zhi`` for K2."""
+    args, _ = _binned(device, glass="opaque")
+    zo, io, _, _ = tr.raster_fwd(*args, width=W, height=H, w_eps=td.W_EPS)
+    return torch.where(io >= 0, zo, float("inf"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers", [2, 4, 8])
+@pytest.mark.parametrize("variant", ["full", "nocull_zhi", "full_stack",
+                                     "nocull_stack"])
+def test_ml_kernel_matches_plain_version(cuda, layers, variant):
+    """K2 on the glass scene ("full" over every triangle, "nocull" over
+    the translucent set behind K1's opaque z-buffer) and on the deep
+    quad stack (both variants, no horizon)."""
+    if variant == "full":
+        args, _ = _binned(cuda, glass="all")
+        kw = dict(opaque_cull=True, zhi=None)
+    elif variant == "nocull_zhi":
+        args, _ = _binned(cuda, glass="translucent")
+        kw = dict(opaque_cull=False, zhi=_opaque_horizon(cuda))
+    else:
+        args, _ = _binned(cuda, glass="stack")
+        kw = dict(opaque_cull=variant == "full_stack", zhi=None)
+    kw.update(width=W, height=H, layers=layers, w_eps=td.W_EPS)
+    before = tr.raster_fwd_ml.launches
+    got = tr.raster_fwd_ml(*args, **kw)
+    torch.cuda.synchronize()
+    assert tr.raster_fwd_ml.launches == before + 1
+    want = tr.raster_fwd_ml_reference(*args, **kw)
+    assert float((want[1][:, 0] >= 0).float().mean()) > 0.01
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_ml_kernel_overflowing_lists(cuda):
+    """maxc=1 drops chunks: both versions skip the same ones."""
+    args, n_over = _binned(cuda, maxc=1, instances=64, subdiv=0, width=128,
+                           height=64)
+    assert int(n_over) > 0
+    kw = dict(width=128, height=64, layers=3, w_eps=td.W_EPS,
+              opaque_cull=True)
+    got = tr.raster_fwd_ml(*args, **kw)
+    want = tr.raster_fwd_ml_reference(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_ml_kernel_band_origin_and_empty_tiles(cuda):
+    """A band with a nonzero origin: its top tiles hold the scene, the
+    tiles below the frame have empty lists."""
+    batch = demo.build_demo_batch(instances=9, skinned=True, subdiv=2)
+    vp = np.asarray(demo.demo_camera(9, W, H).view_proj())
+    scene = td.upload(batch, device=cuda)
+    cols, bbox = td.setup_packed_cols(
+        scene, td.vertex_stage(scene, vp, demo.demo_bone_mats(0.5)), W, H)
+    lists, glists, counts, _ = tr.prebin(cols, bbox, 128, 32, width=128,
+                                         height=256, maxc=16)
+    empty = counts == 0
+    assert bool(empty.any()) and int(counts.max()) > 0
+    kw = dict(width=128, height=256, layers=4, w_eps=td.W_EPS,
+              opaque_cull=True)
+    got = tr.raster_fwd_ml(cols, lists, glists, counts, (128, 32), **kw)
+    want = tr.raster_fwd_ml_reference(cols, lists, glists, counts,
+                                      (128, 32), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][empty] == -1).all() and (got[0][empty] == 1.0).all()
+
+
+@pytest.mark.gpu
+def test_split_frame_on_card_matches_cpu(cuda):
+    """The packed split-peel frame of the glass scene on the card against
+    the same frame on the CPU (plain rasters), with measured caps."""
+    batch, vp, bones = _glass(instances=16)
+    maxc = td.auto_maxc(batch, vp, bones, width=W, height=H)
+    out = {}
+    for dev in ("cpu", cuda):
+        scene = td.upload(batch, device=dev)
+        caps = td.measure_live_tap_tiles(scene, vp, bones, width=W,
+                                         height=H, layers=4, maxc=maxc,
+                                         mode="split")
+        out[str(dev)] = caps, td.render_frame_peeled(
+            scene, vp, bones, width=W, height=H, layers=4, maxc=maxc,
+            peel_mode="split", packed=True, tap_tiles=caps)
+    tr.flush_overflow_checks()
+    (gcaps, (gc, gd)), (wcaps, (wc, wd)) = out["cuda"], out["cpu"]
+    assert gcaps == wcaps
     assert gc.device.type == "cuda" and gc.dtype == torch.int32
     assert torch.equal(gd.cpu() < 1.0, wd < 1.0)
     diff = np.abs(td.unpack_rgba(gc).astype(np.int32)

@@ -1,8 +1,8 @@
 """The port runs where jax cannot be imported.
 
 A fresh interpreter makes ``import jax`` fail, imports the port, renders
-its ``entry()`` frame on the CPU, and checks that no module of jax was
-loaded on the way."""
+its ``entry()`` frame and a small split-peel frame of the glass scene on
+the CPU, and checks that no module of jax was loaded on the way."""
 
 import subprocess
 import sys
@@ -31,6 +31,14 @@ fn, args = entry.entry("cpu")
 color = fn(*args)
 assert tuple(color.shape) == (256, 256), color.shape
 assert (color != -1).any(), "entry frame is all clear color"
+
+glass = entry.demo_case("cpu", instances=12, width=256, height=128,
+                        subdiv=1, translucent=True, cam_scale=0.3)
+eng = engine.FrameEngine(glass.scene, glass.batch, width=256, height=128,
+                         peel=3, peel_mode="split")
+color, depth = eng.render(glass.view_proj(), glass.bone_mats(0.4))
+assert tuple(color.shape) == (128, 256) and isinstance(eng.tap_tiles, tuple)
+assert (depth < 1.0).any() and (color != -1).any()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert not loaded, loaded
 print("ok")
