@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths once at the headline sizes: the
-skinned, textured demo scene (1024 instances at subdiv 4, 196,608
-triangles) at 1920x1080 with the quad texel pool, single-layer through
-``FrameEngine`` and ``render_frame(packed=True)``; and its glass variant
+Drives the port's main paths once at the headline sizes: the skinned,
+textured demo scene (1024 instances at subdiv 4, 196,608 triangles) at
+1920x1080 with the quad texel pool, single-layer through
+``FrameEngine`` and ``render_frame(packed=True)``; its glass variant
 (every 4th instance translucent, the camera inside the cube field)
 through ``FrameEngine(peel=4, peel_mode="split")`` and
-``render_frame_peeled``. Phases, each of which raises on failure:
+``render_frame_peeled``; the same scene with the tri texel pool,
+mipmapped and lit, through ``FrameEngine(mipmap=True, lighting=True)``
+(the reference bench's ``pallas+mip+light`` row); and the two probe
+tools' paths, shortened: ``tools.raster_roofline`` on its ``default``
+preset and ``tools.bilin_ab``. Phases, each of which raises on failure:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build K1 (``csrc/raster_fwd.cu``) and K2 (``csrc/raster_fwd_ml.cu``),
-   both ``nvcc`` processes at once, and print ptxas' register, shared
-   memory and spill report;
+2. build K1 (``csrc/raster_fwd.cu``), K2 (``csrc/raster_fwd_ml.cu``),
+   K3 (``csrc/raster_micro.cu``) and K4 (``csrc/bilin_swar.cu``), every
+   ``nvcc`` process at once, and print ptxas' register, shared memory
+   and spill report;
 3. K1 against its plain PyTorch version on the card at the headline
    shapes: winner ids, tap addresses and coverage equal, z and the tap
    planes within 2 ulp (bit-equal is expected: both are built without
@@ -49,6 +54,7 @@ non-zero, with no result, when no CUDA device is visible.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -64,8 +70,14 @@ KERNEL_SOURCE = "mt_renderer_tpu_torch/csrc/raster_fwd.cu"
 KERNEL_REPLACES = "mt_renderer_tpu/render/pallas_raster.py:618"
 ML_KERNEL_SOURCE = "mt_renderer_tpu_torch/csrc/raster_fwd_ml.cu"
 ML_KERNEL_REPLACES = "mt_renderer_tpu/render/pallas_raster.py:843"
+MICRO_SOURCE = "mt_renderer_tpu_torch/csrc/raster_micro.cu"
+MICRO_REPLACES = "tools/bench/raster_roofline.py:177"
+SWAR_SOURCE = "mt_renderer_tpu_torch/csrc/bilin_swar.cu"
+SWAR_REPLACES = "tools/bench/bilin_ab.py:87"
 HEADLINE = dict(instances=1024, subdiv=4, width=1920, height=1080)
 GLASS = dict(HEADLINE, translucent=True, cam_scale=0.3)
+MIP = dict(HEADLINE, pool_mode="tri")
+MICRO_REPS = 16             # reps of the timed one-CTA probe against its twin
 VERIFY_LEG = dict(instances=9, subdiv=2, width=256, height=256)
 LAYERS = 4                  # the glass preset's peel depth
 FRAMES = 20
@@ -132,60 +144,67 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    from mt_renderer_tpu_torch.render import raster as rs
+    from mt_renderer_tpu_torch import _build
 
     t0 = time.perf_counter()
-    rs.build_kernels()
-    log(f"build: K1 {KERNEL_SOURCE} and K2 {ML_KERNEL_SOURCE} in "
+    _build.build_all()
+    log(f"build: {', '.join(_build.KERNELS)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in rs.KERNELS:
+    for name in _build.KERNELS:
         log(f"ptxas report of {name}:")
-        for line in rs.kernel_report(name).splitlines():
+        for line in _build.ptxas_report(name).splitlines():
             log(f"  {line.strip()}")
 
 
 def reset_launches() -> None:
+    from mt_renderer_tpu_torch.render import device as dv
     from mt_renderer_tpu_torch.render import raster as rs
 
     rs.raster_fwd.launches = 0
     rs.raster_fwd_ml.launches = 0
+    rs.raster_micro.launches = 0
+    dv.bilin_swar.launches = 0
 
 
 def headline_case(device, *, instances: int, subdiv: int, width: int,
                   height: int, translucent: bool = False,
-                  cam_scale: float = 1.0, phase: float = 0.0) -> dict:
-    """The headline scene (or its glass variant) uploaded to ``device``,
-    its camera, the bone palette at animation ``phase``, and the caps
-    sized for that view the way ``bench.py`` sizes them."""
+                  cam_scale: float = 1.0, phase: float = 0.0,
+                  pool_mode: str = "quad") -> dict:
+    """The headline scene (or its glass variant) uploaded to ``device``
+    with the ``pool_mode`` texel pool, its camera, the bone palette at
+    animation ``phase``, and the caps sized for that view the way
+    ``bench.py`` sizes them."""
     from mt_renderer_tpu_torch.entry import demo_case
     from mt_renderer_tpu_torch.render import device as dv
 
     t0 = time.perf_counter()
     demo = demo_case(device, instances=instances, subdiv=subdiv,
                      width=width, height=height, translucent=translucent,
-                     cam_scale=cam_scale)
+                     cam_scale=cam_scale, pool_mode=pool_mode)
     vp = demo.view_proj()
     bones = demo.bone_mats(phase)
     maxc = dv.auto_maxc(demo.batch, vp, bones, width=width, height=height)
     taps = dv.auto_tap_tiles(demo.batch, vp, bones, width=width,
                              height=height)
     log(f"scene: {len(demo.batch.tris)} tris, {width}x{height}, "
-        f"translucent={translucent}, cam_scale={cam_scale}, maxc={maxc}, "
+        f"translucent={translucent}, cam_scale={cam_scale}, pool "
+        f"{pool_mode}, maxc={maxc}, "
         f"tap_tiles={taps}, set-up {time.perf_counter() - t0:.1f} s")
     return dict(demo=demo, scene=demo.scene, vp=vp, bones=bones,
                 maxc=maxc, taps=taps, width=width, height=height)
 
 
 def compare_outputs(got, want, what: str) -> float:
-    """Hold a raster's (z, ids, tattrs, tapidx) against its plain
+    """Hold a raster's (z, ids, attrs[, tapidx]) against its plain
     version's: ids, coverage and tap addresses equal in every layer, z
-    and the tap planes within ULP_TOL. Returns the max abs error."""
-    zk, ik, tk, xk = got
-    zp, ip, tp, xp = want
+    and the attribute planes within ULP_TOL. Returns the max abs
+    error."""
+    zk, ik, tk = got[:3]
+    zp, ip, tp = want[:3]
     n_id = [int((ik[:, i] != ip[:, i]).sum()) for i in range(ik.shape[1])]
     n_cov = [int(((ik[:, i] >= 0) != (ip[:, i] >= 0)).sum())
              for i in range(ik.shape[1])]
-    n_tap = int((xk != xp).sum())
+    n_tap = int((got[3] != want[3]).sum()) if len(got) > 3 else 0
     z_ulp = int(ulp_dist(zk, zp).max())
     t_ulp = int(ulp_dist(tk, tp).max())
     max_err = max(float((a.double() - b.double()).abs().max())
@@ -194,7 +213,7 @@ def compare_outputs(got, want, what: str) -> float:
            for i in range(ip.shape[1])]
     log(f"{what}: coverage per layer {cov}; id mismatches per layer "
         f"{n_id}, coverage mismatches per layer {n_cov}, tapidx "
-        f"mismatches {n_tap}, z max ulp {z_ulp}, tattrs max ulp {t_ulp}, "
+        f"mismatches {n_tap}, z max ulp {z_ulp}, attrs max ulp {t_ulp}, "
         f"max_abs_err {max_err!r}")
     if any(n_id) or any(n_cov) or n_tap or z_ulp > ULP_TOL \
             or t_ulp > ULP_TOL:
@@ -252,34 +271,42 @@ def phase_golden(device) -> None:
         raise AssertionError("fixture golden fails the golden rule")
 
 
-def phase_main(case: dict) -> dict:
-    """FRAMES frames of the production loop → the K1 launch count of
-    this run, coverage and frame times."""
+def phase_main(case: dict, mipmap: bool = False,
+               lighting: bool = False) -> dict:
+    """FRAMES frames of the single-layer production loop (mipmapped and
+    lit as asked) → the K1 launch count of this run, coverage and frame
+    times."""
     import torch
 
     from mt_renderer_tpu_torch.render import device as dv
     from mt_renderer_tpu_torch.render import engine as en
     from mt_renderer_tpu_torch.render import raster as rs
 
+    what = "mip+light main path" if mipmap or lighting else "main path"
+    metric = "mip_frame_ms" if mipmap or lighting else "frame_ms"
     w, h, demo = case["width"], case["height"], case["demo"]
     cam = demo.camera
     frames = FRAMES
     base_yaw = cam.yaw
-    eng = en.FrameEngine(demo.scene, demo.batch, width=w, height=h)
+    eng = en.FrameEngine(demo.scene, demo.batch, width=w, height=h,
+                         mipmap=mipmap, lighting=lighting)
     rs.flush_overflow_checks()
     if rs.OVERFLOW_EVENTS:
         raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events "
-                             "before the main path")
+                             f"before the {what}")
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(frames + 1)]
+    per_frame = []
     t0 = time.perf_counter()
     reset_launches()
     ev[0].record()
     for t in range(frames):
+        before = rs.raster_fwd.launches
         cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
         vp = demo.view_proj()
         bones = demo.bone_mats(0.3 * t)
         color, depth = eng.render(vp, bones)
+        per_frame.append(rs.raster_fwd.launches - before)
         if t == 0:
             first = (color, depth, vp, bones, eng.maxc, eng.tap_tiles)
         ev[t + 1].record()
@@ -289,14 +316,13 @@ def phase_main(case: dict) -> dict:
     cam.yaw = base_yaw
     eng.check()
     rs.flush_overflow_checks()
-    log(f"main path: {frames} frames, K1 launches {launches}, overflow "
+    log(f"{what}: {frames} frames, K1 launches {launches}, overflow "
         f"events {rs.OVERFLOW_EVENTS}, caps maxc={eng.maxc} "
         f"tap_tiles={eng.tap_tiles}, recoveries {eng.recoveries}")
-    if launches < frames:
-        raise AssertionError(f"K1 launched {launches} times in {frames} "
-                             "frames")
+    if min(per_frame) < 1:
+        raise AssertionError(f"a frame launched no K1: {per_frame}")
     if rs.OVERFLOW_EVENTS:
-        raise AssertionError("overflow on the main path")
+        raise AssertionError(f"overflow on the {what}")
 
     color0, depth0, vp0, bones0, maxc0, taps0 = first
     if (tuple(color0.shape) != (h, w) or color0.dtype != torch.int32
@@ -308,16 +334,16 @@ def phase_main(case: dict) -> dict:
     plain, _, _ = dv._render_frame_core(
         case["scene"], vp0, bones0, width=w, height=h,
         clear_color=(255, 255, 255, 255), maxc=maxc0, tap_tiles=taps0,
-        raster=rs.raster_fwd_reference)
+        mipmap=mipmap, lighting=lighting, raster=rs.raster_fwd_reference)
     share, n_diff = golden_share(dv.unpack_rgba(color0),
                                  dv.unpack_rgba(plain))
-    log(f"frame 0 vs plain raster: {share:.6f} of pixels off by > 1, "
-        f"{n_diff} pixels differ; coverage {coverage:.4f}")
+    log(f"{what} frame 0 vs plain raster: {share:.6f} of pixels off by > "
+        f"1, {n_diff} pixels differ; coverage {coverage:.4f}")
     if share > GOLDEN_SHARE or not 0.0 < coverage < 1.0:
-        raise AssertionError("main-path frame 0 is wrong")
+        raise AssertionError(f"{what} frame 0 is wrong")
     per = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
     frame_ms = ev[0].elapsed_time(ev[-1]) / frames
-    log(f"frame_ms {frame_ms!r} (CUDA events over {frames} frames; host "
+    log(f"{metric} {frame_ms!r} (CUDA events over {frames} frames; host "
         f"clock {wall_ms!r} ms/frame); per frame: median "
         f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
     return dict(launches=launches, coverage=coverage, frame_ms=frame_ms)
@@ -486,6 +512,167 @@ def phase_peel_main(glass: dict) -> dict:
     return dict(k1=k1, k2=k2, frame_ms=frame_ms)
 
 
+def with_normals(batch):
+    """A copy of ``batch`` with unit normals pointing away from its
+    centroid: the demo scene carries none, so its lambert factor is the
+    0.3 floor everywhere; with these it varies."""
+    out = copy.copy(batch)
+    c = batch.positions - batch.positions.mean(0)
+    out.normals = (c / np.linalg.norm(c, axis=1, keepdims=True)).astype(
+        np.float32)
+    return out
+
+
+def phase_mip_kernel(case: dict) -> dict:
+    """K1's mtap + lit epilogues against their plain version at the
+    mip+light headline, and on the same scene with unit normals."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = case["width"], case["height"]
+    pw, ph = dv._padded(w, h)
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap",
+              light=dv._light_unit())
+    err = 0.0
+    for what, scene in (
+            ("headline (no normals: the 0.3 floor)", case["scene"]),
+            ("headline with unit normals",
+             dv.upload(with_normals(case["demo"].batch), "tri",
+                       device=case["scene"].device))):
+        clip = dv.vertex_stage(scene, case["vp"], case["bones"])
+        cols, bbox = dv.setup_packed_cols(scene, clip, w, h,
+                                          bone_mats=case["bones"],
+                                          lighting=True)
+        lists, glists, counts, n_over = rs.prebin(
+            cols, bbox, 0, 0, width=pw, height=ph, maxc=case["maxc"])
+        args = (cols, lists, glists, counts, (0, 0))
+        got = rs.raster_fwd(*args, **kw)
+        want = rs.raster_fwd_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, compare_outputs(
+            got, want, f"K1 mtap+lit vs plain, {what}, {pw}x{ph}, "
+            f"{cols.shape[0]}-row lit matrix"))
+        if int(n_over):
+            raise AssertionError("mip+light frame 0 overflows maxc")
+        if scene is case["scene"]:
+            kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
+            plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw))
+    log(f"raster_mtap_lit_kernel_ms {kernel_ms!r}")
+    log(f"raster_mtap_lit_plain_ms {plain_ms!r}")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms)
+
+
+def micro_check(chunk, what: str) -> tuple:
+    """K3 (every CTA, 4 reps) against its plain version on one chunk's
+    columns → (max abs error, coverage); raises if any row differs."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    got = rs.raster_micro(chunk, 4, rs.N_COEF)
+    want = rs.raster_micro_reference(chunk, 4, rs.N_COEF)
+    torch.cuda.synchronize()
+    ctas = got[0].shape[0]
+    n_bad = sum(int((g != w.expand_as(g)).any(-1).any(-1).sum())
+                for g, w in zip(got, want))
+    cover = float((want[1] >= 0).float().mean())
+    err = max(float(torch.where(torch.isfinite(w), g - w, 0).abs().max())
+              for g, w in ((got[0], want[0]), (got[2], want[2])))
+    log(f"K3 vs plain, {what}, 4 reps, {ctas} CTAs "
+        f"({rs.blocks_per_sm(chunk.device)} per SM): {n_bad} rows differ; "
+        f"coverage {cover:.4f}, max_abs_err {err!r}")
+    if n_bad:
+        raise AssertionError(f"K3 disagrees with its plain version ({what})")
+    return err, cover
+
+
+def phase_micro(case: dict) -> dict:
+    """K3 against its plain version on chunk 0 of the headline setup
+    (the roofline path's input; it covers nothing of the probe's tile)
+    and on chunk 0 of the 4-instance demo scene at a 128x16 viewport
+    (which does); then one CTA against the twin on the headline chunk,
+    timed at MICRO_REPS reps."""
+    from mt_renderer_tpu_torch.entry import demo_case
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    def chunk0(scene, vp, bones, width, height):
+        cols, _ = dv.setup_packed_cols(scene, dv.vertex_stage(scene, vp,
+                                                              bones),
+                                       width, height)
+        return cols[:, :rs.CT].contiguous()
+
+    chunk = chunk0(case["scene"], case["vp"], case["bones"], case["width"],
+                   case["height"])
+    err, _ = micro_check(chunk, "chunk 0 of the headline")
+    small = demo_case(chunk.device, instances=4, subdiv=1, width=rs.TILE_W,
+                      height=rs.TILE_H)
+    err_s, cover = micro_check(
+        chunk0(small.scene, small.view_proj(), small.bone_mats(0.3),
+               rs.TILE_W, rs.TILE_H), "chunk 0 of 4 instances at 128x16")
+    if not cover > 0.0:
+        raise AssertionError("K3's covering check covers no pixel")
+    kernel_ms = cuda_ms(lambda: rs.raster_micro(chunk, MICRO_REPS, rs.N_COEF,
+                                                ctas=1))
+    plain_ms = cuda_ms(lambda: rs.raster_micro_reference(
+        chunk, MICRO_REPS, rs.N_COEF), warmup=1, reps=5)
+    log(f"raster_micro_kernel_ms (1 CTA, {MICRO_REPS} reps) {kernel_ms!r}")
+    log(f"raster_micro_plain_ms ({MICRO_REPS} reps) {plain_ms!r}")
+    return dict(max_abs_err=max(err, err_s), ms=kernel_ms, plain_ms=plain_ms)
+
+
+def phase_roofline(device) -> dict:
+    """The roofline path on its default preset, shortened to 2 views and
+    3 repeats → K3's launch count of this run and the readings."""
+    from mt_renderer_tpu_torch.render import raster as rs
+    from mt_renderer_tpu_torch.tools import raster_roofline
+
+    reset_launches()
+    r = raster_roofline.roofline("default", device, views=2, repeats=3)
+    launches = rs.raster_micro.launches
+    log(f"roofline path: K3 launches {launches}, K1 launches "
+        f"{rs.raster_fwd.launches}; SOL {r['sol']!r} ns/pair over "
+        f"{r['ctas']} CTAs")
+    log(raster_roofline.summary_line(r))
+    if launches < 1 or not 0.0 < r["util"] < 10.0:
+        raise AssertionError("the roofline path did not run K3 or read "
+                             "no utilization")
+    return dict(launches=launches, **r)
+
+
+def phase_bilin(device) -> dict:
+    """K4 against its plain version bit for bit at bilin_ab.ROWS rows;
+    then the bilinear A/B path → K4's launch count and the forms'
+    times."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.tools import bilin_ab
+
+    _, pool_u32, idx, f = bilin_ab.probe_inputs(device, sets=1)
+    got = dv.bilin_swar(pool_u32, idx[0], f[0, 0], f[1, 0])
+    want = dv.bilin_swar_reference(pool_u32, idx[0], f[0, 0], f[1, 0])
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    log(f"K4 vs plain at {bilin_ab.ROWS} rows: {n_diff} rows differ, "
+        f"max_abs_err {err!r}")
+    if n_diff:
+        raise AssertionError("K4 disagrees with its plain version")
+    del got, want, idx, f
+    reset_launches()
+    res = bilin_ab.timings(device, repeats=3)
+    launches = dv.bilin_swar.launches
+    log(f"bilinear A/B path: K4 launches {launches}; ms per set of "
+        f"{bilin_ab.ROWS} rows: {json.dumps(res)}")
+    if launches < 1:
+        raise AssertionError("the bilinear A/B path did not run K4")
+    return dict(launches=launches, max_abs_err=err, ms=res["swar-kernel"],
+                plain_ms=res["swar"], forms=res)
+
+
 def main() -> int:
     import torch
 
@@ -505,11 +692,28 @@ def main() -> int:
     k2 = phase_ml_kernel(glass, case)
     phase_split_vs_ml(device, case)
     peel_run = phase_peel_main(glass)
+    del glass
+    mip = headline_case(device, **MIP)
+    k1_mip = phase_mip_kernel(mip)
+    mip_run = phase_main(mip, mipmap=True, lighting=True)
+    k3 = phase_micro(case)
+    roof = phase_roofline(device)
+    k4 = phase_bilin(device)
     records = [
-        dict(name="raster_fwd", route="cuda", source=KERNEL_SOURCE,
-             replaces=KERNEL_REPLACES, launches=main_run["launches"], **k1),
+        dict(name="raster_fwd", variant="tap", route="cuda",
+             source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
+             launches=main_run["launches"], **k1),
+        dict(name="raster_fwd", variant="mtap+lit", route="cuda",
+             source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
+             launches=mip_run["launches"], **k1_mip),
         dict(name="raster_fwd_ml", route="cuda", source=ML_KERNEL_SOURCE,
              replaces=ML_KERNEL_REPLACES, launches=peel_run["k2"], **k2),
+        dict(name="raster_micro", route="cuda", source=MICRO_SOURCE,
+             replaces=MICRO_REPLACES, launches=roof["launches"], **k3),
+        dict(name="bilin_swar", route="cuda", source=SWAR_SOURCE,
+             replaces=SWAR_REPLACES, launches=k4["launches"],
+             max_abs_err=k4["max_abs_err"], ms=k4["ms"],
+             plain_ms=k4["plain_ms"]),
     ]
     for record in records:
         for v in (record["max_abs_err"], record["ms"], record["plain_ms"]):

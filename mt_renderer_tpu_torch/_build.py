@@ -5,6 +5,9 @@ shared library: no PyTorch headers, so a build takes seconds. Libraries
 are cached under ``<repo>/build/torch_kernels/`` by a hash of the
 sources, the shared headers and the flags, and built at first use —
 never at import.
+
+``KERNELS`` names every kernel of the package with its sources; ``fn``
+binds one exported function with its ctypes signature.
 """
 
 from __future__ import annotations
@@ -23,10 +26,16 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 # -fmad=false: no FMA contraction, so each a*x + b*y + c rounds exactly
 # like the plain PyTorch version's separate ops (winner ids, z and tap
 # addresses then compare bit for bit). No --use_fast_math: divisions
-# stay IEEE.
+# and square roots stay IEEE.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+# kernel name -> its csrc sources (each also depends on csrc/*.cuh)
+KERNELS = {"raster_fwd": ["raster_fwd.cu"],
+           "raster_fwd_ml": ["raster_fwd_ml.cu"],
+           "raster_micro": ["raster_micro.cu"],
+           "bilin_swar": ["bilin_swar.cu"]}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -51,13 +60,14 @@ def _target(name: str, sources: list[str]) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(specs: dict[str, list[str]]) -> dict[str, Path]:
-    """Compile each ``name: csrc sources`` entry into
-    ``lib<name>-<hash>.so`` unless a library built from the same sources,
-    headers and flags exists. The ``nvcc`` processes all start at once;
-    every one is waited for before any failure raises. Returns the
-    library paths; each compiler's ``-Xptxas -v`` report sits beside its
-    library as ``.log``."""
+def build_all(specs: dict[str, list[str]] | None = None) -> dict[str, Path]:
+    """Compile each ``name: csrc sources`` entry (default ``KERNELS``)
+    into ``lib<name>-<hash>.so`` unless a library built from the same
+    sources, headers and flags exists. The ``nvcc`` processes all start
+    at once; every one is waited for before any failure raises. Returns
+    the library paths; each compiler's ``-Xptxas -v`` report sits beside
+    its library as ``.log``."""
+    specs = KERNELS if specs is None else specs
     out = {name: _target(name, srcs) for name, srcs in specs.items()}
     procs = {}
     for name, srcs in specs.items():
@@ -84,22 +94,29 @@ def build_all(specs: dict[str, list[str]]) -> dict[str, Path]:
     return out
 
 
-def build(name: str, sources: list[str]) -> Path:
-    """``build_all`` for one library."""
-    return build_all({name: sources})[name]
-
-
-def load(name: str, sources: list[str]) -> ctypes.CDLL:
-    """Build if needed and load the library (once per process)."""
+def load(name: str) -> ctypes.CDLL:
+    """Build kernel ``name`` if needed and load its library (once per
+    process)."""
     if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(str(build(name, sources)))
+        path = build_all({name: KERNELS[name]})[name]
+        _LOADED[name] = ctypes.CDLL(str(path))
     return _LOADED[name]
 
 
-def ptxas_report(name: str, sources: list[str]) -> str:
-    """The ``ptxas`` report of the library's build: each kernel's
+def fn(name: str, symbol: str, argtypes: list):
+    """The exported C function ``symbol`` of kernel ``name``'s library,
+    with its argument types declared; it returns a cudaError_t (int)."""
+    f = getattr(load(name), symbol)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return f
+
+
+def ptxas_report(name: str) -> str:
+    """The ``ptxas`` report of kernel ``name``'s build: each kernel's
     registers, shared memory, stack frame and spill bytes."""
-    log = build(name, sources).with_suffix(".log")
+    log = build_all({name: KERNELS[name]})[name].with_suffix(".log")
     return "\n".join(ln for ln in log.read_text().splitlines()
                      if "Used" in ln or "spill" in ln
                      or "Compiling entry" in ln)

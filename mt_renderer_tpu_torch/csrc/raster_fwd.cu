@@ -1,9 +1,10 @@
-// Binned single-layer tile raster with the bilinear-tap epilogue, for
-// Hopper (sm_90a).
+// Binned single-layer tile raster with the tap or mtap epilogue, lit or
+// unlit, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel mt_renderer_tpu/render/pallas_raster.py::
-// _raster_fwd_kernel (with _sl_group_body and the tap branch of
-// _epilogue_rows), on its tap / unlit / no-zlow path.
+// _raster_fwd_kernel (with _sl_group_body and the tap and mtap branches of
+// _epilogue_rows, lit or unlit), on every path but zlow (the multipass
+// peel's input, not ported by decision).
 //
 // What bounds it: f32 ALU work over the binned (triangle, pixel) pairs:
 // three edge functions and one depth plane per pair. The 1080p frame of
@@ -18,34 +19,34 @@
 // chunk of the tile's list, the 15 raster columns of the live groups
 // (bit g of the tile's group mask) are staged into shared memory with
 // coalesced loads from the column-major (ncol, Tp) matrix; groups whose
-// bit is clear are neither loaded nor evaluated. Every pixel keeps the
-// lexicographic minimum of (z, -global id) over candidates that pass
-// all three edge tests (e > bias) and 0 <= z < inf, which is the
-// reference's group-min-then-update rule, so chunk order is invisible.
-// The epilogue (tap_epilogue.cuh, shared with K2) loads the winner's 18
-// coefficient columns by global id (no one-hot select) and evaluates the
-// tap address, fx, fy and C rgba.
-// Uncovered pixels evaluate zero coefficients, as the reference does:
-// tapidx 0, fx = fy = 0, C = 0.
+// bit is clear are neither loaded nor evaluated. The group body is
+// raster_group.cuh, which the speed-of-light probe K3 (raster_micro.cu)
+// runs too. The epilogue (tap_epilogue.cuh, shared with K2) loads the
+// winner's 18 (27 lit) coefficient columns by global id (no one-hot
+// select) and evaluates the tap or mtap planes. Uncovered pixels evaluate
+// zero coefficients, as the reference does.
 //
 // Built with -fmad=false so every a*x + b*y + c rounds like the plain
 // PyTorch version's separate ops. TMA, cp.async double buffering and
 // warp specialisation are left for later work.
 
-#include "tap_epilogue.cuh"
+#include "raster_group.cuh"
 
 namespace {
 
 using namespace mtr;
 
+enum Mode { TAP = 0, MTAP = 1 };
+
+template <int MODE, bool LIT>
 __global__ void __launch_bounds__(THREADS)
 raster_fwd_kernel(const float* __restrict__ cols, int tp,
                   const int* __restrict__ lists,
                   const int* __restrict__ glists,
                   const int* __restrict__ counts, int maxc, int n_tx,
-                  int x0, int y0, float w_eps,
+                  int x0, int y0, float w_eps, Light light,
                   float* __restrict__ zb_out, int* __restrict__ ib_out,
-                  float* __restrict__ tattrs_out,
+                  float* __restrict__ attrs_out,
                   int* __restrict__ tapidx_out) {
   __shared__ float s_cols[NRAST][CT];
 
@@ -78,32 +79,12 @@ raster_fwd_kernel(const float* __restrict__ cols, int tp,
     __syncthreads();
     for (int g = 0; g < G; ++g) {
       if (!((gmask >> g) & 1)) continue;       // uniform over the CTA
-      for (int kk = 0; kk < KG; ++kk) {
-        const int k = g * KG + kk;
-        const float ea0 = s_cols[0][k], ea1 = s_cols[1][k], ea2 = s_cols[2][k];
-        const float eb0 = s_cols[3][k], eb1 = s_cols[4][k], eb2 = s_cols[5][k];
-        const float ec0 = s_cols[6][k], ec1 = s_cols[7][k], ec2 = s_cols[8][k];
-        const float bi0 = s_cols[9][k], bi1 = s_cols[10][k], bi2 = s_cols[11][k];
-        const float za = s_cols[12][k], zb = s_cols[13][k], zc = s_cols[14][k];
-        const int id = cid * CT + k;
-#pragma unroll
-        for (int j = 0; j < PPT; ++j) {
-          const float e0 = ea0 * px + eb0 * py[j] + ec0;
-          const float e1 = ea1 * px + eb1 * py[j] + ec1;
-          const float e2 = ea2 * px + eb2 * py[j] + ec2;
-          const float z = za * px + zb * py[j] + zc;
-          const bool ok = (e0 > bi0) && (e1 > bi1) && (e2 > bi2) &&
-                          (z >= 0.0f) && (z < INFINITY);
-          if (ok && (z < zbest[j] || (z == zbest[j] && id > wid[j]))) {
-            zbest[j] = z;
-            wid[j] = id;
-          }
-        }
-      }
+      raster_group(s_cols, g, cid, px, py, zbest, wid);
     }
     __syncthreads();
   }
 
+  constexpr int NPLANES = MODE == TAP ? NTAP : NMTAP;
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
     const int p = tid + j * THREADS;
@@ -111,26 +92,67 @@ raster_fwd_kernel(const float* __restrict__ cols, int tp,
     const size_t o = (size_t)t * P + p;
     zb_out[o] = w >= 0 ? zbest[j] : 1.0f;
     ib_out[o] = w;
-    tap_epilogue(cols, tp, w, px, py[j], w_eps,
-                 tattrs_out + (size_t)t * NTAP * P + p, tapidx_out + o);
+    float* ta = attrs_out + (size_t)t * NPLANES * P + p;
+    if constexpr (MODE == TAP)
+      tap_epilogue<LIT>(cols, tp, w, px, py[j], w_eps, light, ta,
+                        tapidx_out + o);
+    else
+      mtap_epilogue<LIT>(cols, tp, w, px, py[j], w_eps, light, ta);
   }
+}
+
+template <int MODE, bool LIT>
+cudaError_t launch(const float* cols, int tp, const int* lists,
+                   const int* glists, const int* counts, int n_tiles,
+                   int maxc, int n_tx, int x0, int y0, float w_eps,
+                   Light light, float* zb, int* ib, float* attrs,
+                   int* tapidx, cudaStream_t stream) {
+  raster_fwd_kernel<MODE, LIT><<<n_tiles, THREADS, 0, stream>>>(
+      cols, tp, lists, glists, counts, maxc, n_tx, x0, y0, w_eps, light, zb,
+      ib, attrs, tapidx);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// cols (ncol >= 33, tp) f32 column-major per-triangle setup; lists and
-// glists (n_tiles, maxc) i32; counts (n_tiles,) i32. Outputs are
-// tile-major: zb f32 and ib i32 (n_tiles, 2048), tattrs f32
-// (n_tiles, 6, 2048), tapidx i32 (n_tiles, 2048). Launches on
-// ``stream`` and returns the launch status; does not synchronise.
+// cols (ncol >= 33, or 42 when lit, tp) f32 column-major per-triangle
+// setup; lists and glists (n_tiles, maxc) i32; counts (n_tiles,) i32;
+// mode 0 = tap, 1 = mtap; lit != 0 folds the lambert factor of the unit
+// light (lx, ly, lz) into C rgb. Outputs are tile-major: zb f32 and ib
+// i32 (n_tiles, 2048), attrs f32 (n_tiles, 6 or 17, 2048), tapidx i32
+// (n_tiles, 2048) in tap mode (unused, may be null, in mtap mode).
+// Launches on ``stream`` and returns the launch status; does not
+// synchronise.
 extern "C" cudaError_t mtr_raster_fwd(
     const float* cols, int tp, const int* lists, const int* glists,
     const int* counts, int n_tiles, int maxc, int n_tx, int x0, int y0,
-    float w_eps, float* zb, int* ib, float* tattrs, int* tapidx,
-    void* stream) {
+    float w_eps, int mode, int lit, float lx, float ly, float lz,
+    float* zb, int* ib, float* attrs, int* tapidx, void* stream) {
   if (n_tiles <= 0) return cudaSuccess;
-  raster_fwd_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-      cols, tp, lists, glists, counts, maxc, n_tx, x0, y0, w_eps, zb, ib,
-      tattrs, tapidx);
-  return cudaGetLastError();
+  const Light light{lx, ly, lz};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mode == TAP && !lit)
+    return launch<TAP, false>(cols, tp, lists, glists, counts, n_tiles, maxc,
+                              n_tx, x0, y0, w_eps, light, zb, ib, attrs,
+                              tapidx, s);
+  if (mode == TAP)
+    return launch<TAP, true>(cols, tp, lists, glists, counts, n_tiles, maxc,
+                             n_tx, x0, y0, w_eps, light, zb, ib, attrs,
+                             tapidx, s);
+  if (mode == MTAP && !lit)
+    return launch<MTAP, false>(cols, tp, lists, glists, counts, n_tiles,
+                               maxc, n_tx, x0, y0, w_eps, light, zb, ib,
+                               attrs, tapidx, s);
+  if (mode == MTAP)
+    return launch<MTAP, true>(cols, tp, lists, glists, counts, n_tiles,
+                              maxc, n_tx, x0, y0, w_eps, light, zb, ib,
+                              attrs, tapidx, s);
+  return cudaErrorInvalidValue;
+}
+
+// CTAs of the unlit tap kernel (the headline's) that one SM holds at once:
+// the occupancy at which the probe K3 fills the card.
+extern "C" cudaError_t mtr_raster_fwd_blocks_per_sm(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, raster_fwd_kernel<TAP, false>, THREADS, 0);
 }

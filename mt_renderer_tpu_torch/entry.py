@@ -40,10 +40,11 @@ class DemoCase:
 
 def demo_case(device, *, instances: int, width: int, height: int,
               subdiv: int = 0, translucent: bool = False,
-              cam_scale: float = 1.0) -> DemoCase:
+              cam_scale: float = 1.0, pool_mode: str = "quad") -> DemoCase:
     """``instances`` skinned, textured demo cubes (12·max(subdiv, 1)²
-    triangles each) uploaded to ``device`` with the quad texel pool, and
-    a camera framing them at ``width`` x ``height``.
+    triangles each) uploaded to ``device`` with the ``pool_mode`` texel
+    pool ("quad", or "tri" for the trilinear frame), and a camera
+    framing them at ``width`` x ``height``.
 
     ``translucent`` builds the glass variant: every 4th instance takes
     material slot 1, whose alpha is 0.5 (``demo.make_translucent``).
@@ -55,7 +56,8 @@ def demo_case(device, *, instances: int, width: int, height: int,
         batch = demo.make_translucent(batch, instances)
     camera = demo.demo_camera(instances, width, height)
     camera.position = camera.position * cam_scale
-    return DemoCase(batch=batch, scene=dv.upload(batch, device=device),
+    return DemoCase(batch=batch,
+                    scene=dv.upload(batch, pool_mode, device=device),
                     camera=camera, width=width, height=height)
 
 

@@ -1,6 +1,7 @@
 """Where a frame's time goes: host cap guard, device path, stages, kernels.
 
     python -m mt_renderer_tpu_torch.frame_profile            # headline, GPU
+    python -m mt_renderer_tpu_torch.frame_profile --mipmap --lighting
     python -m mt_renderer_tpu_torch.frame_profile --translucent --peel 4
     python -m mt_renderer_tpu_torch.frame_profile --device cpu \\
         --instances 4 --subdiv 1 --width 256 --height 128     # rehearsal
@@ -11,6 +12,9 @@ single-layer frame or, with ``--peel L``, the packed split-peel frame
 (``render_frame_peeled(peel_mode="split")``, caps measured by
 ``measure_live_tap_tiles``). ``--translucent`` renders the glass scene:
 every 4th instance translucent, the camera position scaled by 0.3.
+``--mipmap`` renders the trilinear frame from the tri pool (the pool
+``bench.py`` takes for it), ``--lighting`` the lit frame (both: the
+reference bench's ``pallas+mip+light`` row); neither with ``--peel``.
 
 * the host predictors ``FrameEngine`` runs before each frame
   (``predict_bin_counts`` + ``auto_tap_tiles``), and ``auto_maxc`` and
@@ -100,32 +104,59 @@ def _device_busy(prof, frames: int) -> tuple[float, float, list]:
             [(name[:80], us / 1e3 / frames) for name, us in top])
 
 
-def _single_stages(scene, clip, w, h, maxc, taps, _layers):
+def _single_stages(scene, clip, w, h, maxc, taps, *, bones=None,
+                   mipmap=False, lighting=False):
     """The single-layer frame's stages after the vertex stage, each a
     thunk, and its binning {"": (counts, glists)}."""
     pw, ph = dv._padded(w, h)
-    cols, bbox = dv.setup_packed_cols(scene, clip, w, h)
+    clear = (255,) * 4
+
+    def setup():
+        return dv.setup_packed_cols(scene, clip, w, h, bone_mats=bones,
+                                    lighting=lighting)
+
+    cols, bbox = setup()
     lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
                                          height=ph, maxc=maxc)
-    zb, ib, tattrs, tapidx = rs.raster_fwd(cols, lists, glists, counts,
-                                           (0, 0), width=pw, height=ph,
-                                           w_eps=dv.W_EPS)
-    colort, _, _ = dv.shade_finish_tap_flat(scene, tattrs, tapidx, ib,
-                                            (255,) * 4, tap_tiles=taps)
-    return {
-        "setup_packed_cols": lambda: dv.setup_packed_cols(scene, clip, w, h),
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS,
+              mode="mtap" if mipmap else "tap",
+              light=dv._light_unit() if lighting else None)
+    out = rs.raster_fwd(cols, lists, glists, counts, (0, 0), **kw)
+    k1 = f"raster_fwd (K1), {kw['mode']}{'+lit' if lighting else ''}"
+    stages = {}
+    if lighting:
+        stages["world_normals"] = lambda: dv.world_normals(scene, bones)
+    stages.update({
+        f"setup_packed_cols{', lit' if lighting else ''}": setup,
         "prebin": lambda: rs.prebin(cols, bbox, 0, 0, width=pw, height=ph,
                                     maxc=maxc),
-        "raster_fwd": lambda: rs.raster_fwd(
-            cols, lists, glists, counts, (0, 0), width=pw, height=ph,
-            w_eps=dv.W_EPS),
-        "shade_finish_tap_flat": lambda: dv.shade_finish_tap_flat(
-            scene, tattrs, tapidx, ib, (255,) * 4, tap_tiles=taps),
-        "shade_finish_tap_flat, dense": lambda: dv.shade_finish_tap_flat(
-            scene, tattrs, tapidx, ib, (255,) * 4, tap_tiles=None),
-        "unflatten+crop": lambda: rs.unflatten_tiles(
-            colort, ph, pw)[:h, :w].contiguous(),
-    }, {"": (counts, glists)}
+        k1: lambda: rs.raster_fwd(cols, lists, glists, counts, (0, 0),
+                                  **kw)})
+    if mipmap:
+        _, ib, mattrs = out
+        src, cov, _ = dv.shade_mip_tap_flat_channels(scene, mattrs, ib,
+                                                     tap_tiles=taps)
+        stages.update({
+            f"shade_mip_tap_flat_channels (cap {taps} rows)":
+                lambda: dv.shade_mip_tap_flat_channels(
+                    scene, mattrs, ib, tap_tiles=taps),
+            "shade_mip_tap_flat_channels, dense":
+                lambda: dv.shade_mip_tap_flat_channels(scene, mattrs, ib),
+            "blend+pack+unflatten+crop": lambda: rs.unflatten_tiles(
+                dv._blend_pack_u32(src, cov, clear), ph, pw)[:h, :w]
+            .contiguous()})
+    else:
+        _, ib, tattrs, tapidx = out
+        colort, _, _ = dv.shade_finish_tap_flat(scene, tattrs, tapidx, ib,
+                                                clear, tap_tiles=taps)
+        stages.update({
+            "shade_finish_tap_flat": lambda: dv.shade_finish_tap_flat(
+                scene, tattrs, tapidx, ib, clear, tap_tiles=taps),
+            "shade_finish_tap_flat, dense": lambda: dv.shade_finish_tap_flat(
+                scene, tattrs, tapidx, ib, clear, tap_tiles=None),
+            "unflatten+crop": lambda: rs.unflatten_tiles(
+                colort, ph, pw)[:h, :w].contiguous()})
+    return stages, {"": (counts, glists)}
 
 
 def _peel_stages(scene, clip, w, h, maxc, taps, layers):
@@ -194,13 +225,20 @@ def main(argv=None) -> int:
                     help="the glass scene and camera")
     ap.add_argument("--peel", type=int, default=0,
                     help="layers of the split-peel frame; 0 = single layer")
+    ap.add_argument("--mipmap", action="store_true",
+                    help="the trilinear frame, from the tri pool")
+    ap.add_argument("--lighting", action="store_true",
+                    help="the lit frame")
     args = ap.parse_args(argv)
+    if args.peel and (args.mipmap or args.lighting):
+        ap.error("--mipmap and --lighting profile the single-layer frame")
     dev = torch.device(args.device)
     w, h = args.width, args.height
 
     case = demo_case(dev, instances=args.instances, subdiv=args.subdiv,
                      width=w, height=h, translucent=args.translucent,
-                     cam_scale=0.3 if args.translucent else 1.0)
+                     cam_scale=0.3 if args.translucent else 1.0,
+                     pool_mode="tri" if args.mipmap else "quad")
     batch, scene, cam = case.batch, case.scene, case.camera
     vp, bones = case.view_proj(), case.bone_mats(0.0)
     maxc = dv.auto_maxc(batch, vp, bones, width=w, height=h)
@@ -211,7 +249,8 @@ def main(argv=None) -> int:
     else:
         taps = dv.auto_tap_tiles(batch, vp, bones, width=w, height=h)
     print(f"scene: {len(batch.tris)} tris, {w}x{h}, translucent="
-          f"{args.translucent}, peel={args.peel}, maxc={maxc}, "
+          f"{args.translucent}, peel={args.peel}, mipmap={args.mipmap}, "
+          f"lighting={args.lighting}, pool {scene.pool_mode}, maxc={maxc}, "
           f"tap_tiles={taps}, device {dev}")
 
     # host predictors at views that vary as the smoke's main path does
@@ -244,7 +283,8 @@ def main(argv=None) -> int:
                 scene, v, b, width=w, height=h, layers=args.peel,
                 maxc=maxc, peel_mode="split", packed=True, tap_tiles=taps)
         return dv.render_frame(scene, v, b, width=w, height=h, maxc=maxc,
-                               tap_tiles=taps, packed=True)
+                               tap_tiles=taps, packed=True,
+                               mipmap=args.mipmap, lighting=args.lighting)
 
     vp_d, bones_d = dv._f32(vp, dev), dv._f32(bones, dev)
     host_in = _timed(lambda: frame(vp, bones), dev, args.frames)
@@ -255,8 +295,13 @@ def main(argv=None) -> int:
     print(f"{name}, caps fixed, view+bones on device: {dev_in!r} ms/frame")
 
     clip = dv.vertex_stage(scene, vp_d, bones_d)
-    stages, bins = (_peel_stages if args.peel else _single_stages)(
-        scene, clip, w, h, maxc, taps, args.peel)
+    if args.peel:
+        stages, bins = _peel_stages(scene, clip, w, h, maxc, taps, args.peel)
+    else:
+        stages, bins = _single_stages(scene, clip, w, h, maxc, taps,
+                                      bones=bones_d,
+                                      mipmap=args.mipmap,
+                                      lighting=args.lighting)
     stages = {"vertex_stage": lambda: dv.vertex_stage(scene, vp_d, bones_d),
               **stages}
     print("stages ms: " + json.dumps(

@@ -1,8 +1,9 @@
-"""Device stages of a frame — vertex, setup, binning, raster, tap shade, pack.
+"""Device stages of a frame — vertex, setup, binning, raster, shade, pack.
 
 The counterpart of ``mt_renderer_tpu/render/device.py`` on the packed
-single-layer tap path (``render_frame(backend="pallas", packed=True)``)
-and the peeled (order-independent transparency) tap path
+single-layer paths (``render_frame(backend="pallas", packed=True)``,
+bilinear tap or, with ``mipmap``, trilinear; lit or unlit) and the
+peeled (order-independent transparency) tap path
 (``render_frame_peeled``, ``peel_mode="split"`` and ``"ml"``). The
 single-layer frame runs:
 
@@ -11,12 +12,17 @@ single-layer frame runs:
 2. ``setup_packed_cols`` — edge coefficients, top-left/snap bias
    (``REJECT`` for invalid triangles), the z, u/w, v/w and 1/w planes,
    the opacity code in the tex column, C rgba and the mip-0 constants,
-   as one column-major ``(33, Tp)`` matrix, plus 32-triangle group
-   bboxes;
+   as one column-major ``(33, Tp)`` matrix (``(42, Tp)`` with the
+   normal planes when lit, from ``world_normals``), plus 32-triangle
+   group bboxes;
 3. ``raster.prebin`` — per-tile chunk lists and group masks;
-4. ``raster.raster_fwd`` — the K1 kernel with its tap epilogue;
+4. ``raster.raster_fwd`` — the K1 kernel with its tap (or, mipmapped,
+   mtap) epilogue, the lambert factor folded into C when lit;
 5. ``shade_finish_tap_flat`` — the compacted quad-pool gather, bilinear
-   filter, color modulate, src-alpha blend and RGBA pack;
+   filter, color modulate, src-alpha blend and RGBA pack; mipmapped,
+   ``shade_mip_tap_flat_channels`` — the compacted trilinear shade with
+   an analytic LOD (one 64 B gather per pixel from the tri pool, two
+   16 B gathers from the quad pool) — then the blend and pack;
 6. ``raster.unflatten_tiles`` + the deferred overflow queue.
 
 The split peel partitions the setup by opacity
@@ -37,11 +43,14 @@ run in NumPy on the host ``DrawBatch`` and never touch the device.
 
 The packed frame is an int32 tensor holding the RGBA8 bits (PyTorch has
 few uint32 ops); ``unpack_rgba`` views it as (H, W, 4) uint8 on the
-host.
+host. ``bilin_swar`` (kernel K4, ``csrc/bilin_swar.cu``) is the integer
+SWAR form of the bilinear contraction that
+``mt_renderer_tpu_torch.tools.bilin_ab`` prices against the f32 one.
 """
 
 from __future__ import annotations
 
+import ctypes
 import logging
 from dataclasses import dataclass
 
@@ -51,6 +60,7 @@ import torch
 from mt_renderer_tpu.render import cpu_reference as cr
 from mt_renderer_tpu.scene.model import DEBUG_PALETTE, DrawBatch
 
+from .. import _build
 from . import raster as rs
 
 logger = logging.getLogger("mt_renderer_tpu_torch.device")
@@ -62,16 +72,19 @@ TRI_PAD = 384          # triangle-count padding quantum: one raster chunk
 _WHY_SCAN = ("the port keeps only the binned tile raster; scan stays a "
              "reference harness")
 
-# modes and options of the reference that later slices port
-_SLICE_MIP = "slice 3 (ROADMAP Queue 1 item 8)"
-_SLICE_LIGHT = "slice 3 (ROADMAP Queue 1 item 9)"
+# modes and options of the reference that later PRs port
+_REST = "ROADMAP Queue 1, 'the rest of slices 2 and 3'"
+_SLICE_PEEL_MIP = ("slice 3, with K2's mtap epilogue and the peeled mip "
+                   f"composite ({_REST})")
+_SLICE_PEEL_LIGHT = f"slice 3, with K2's lit epilogue ({_REST})"
+_SLICE_POOL_REST = f"slice 3, the rest of upload ({_REST})"
 _SLICE_POOL = {
-    "narrow": _SLICE_MIP,
-    "tri": _SLICE_MIP,
-    "auto": _SLICE_MIP,
+    "narrow": _SLICE_POOL_REST,
+    "auto": _SLICE_POOL_REST,
     "bc1": "slice 4 (ROADMAP Queue 1 item 12)",
     "bc7": "slice 4 (ROADMAP Queue 1 item 13)",
 }
+POOL_ROW_BYTES = {"quad": 16, "tri": 128}   # ported pools' physical rows
 
 
 def _not_ported(what: str, where: str):
@@ -113,7 +126,10 @@ class DeviceScene:
     tri_parts: torch.Tensor     # (Tp,) i32 parts_no per triangle
     parts_mask: torch.Tensor    # (P,) bool per-part visibility
     tex_size: torch.Tensor      # (L, 2) i32 (h, w) per texture
-    mip_pool: torch.Tensor      # (R, 16) u8 — all mips; 2x2 quad per row
+    # all mips; "quad": (R, 16) u8, a texel's 2x2 quad per row; "tri":
+    # (ceil(R/2), 128) u8, two 64 B logical rows per physical row, each
+    # the quad plus the 3x3 level-(m+1) parent block (_build_tri_pool)
+    mip_pool: torch.Tensor
     mip_table: torch.Tensor     # (L, M, 3) i32 — (offset, h, w) per mip
     # per-triangle constants, column-major (10, Tp): [tex, cbase rgba
     # (1 for textured, flat/debug color otherwise), off_hi, off_lo, th,
@@ -167,15 +183,80 @@ def quad_rows(img: np.ndarray) -> np.ndarray:
     ).reshape(-1, 16)
 
 
-def upload(batch: DrawBatch, pool_mode: str = "quad", *,
-           device) -> DeviceScene:
+_TRI_BUILD_CHUNK = 1 << 23      # logical rows per tri-pool build step
+
+
+def _tri_chunk_rows(qpool, segs, r0: int, chunk: int):
+    """One build step of the 64 B tri pool: rows [r0, r0+chunk) of the
+    quad pool (clamped to its last row) gain their 3x3 level-(m+1)
+    parent block (bytes 16-51, the RGBA of each parent texel; bytes 52-63
+    zero). ``segs`` (S, 6) i32 [off, h, w, poff, ph, pw] sorted by off —
+    one row per stored (texture, mip) level; poff = -1 for a texture's
+    last real level (the trilinear sampler never reads its parent bytes
+    there)."""
+    dev = qpool.device
+    rows = qpool.shape[0]
+    rid = (r0 + torch.arange(chunk, dtype=torch.int32, device=dev)).clamp(
+        max=rows - 1)
+    seg = torch.searchsorted(segs[:, 0].contiguous(), rid, right=True) - 1
+    seg = seg.clamp(0, segs.shape[0] - 1)
+    off, h, w, poff, ph, pw = (segs[:, i][seg] for i in range(6))
+    local = rid - off
+    x = local % w.clamp(min=1)
+    y = local // w.clamp(min=1)
+    k = (x >> 1) - 1
+    j = (y >> 1) - 1
+    has_p = poff >= 0
+    parts = [qpool[rid.long()]]
+    for dy in range(3):
+        for dx in range(3):
+            px = torch.minimum((k + dx).clamp(min=0), (pw - 1).clamp(min=0))
+            py = torch.minimum((j + dy).clamp(min=0), (ph - 1).clamp(min=0))
+            pidx = torch.where(has_p, poff + py * pw + px, 0)
+            parts.append(torch.where(has_p[:, None],
+                                     qpool[pidx.long()][:, :4], 0))
+    parts.append(torch.zeros((chunk, 12), dtype=torch.uint8, device=dev))
+    return torch.cat(parts, 1)                           # (chunk, 64)
+
+
+def _build_tri_pool(qpool, segs_h: np.ndarray):
+    """(R, 16) u8 quad pool → (ceil(R/2), 128) u8 tri pool, built on the
+    quad pool's device: logical 64 B rows (quad + 3x3 parent block), two
+    per physical row, as the reference packs them (an odd R repeats the
+    last logical row). ``_pool_rows`` reads logical row i as 64 B row i
+    of the same bytes, so a trilinear tap is one 64 B gather."""
+    rows = qpool.shape[0]
+    if segs_h.size == 0:
+        segs_h = np.array([[0, 1, 1, -1, 1, 1]], np.int32)
+    segs = torch.as_tensor(np.asarray(segs_h, np.int32), device=qpool.device)
+    half = (rows + 1) // 2
+    chunk = min(_TRI_BUILD_CHUNK // 2, max(1 << 11, half), half)
+    out = torch.empty((half, 128), dtype=torch.uint8, device=qpool.device)
+    for start in range(0, half, chunk):
+        s = min(start, half - chunk)
+        out[s:s + chunk] = _tri_chunk_rows(qpool, segs, 2 * s,
+                                           2 * chunk).reshape(chunk, 128)
+    return out
+
+
+def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
+           pool_bias: int = 0) -> DeviceScene:
     """Pad a host DrawBatch to whole chunks and copy it to ``device``.
-    Called once at load time. Only the quad texel pool is ported: each
-    pool row holds a texel's full 2x2 bilinear footprint, mip chains
-    included (16 B per texel)."""
+    Called once at load time.
+
+    ``pool_mode="quad"``: each pool row holds a texel's full 2x2
+    bilinear footprint, mip chains included (16 B per texel; one gather
+    per bilinear tap, two per trilinear tap). ``"tri"``: 64 B per texel,
+    the quad plus the 3x3 parent-level block every trilinear footprint
+    needs, so a trilinear tap is one gather (built on the device from
+    the quad rows, ``_build_tri_pool``); bilinear taps read its quad
+    bytes. ``pool_bias`` (the LOD clamp), "narrow" and "auto" are not
+    ported yet."""
+    if pool_bias:
+        raise _not_ported("pool_bias", _SLICE_POOL_REST)
     if pool_mode in _SLICE_POOL:
         raise _not_ported(f"pool_mode={pool_mode!r}", _SLICE_POOL[pool_mode])
-    if pool_mode != "quad":
+    if pool_mode not in POOL_ROW_BYTES:
         raise ValueError(f"unknown pool_mode {pool_mode!r}")
     t = len(batch.tris)
     tp = max(TRI_PAD, -(-t // TRI_PAD) * TRI_PAD)
@@ -215,19 +296,32 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *,
         sizes = np.array([[4, 4]], np.int32)
     table = np.zeros((len(src_texs), n_mips, 3), np.int32)
     pool_parts = []
+    segs = []     # (off, h, w, parent off | -1, ph, pw) per stored level
     offset = 0
     for li, chain in enumerate(tables):
         for mi in range(n_mips):
             if mi < len(chain):
                 img = chain[mi]
-                table[li, mi] = (offset, img.shape[0], img.shape[1])
+                h, w = img.shape[:2]
+                table[li, mi] = (offset, h, w)
                 pool_parts.append(quad_rows(img))
-                offset += img.shape[0] * img.shape[1]
+                if mi + 1 < len(chain):
+                    nxt = chain[mi + 1]
+                    segs.append((offset, h, w, offset + h * w,
+                                 nxt.shape[0], nxt.shape[1]))
+                else:
+                    segs.append((offset, h, w, -1, 1, 1))
+                offset += h * w
             else:
                 table[li, mi] = table[li, len(chain) - 1]
     mip_pool = np.concatenate(pool_parts)
-    logger.info("texel pool (quad): %d rows, %.2f MiB", mip_pool.shape[0],
-                mip_pool.nbytes / 2**20)
+    logger.info("texel pool (%s): %d rows, %.2f MiB", pool_mode,
+                mip_pool.shape[0],
+                mip_pool.shape[0] * (64 if pool_mode == "tri" else 16)
+                / 2**20)
+    if pool_mode == "tri":
+        mip_pool = _build_tri_pool(torch.from_numpy(mip_pool).to(device),
+                                   np.asarray(segs, np.int32))
 
     nj = (len(batch.inverse_bind_mats)
           if batch.inverse_bind_mats is not None else 1)
@@ -283,21 +377,30 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *,
         cols_const=cols_const, tri_vis=valid & parts_mask[tri_parts],
     )
     statics = dict(num_joints=nj, skinned=bool(batch.skinned),
-                   num_mips=n_mips, pool_mode="quad")
+                   num_mips=n_mips, pool_mode=pool_mode)
     return scene_from_numpy(leaves, statics, device)
 
 
 def scene_from_numpy(leaves: dict, statics: dict, device) -> DeviceScene:
     """Build a scene from host arrays: ``leaves`` maps every name in
-    ``TENSOR_FIELDS`` to a NumPy array, ``statics`` every name in
-    ``STATIC_FIELDS`` to its value. The arrays of another package's
-    uploaded scene, converted to NumPy, carry its state across."""
+    ``TENSOR_FIELDS`` to a NumPy array (or a tensor), ``statics`` every
+    name in ``STATIC_FIELDS`` to its value. The arrays of another
+    package's uploaded scene, converted to NumPy, carry its state across,
+    the quad or tri texel pool included."""
     pool_mode = statics["pool_mode"]
-    if pool_mode != "quad":
-        raise _not_ported(f"pool_mode={pool_mode!r}",
-                          _SLICE_POOL.get(pool_mode, "unknown mode"))
-    tensors = {f: torch.tensor(np.asarray(leaves[f]), device=device)
+    if pool_mode in _SLICE_POOL:
+        raise _not_ported(f"pool_mode={pool_mode!r}", _SLICE_POOL[pool_mode])
+    if pool_mode not in POOL_ROW_BYTES:
+        raise ValueError(f"unknown pool_mode {pool_mode!r}")
+    tensors = {f: (leaves[f].to(device) if isinstance(leaves[f], torch.Tensor)
+                   else torch.tensor(np.asarray(leaves[f]), device=device))
                for f in TENSOR_FIELDS}
+    pool = tensors["mip_pool"]
+    if pool.dtype != torch.uint8 or pool.shape[-1] != POOL_ROW_BYTES[
+            pool_mode]:
+        raise ValueError(f"a {pool_mode} pool has u8 rows of "
+                         f"{POOL_ROW_BYTES[pool_mode]} B, got {pool.dtype} "
+                         f"{tuple(pool.shape)}")
     return DeviceScene(**tensors, **{k: statics[k] for k in STATIC_FIELDS})
 
 
@@ -344,12 +447,43 @@ def vertex_stage(scene: DeviceScene, view_proj, bone_mats) -> torch.Tensor:
          + vp[i, 3] for i in range(4)], 1)
 
 
+def world_normals(scene: DeviceScene, bone_mats) -> torch.Tensor:
+    """(V, 3) world-space normals: rotated by the upper 3x3 of the
+    vertex's blended bone matrix when skinned (a rigid rotation: no
+    inverse transpose, as typical engine skinning does)."""
+    nrm = scene.normals
+    if scene.skinned and bone_mats is not None:
+        rot = _blend_bone_mats(scene, _f32(bone_mats, scene.device))
+        rotated = torch.stack(
+            [rot[:, i, 0] * nrm[:, 0] + rot[:, i, 1] * nrm[:, 1]
+             + rot[:, i, 2] * nrm[:, 2] for i in range(3)], 1)
+        has_w = scene.weights.sum(1, keepdim=True) > 0
+        nrm = torch.where(has_w, rotated, nrm)
+    return nrm
+
+
+LIGHT_DIR = (0.35, 0.65, 0.67)   # world-space directional light
+
+
+def _light_unit() -> tuple:
+    """LIGHT_DIR normalized in f32, as a tuple of Python floats (the lit
+    epilogues' kernel argument)."""
+    light = np.asarray(LIGHT_DIR, np.float32)
+    light = light / np.linalg.norm(light)
+    return tuple(float(c) for c in light)
+
+
 def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int,
-                      opacity_split: bool = False):
+                      opacity_split: bool = False, bone_mats=None,
+                      lighting: bool = False):
     """Per-triangle setup + forward-attribute planes → (cols (33, Tp)
     f32 column-major in the layout of ``raster``'s module docstring,
     bbox (xmin, xmax, ymin, ymax, zmin) each (Tp/32,) at group
     granularity, over valid triangles only).
+
+    ``lighting`` appends the nx/w, ny/w and nz/w planes of the world
+    normals (``world_normals`` under ``bone_mats``): the (42, Tp) lit
+    matrix that K1's lit epilogues read.
 
     ``opacity_split=True`` partitions the triangles by opacity (the
     predicate K2's opaque cull reads from the tex column) and returns
@@ -420,6 +554,10 @@ def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int,
 
     tail = (zp + up + vp_ + wp
             + [tex_enc] + c_cols + [cst[5], cst[6], cst[7], cst[8]])
+    if lighting:
+        nc = world_normals(scene, bone_mats).reshape(3, tp, 3)
+        for ch in range(3):
+            tail += plane3(*[nc[i, :, ch] * inv_w[i] for i in range(3)])
 
     big = 1e30
     cg = tp // rs.KG
@@ -435,7 +573,7 @@ def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int,
     def finish(bias0, v):
         cols = torch.stack(ea + eb + ec + [bias0] + bias[1:] + tail, 0)
         return cols, (cmin(sx, v), cmax(sx, v), cmin(sy, v), cmax(sy, v),
-                      cmin(sz, v))                        # (33, Tp), bbox
+                      cmin(sz, v))                    # (33 or 42, Tp), bbox
 
     if opacity_split:
         return (finish(torch.where(opq, bias[0], rs.REJECT), valid & opq),
@@ -451,17 +589,40 @@ def _mat_select(mat_color, tri_material) -> torch.Tensor:
 # ------------------------------------------------------------ tap shade
 
 
-def _tap_albedo_channels(pool, idx, fx, fy) -> list:
-    """One quad-pool gather + the 2x2 bilinear contraction → 4 albedo
-    channel tensors shaped like ``idx``."""
-    if pool.shape[-1] != 16:
-        raise ValueError("the tap shade needs the quad (16 B/texel) pool")
-    quad = pool[idx.clamp(min=0).long()].reshape(idx.shape + (4, 4))
-    quad = quad.to(torch.float32)                         # (..., corner, ch)
+def _pool_rows(pool, idx, nbytes: int):
+    """The first ``nbytes`` (16: the quad; 64: quad + parent block) of
+    logical pool rows ``idx`` (clamped below at 0), one gather. A tri
+    pool's physical 128 B row i holds logical rows 2i and 2i+1, so its
+    logical row i is 64 B row i of the same bytes and its quad is 16 B
+    row 4i."""
+    idx = idx.clamp(min=0).long()
+    if pool.shape[-1] == 16 and nbytes == 16:
+        return pool[idx]
+    if pool.shape[-1] != 128:
+        raise ValueError(f"a {nbytes} B pool read needs the "
+                         f"{'quad or ' if nbytes == 16 else ''}tri pool, got "
+                         f"rows of {pool.shape[-1]} B")
+    if nbytes == 16:
+        return pool.reshape(-1, 16)[4 * idx]
+    return pool.reshape(-1, 64)[idx]
+
+
+def _contract_quad(quad, fx, fy) -> list:
+    """The 2x2 bilinear contraction of quad rows (..., 16) u8 (corner-
+    major RGBA: texel, right, down, down-right) → 4 channel tensors: one
+    expression for every sampler."""
+    quad = quad.reshape(quad.shape[:-1] + (4, 4)).to(torch.float32)
     wq = [(1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy]
     return [wq[0] * quad[..., 0, c] + wq[1] * quad[..., 1, c]
             + wq[2] * quad[..., 2, c] + wq[3] * quad[..., 3, c]
             for c in range(4)]
+
+
+def _tap_albedo_channels(pool, idx, fx, fy) -> list:
+    """One pool gather + the 2x2 bilinear contraction → 4 albedo
+    channel tensors shaped like ``idx`` (quad pool, or the quad bytes of
+    a tri pool)."""
+    return _contract_quad(_pool_rows(pool, idx, 16), fx, fy)
 
 
 def _blend_channels(src_channels, covered, clear_color) -> list:
@@ -623,6 +784,263 @@ def composite_peeled_tap_flat(scene: DeviceScene, tattrs, tapidx, il,
     return dst, n_over_tap
 
 
+# ------------------------------------------------------- trilinear shade
+
+
+def _seg_rows(m):
+    """(N, planes, P) → (N*P/SEG_PX, planes, SEG_PX): each plane row cut
+    into SEG_PX-px segments, segment-major within a row (the identity at
+    SEG_PX = P, the production unit)."""
+    n, npl, p = m.shape
+    sg = p // SEG_PX
+    return m.reshape(n, npl, sg, SEG_PX).transpose(1, 2).reshape(
+        n * sg, npl, SEG_PX)
+
+
+def _analytic_lod(u, v, gux, guy, gvx, gvy, gqx, gqy, th, tw):
+    """Per-pixel texture LOD from the winner's own screen planes: u =
+    U/Q with U, Q affine, so du/dx = (U_x - u * Q_x) / Q exactly; the g*
+    arguments are the gradients already divided by Q (the mtap planes),
+    th/tw the texture extents (f32).
+
+    log2 runs in f64 and rounds once to f32: PyTorch's CPU kernels take
+    a vectorised or a scalar log2 for an element depending on where the
+    tensor's per-thread chunks end, and the two differ by an ulp on some
+    inputs, which would let the dense and the compacted shade (the same
+    pixels at other offsets) disagree. Both f64 log2s round to the same
+    f32 but in cases of measure zero."""
+    dudx = gux - u * gqx
+    dudy = guy - u * gqy
+    dvdx = gvx - v * gqx
+    dvdy = gvy - v * gqy
+    rho = torch.maximum(
+        torch.maximum(dudx.abs(), dudy.abs()) * tw,
+        torch.maximum(dvdx.abs(), dvdy.abs()) * th)
+    return torch.log2(rho.clamp(min=1e-6).to(torch.float64)).to(
+        torch.float32)
+
+
+def _mip_arith(off0, th, tw, m, num_mips: int):
+    """Level-m pool offset and extents from the mip-0 constants: upload
+    stores each texture's chain contiguously, level i spanning
+    max(th >> i, 1) * max(tw >> i, 1) rows, so this equals the mip table
+    with no gather. All arguments i32; m at most the texture's last real
+    level."""
+    hm = (th >> m).clamp(min=1)
+    wm = (tw >> m).clamp(min=1)
+    off = off0
+    for i in range(num_mips - 1):
+        sz = (th >> i).clamp(min=1) * (tw >> i).clamp(min=1)
+        off = off + torch.where(m > i, sz, 0)
+    return off, hm, wm
+
+
+def _tap_address(u, v, hm, wm):
+    """Bilinear tap of a (hm, wm) level at (u, v) → (x0c, y0c, fx, fy):
+    the clamped top-left texel and the fractions (0 where the footprint
+    starts left of or above the texture: clamp to edge)."""
+    x = u * wm.to(torch.float32) - 0.5
+    y = v * hm.to(torch.float32) - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = torch.where(x0 < 0, 0.0, x - x0)
+    fy = torch.where(y0 < 0, 0.0, y - y0)
+    x0c = torch.minimum(rs._trunc_i32(x0).clamp(min=0), (wm - 1).clamp(min=0))
+    y0c = torch.minimum(rs._trunc_i32(y0).clamp(min=0), (hm - 1).clamp(min=0))
+    return x0c, y0c, fx, fy
+
+
+def _quad_bilinear(pool, off, hm, wm, u, v) -> list:
+    """Bilinear tap of the level at pool offset ``off`` with extents
+    (hm, wm): one 16 B gather + the contraction."""
+    x0c, y0c, fx, fy = _tap_address(u, v, hm, wm)
+    return _contract_quad(_pool_rows(pool, off + y0c * wm + x0c, 16), fx, fy)
+
+
+_PARENT_TAPS = (0, 1, 3, 4)      # a 2x2 footprint's starts in a 3x3 block
+
+
+def _trilinear_fused(pool, off0, hm0, wm0, hm1, wm1, m0, m1, u, v):
+    """Both levels of a trilinear tap from one 64 B tri-pool row → (s0,
+    s1) channel lists. Bytes 0-15 are the level-m0 quad; bytes 16-51 the
+    3x3 level-m1 block anchored at ((x0c >> 1) - 1, (y0c >> 1) - 1), which
+    holds the level-m1 footprint (its start (rx, ry) in {0, 1}^2). Where
+    m1 == m0 (the texture's last level) s1 is s0, as two gathers of the
+    same row would give."""
+    x0c, y0c, fx, fy = _tap_address(u, v, hm0, wm0)
+    row = _pool_rows(pool, off0 + y0c * wm0 + x0c, 64)
+    s0 = _contract_quad(row[..., :16], fx, fy)
+    x1c, y1c, fx1, fy1 = _tap_address(u, v, hm1, wm1)
+    lin = 3 * (y1c - ((y0c >> 1) - 1)) + (x1c - ((x0c >> 1) - 1))
+    lin = torch.where((lin == 0) | (lin == 1) | (lin == 3), lin, 4)
+    taps = torch.tensor(_PARENT_TAPS, device=lin.device)
+    byte = (16 + 4 * (lin[..., None] + taps))[..., None] + torch.arange(
+        4, device=lin.device)
+    quad1 = torch.gather(row, -1, byte.reshape(lin.shape + (16,)))
+    s1 = _contract_quad(quad1, fx1, fy1)
+    deep = m1 > m0
+    return s0, [torch.where(deep, a, b) for a, b in zip(s1, s0)]
+
+
+def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int) -> list:
+    """Trilinear sample with arithmetic mip addressing (``_mip_arith``)
+    → 4 channel tensors: lod clipped to [0, num_mips - 1], both levels
+    clamped to the texture's last real level. A tri pool takes both
+    levels from one gather (``_trilinear_fused``), a quad pool from two
+    ``_quad_bilinear`` taps."""
+    big = torch.maximum(th, tw)
+    mmax = torch.zeros_like(th)
+    for m in range(1, num_mips):
+        mmax = torch.where((big >> m) > 0, m, mmax)
+    lod = lod.clamp(0.0, float(num_mips - 1))
+    m0f = torch.floor(lod)
+    fm = lod - m0f
+    m0 = torch.minimum(rs._trunc_i32(m0f), mmax)
+    m1 = torch.minimum(m0 + 1, mmax)
+    off_a, hm0, wm0 = _mip_arith(off0, th, tw, m0, num_mips)
+    hm1 = (th >> m1).clamp(min=1)
+    wm1 = (tw >> m1).clamp(min=1)
+    if pool.shape[-1] == 128:
+        s0, s1 = _trilinear_fused(pool, off_a, hm0, wm0, hm1, wm1, m0, m1,
+                                  u, v)
+    else:
+        off_b = off_a + torch.where(m1 > m0, hm0 * wm0, 0)
+        s0 = _quad_bilinear(pool, off_a, hm0, wm0, u, v)
+        s1 = _quad_bilinear(pool, off_b, hm1, wm1, u, v)
+    return [a * (1 - fm) + b * fm for a, b in zip(s0, s1)]
+
+
+def _mip_albedo_channels(scene: DeviceScene, m) -> list:
+    """Trilinear albedo from mtap planes ``m`` (..., 17, X) → 4 channel
+    tensors (..., X): analytic LOD, arithmetic mip addressing; elementwise
+    per pixel, so it runs on compacted rows as on dense ones."""
+    u = m[..., 0, :]
+    v = m[..., 1, :]
+    off0 = rs._trunc_i32(m[..., 3, :]) * 4096 + rs._trunc_i32(m[..., 4, :])
+    th = rs._trunc_i32(m[..., 5, :])
+    tw = rs._trunc_i32(m[..., 6, :])
+    lod = _analytic_lod(u, v, *[m[..., 11 + i, :] for i in range(6)],
+                        m[..., 5, :], m[..., 6, :])
+    return _trilinear_arith(scene.mip_pool, off0, th, tw, lod, u, v,
+                            scene.num_mips)
+
+
+def shade_mip_tap_flat_channels(scene: DeviceScene, mattrs, ib,
+                                tap_tiles: int | None = None):
+    """Tile-major trilinear shade of ``raster_fwd(mode="mtap")``'s
+    outputs (mattrs (n_tiles, 17, P), ib (n_tiles, 1, P)) → (src
+    channels [r, g, b, a] each (n_tiles, P) f32 0-255, covered
+    (n_tiles, P) bool, n_over_tap).
+
+    ``tap_tiles`` compacts the trilinear work to that many live
+    (textured and covered) SEG_PX-px rows, sized as for the bilinear tap
+    (``auto_tap_tiles``); None/0 = every row. Dense and compacted run the
+    one code path (gather the live rows first, trilinear, scatter back),
+    so they agree bit for bit; rows over the cap lose their texture and
+    are counted in n_over_tap."""
+    covered = ib[:, 0, :] >= 0
+    textured = mattrs[:, 2, :] >= 0.0
+    nt, _, p = mattrs.shape
+    n = nt * (p // SEG_PX)
+    cap = min(tap_tiles, n) if tap_tiles else n
+    live = (covered & textured).reshape(n, SEG_PX).any(1)
+    src_rows, slot, n_over_tap = _compact_live_rows(live, cap)
+    albc = _mip_albedo_channels(scene, _seg_rows(mattrs)[src_rows.long()])
+    alb = [a.reshape(nt, p) for a in _expand_rows(albc, slot, n)]
+    src = [torch.where(textured, alb[c] * mattrs[:, 7 + c, :],
+                       mattrs[:, 7 + c, :]) for c in range(4)]
+    return src, covered, n_over_tap
+
+
+# ------------------------------------------------------- bilinear SWAR (K4)
+
+
+def _swar_lerp(t0, t1, w):
+    """Lerp of two packed RGBA8 words (int64 holding u32 bits) with an
+    integer weight w in 0..256, two 8-bit fields per half word, rounded
+    to nearest."""
+    m = 0x00FF00FF
+    rb = ((t0 & m) * (256 - w) + (t1 & m) * w + 0x00800080) >> 8
+    ga = (((t0 >> 8) & m) * (256 - w) + ((t1 >> 8) & m) * w
+          + 0x00800080) >> 8
+    return (rb & m) | ((ga & m) << 8)
+
+
+def _weight8(f):
+    """trunc(clip(f * 256 + 0.5, 0, 256)): the 8-bit SWAR weight."""
+    return rs._trunc_i32((f * 256.0 + 0.5).clamp(0.0, 256.0)).to(torch.int64)
+
+
+def _check_swar_args(pool_u32, idx, fx, fy):
+    if (pool_u32.dtype != torch.int32 or pool_u32.dim() != 2
+            or pool_u32.shape[1] != 4 or pool_u32.shape[0] < 1):
+        raise ValueError(f"pool_u32 must be i32 (npool >= 1, 4), got "
+                         f"{pool_u32.dtype} {tuple(pool_u32.shape)}")
+    n = idx.shape
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise ValueError(f"idx must be i32 (n,), got {idx.dtype} {tuple(n)}")
+    for name, f in (("fx", fx), ("fy", fy)):
+        if f.dtype != torch.float32 or f.shape != n:
+            raise ValueError(f"{name} must be f32 {tuple(n)}, got {f.dtype} "
+                             f"{tuple(f.shape)}")
+    for x in (idx, fx, fy):
+        if x.device != pool_u32.device:
+            raise ValueError(f"inputs on {x.device} and {pool_u32.device}")
+
+
+_SWAR_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+              ctypes.c_void_p]
+
+
+def bilin_swar(pool_u32, idx, fx, fy):
+    """The SWAR bilinear filter of quad-pool rows (kernel K4, the
+    counterpart of ``tools/bench/bilin_ab.py::run_swar_pl``):
+    ``pool_u32`` (npool, 4) i32 holds each quad row's four RGBA8 texels
+    as u32 bits (``scene.mip_pool.view(torch.int32)``), ``idx`` (n,) i32
+    the rows (clamped to [0, npool - 1], as JAX's gather clamps), ``fx``
+    and ``fy`` (n,) f32 the tap fractions. Returns (n,) i32 holding the
+    filtered RGBA8 as u32 bits (r | g << 8 | b << 16 | a << 24), each
+    channel the 8-bit-weight lerp rounded to nearest.
+
+    A CPU tensor runs ``bilin_swar_reference``. A CUDA tensor launches
+    ``csrc/bilin_swar.cu``, the row gather fused (counted in
+    ``bilin_swar.launches``), or raises."""
+    _check_swar_args(pool_u32, idx, fx, fy)
+    dev = pool_u32.device
+    if dev.type == "cpu":
+        return bilin_swar_reference(pool_u32, idx, fx, fy)
+    if dev.type != "cuda":
+        raise ValueError(f"bilin_swar runs on CPU or CUDA, not {dev}")
+    fn = _build.fn("bilin_swar", "mtr_bilin_swar", _SWAR_ARGS)
+    pool_u32, idx, fx, fy = (x.contiguous() for x in (pool_u32, idx, fx, fy))
+    out = torch.empty(idx.shape, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(pool_u32.data_ptr(), pool_u32.shape[0], idx.data_ptr(),
+                 fx.data_ptr(), fy.data_ptr(), out.data_ptr(), idx.shape[0],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"bilin_swar kernel launch failed: cudaError {err}")
+    bilin_swar.launches += 1
+    return out
+
+
+bilin_swar.launches = 0
+
+
+def bilin_swar_reference(pool_u32, idx, fx, fy):
+    """Plain PyTorch version of ``bilin_swar``, same contract: the row
+    gather, then the field arithmetic in int64 on the u32 bits."""
+    _check_swar_args(pool_u32, idx, fx, fy)
+    rows = idx.clamp(0, pool_u32.shape[0] - 1).long()
+    q = pool_u32[rows].to(torch.int64) & 0xFFFFFFFF        # (n, 4)
+    wx, wy = _weight8(fx), _weight8(fy)
+    out = _swar_lerp(_swar_lerp(q[:, 0], q[:, 1], wx),
+                     _swar_lerp(q[:, 2], q[:, 3], wx), wy)
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
 # ------------------------------------------------------- host predictors
 
 
@@ -734,6 +1152,7 @@ def auto_tap_tiles(batch, view_proj, bone_mats=None, *,
 def _render_frame_core(scene: DeviceScene, view_proj, bone_mats=None, *,
                        width: int, height: int, clear_color: tuple,
                        maxc: int | None, tap_tiles: int | None,
+                       mipmap: bool = False, lighting: bool = False,
                        raster=rs.raster_fwd):
     """Frame body → (packed color (H, W) i32, depth (H, W) f32,
     (n_over, n_over_tap) device counts). ``raster`` is the raster stage;
@@ -741,14 +1160,24 @@ def _render_frame_core(scene: DeviceScene, view_proj, bone_mats=None, *,
     through the plain version on any device."""
     pw, ph = _padded(width, height)
     clip = vertex_stage(scene, view_proj, bone_mats)
-    cols, bbox = setup_packed_cols(scene, clip, width, height)
+    cols, bbox = setup_packed_cols(scene, clip, width, height,
+                                   bone_mats=bone_mats, lighting=lighting)
     lists, glists, counts, n_over = rs.prebin(
         cols, bbox, 0, 0, width=pw, height=ph,
         maxc=maxc or rs.MAXC_DEFAULT)
-    zb, ib, tattrs, tapidx = raster(cols, lists, glists, counts, (0, 0),
-                                    width=pw, height=ph, w_eps=W_EPS)
-    colort, _, n_over_tap = shade_finish_tap_flat(
-        scene, tattrs, tapidx, ib, clear_color, tap_tiles=tap_tiles)
+    kw = dict(width=pw, height=ph, w_eps=W_EPS,
+              light=_light_unit() if lighting else None)
+    if mipmap:
+        zb, ib, mattrs = raster(cols, lists, glists, counts, (0, 0),
+                                mode="mtap", **kw)
+        src, covered, n_over_tap = shade_mip_tap_flat_channels(
+            scene, mattrs, ib, tap_tiles=tap_tiles)
+        colort = _blend_pack_u32(src, covered, clear_color)
+    else:
+        zb, ib, tattrs, tapidx = raster(cols, lists, glists, counts, (0, 0),
+                                        **kw)
+        colort, _, n_over_tap = shade_finish_tap_flat(
+            scene, tattrs, tapidx, ib, clear_color, tap_tiles=tap_tiles)
     color = rs.unflatten_tiles(colort, ph, pw)[:height, :width]
     depth = rs.unflatten_tiles(zb[:, 0, :], ph, pw)[:height, :width]
     return color.contiguous(), depth.contiguous(), (n_over, n_over_tap)
@@ -770,20 +1199,22 @@ def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
     (``check_overflow``): overflow warns, or raises under
     MTR_STRICT_OVERFLOW, and is never dropped silently.
 
+    ``mipmap``: trilinear minification (K1's mtap epilogue, then
+    ``shade_mip_tap_flat_channels``), from the tri pool in one gather
+    per pixel or from the quad pool in two; otherwise the bilinear tap
+    of mip 0. ``lighting``: the directional lambert term of
+    ``LIGHT_DIR`` on the world normals, folded into C in K1's epilogue.
+    ``tap_tiles`` (``auto_tap_tiles``) caps the compacted texture rows of
+    either shade.
+
     ``packed``: color is (H, W) int32 holding RGBA8 bits; otherwise it
     is the (H, W, 4) uint8 view of the same plane."""
     if backend != "pallas":
         raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
-    if mipmap:
-        raise _not_ported("mipmap=True", _SLICE_MIP)
-    if lighting:
-        raise _not_ported("lighting=True", _SLICE_LIGHT)
-    if scene.pool_mode != "quad":
-        raise _not_ported(f"pool_mode={scene.pool_mode!r}",
-                          _SLICE_POOL.get(scene.pool_mode, "unknown mode"))
     color, depth, n_over = _render_frame_core(
         scene, view_proj, bone_mats, width=width, height=height,
-        clear_color=clear_color, maxc=maxc, tap_tiles=tap_tiles)
+        clear_color=clear_color, maxc=maxc, tap_tiles=tap_tiles,
+        mipmap=mipmap, lighting=lighting)
     if check_overflow:
         _queue_frame_overflow(n_over, maxc, tap_tiles, width, height)
     if not packed:
@@ -911,10 +1342,10 @@ def _split_peel_flat(scene: DeviceScene, setup_op, setup_tr, *, pw: int,
     n_over taps))."""
     if mipmap:
         raise _not_ported("the split peel's mip-tap composite",
-                          _SLICE_MIP)
+                          _SLICE_PEEL_MIP)
     if light is not None:
         raise _not_ported("the split peel's lit epilogue",
-                          _SLICE_LIGHT)
+                          _SLICE_PEEL_LIGHT)
     (zo, io, tat_op, tid_op), (zt, it, tat_tr, tid_tr), front, nov = \
         _split_rasters(setup_op, setup_tr, pw=pw, ph=ph, layers=layers,
                        maxc=maxc, raster=raster, raster_ml=raster_ml)
@@ -1005,12 +1436,11 @@ def render_frame_peeled(scene: DeviceScene, view_proj, bone_mats=None, *,
     if backend != "pallas":
         raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
     if mipmap:
-        raise _not_ported("mipmap=True", _SLICE_MIP)
+        raise _not_ported("render_frame_peeled(mipmap=True)",
+                          _SLICE_PEEL_MIP)
     if lighting:
-        raise _not_ported("lighting=True", _SLICE_LIGHT)
-    if scene.pool_mode != "quad":
-        raise _not_ported(f"pool_mode={scene.pool_mode!r}",
-                          _SLICE_POOL.get(scene.pool_mode, "unknown mode"))
+        raise _not_ported("render_frame_peeled(lighting=True)",
+                          _SLICE_PEEL_LIGHT)
     if peel_mode == "split" and layers < 2:
         raise ValueError("peel_mode='split' requires layers >= 2")
     if not 2 <= layers <= rs.MAX_LAYERS:

@@ -1,8 +1,9 @@
 """Production frame engine — sized caps + overflow recovery.
 
 The counterpart of ``mt_renderer_tpu/render/engine.py`` for the packed
-single-layer frame and the packed peeled frame (``peel`` layers,
-``peel_mode`` "split" or "ml"). ``FrameEngine`` owns the frame loop's
+single-layer frame (bilinear, or trilinear with ``mipmap``; lit or not)
+and the packed peeled frame (``peel`` layers, ``peel_mode`` "split" or
+"ml"; bilinear and unlit). ``FrameEngine`` owns the frame loop's
 wiring:
 
 * lazy sizing at the first rendered view: ``auto_maxc`` for the binning
@@ -38,16 +39,25 @@ logger = logging.getLogger("mt_renderer_tpu_torch.render")
 
 class FrameEngine:
     def __init__(self, scene, batch, *, width: int, height: int,
+                 mipmap: bool = False, lighting: bool = False,
                  peel: int = 0, peel_mode: str = "split",
                  headroom: float = 1.5, check_every: int = 16):
         if peel and peel_mode == "multipass":
             raise device._by_decision(
                 "FrameEngine(peel_mode='multipass')", "the engine runs the "
                 "single-pass peels, 'split' and 'ml'")
+        if peel and mipmap:
+            raise device._not_ported("FrameEngine(peel=..., mipmap=True)",
+                                     device._SLICE_PEEL_MIP)
+        if peel and lighting:
+            raise device._not_ported("FrameEngine(peel=..., lighting=True)",
+                                     device._SLICE_PEEL_LIGHT)
         self.scene = scene
         self.batch = batch
         self.width = width
         self.height = height
+        self.mipmap = mipmap
+        self.lighting = lighting
         self.peel = peel
         self.peel_mode = peel_mode
         self.headroom = headroom
@@ -106,7 +116,8 @@ class FrameEngine:
         else:
             out = device.render_frame(
                 self.scene, view_proj, bone_mats, width=self.width,
-                height=self.height, maxc=self.maxc, packed=True,
+                height=self.height, maxc=self.maxc, mipmap=self.mipmap,
+                lighting=self.lighting, packed=True,
                 tap_tiles=self.tap_tiles)
         self._since_check += 1
         if self._since_check >= self.check_every:

@@ -1,30 +1,37 @@
-"""Binned tile raster: binning, the raster kernels K1 and K2, the overflow
-queue.
+"""Binned tile raster: binning, the raster kernels K1 and K2, K1's
+speed-of-light probe K3, the overflow queue.
 
 The counterpart of ``mt_renderer_tpu/render/pallas_raster.py`` on the
-tap paths: the single-layer raster K1 and the multi-layer
-(order-independent transparency) raster K2. It keeps the reference's geometry (16x128-px
-tiles, 384-triangle chunks, 32-triangle culling groups), so binning
-compares bit for bit with the JAX package's.
+tap and mtap paths: the single-layer raster K1 and the multi-layer
+(order-independent transparency) raster K2; and of
+``tools/bench/raster_roofline.py::_micro``, the probe K3 that runs K1's
+group body on one resident chunk. It keeps the reference's geometry
+(16x128-px tiles, 384-triangle chunks, 32-triangle culling groups), so
+binning compares bit for bit with the JAX package's.
 
 Per-triangle setup arrives as one column-major ``(ncol, Tp)`` f32 matrix
 (``device.setup_packed_cols``): rows 0-14 are the raster columns
 
     0:3 ea   3:6 eb   6:9 ec   9:12 edge bias   12:15 z plane
 
-and rows 15-32 the 18 coefficient columns the tap epilogue reads
+and rows 15-32 the 18 coefficient columns the epilogues read
 
     15:18 u/w plane   18:21 v/w plane   21:24 1/w plane   24 tex
     25:29 C rgba      29:31 mip-0 pool offset hi/lo      31 th   32 tw
+
+and, in the lit matrix, rows 33-41 the nx/w, ny/w, nz/w planes (27
+coefficient columns).
 
 Chunk ``c`` is triangles ``[c*CT, (c+1)*CT)`` and its group ``g`` is
 triangles ``[c*CT + g*KG, +KG)``, so a triangle's global id is its
 column index.
 
-``raster_fwd`` and ``raster_fwd_ml`` dispatch on the tensors' device: a
-CPU tensor runs the plain PyTorch version (``raster_fwd_reference``,
-``raster_fwd_ml_reference``); a CUDA tensor launches the hand-written
-kernel (``csrc/raster_fwd.cu``, ``csrc/raster_fwd_ml.cu``) or raises.
+``raster_fwd``, ``raster_fwd_ml`` and ``raster_micro`` dispatch on the
+tensors' device: a CPU tensor runs the plain PyTorch version
+(``raster_fwd_reference``, ``raster_fwd_ml_reference``,
+``raster_micro_reference``); a CUDA tensor launches the hand-written
+kernel (``csrc/raster_fwd.cu``, ``csrc/raster_fwd_ml.cu``,
+``csrc/raster_micro.cu``) or raises.
 """
 
 from __future__ import annotations
@@ -50,15 +57,16 @@ G = CT // KG             # culling groups per chunk (12): ascending g is
 MAXC_DEFAULT = 256       # binning cap: candidate chunks per tile
 REJECT = 3.0e38          # edge bias that is never reached: always outside
 N_RAST = 15              # raster columns
-ATTRS_BASE = 12          # attribute planes of the unlit variant
 N_COEF = 18              # coefficient columns after the raster columns
+N_COEF_LIT = 27          # ... of the lit matrix: + the normal planes
 ATTRS_TAP = 6            # tap epilogue output planes: fx, fy, C rgba
+ATTRS_MTAP = 17          # mtap epilogue output planes: u, v, tex, off
+                         # hi/lo, th, tw, C rgba, then the winner's U/V/Q
+                         # plane gradients over Q [U_x, U_y, V_x, V_y,
+                         # Q_x, Q_y], the analytic LOD's inputs
 TEX_ROW = N_RAST + 9     # tex column: an integer value marks an opaque row
 MAX_LAYERS = 8           # K2 keeps 2..MAX_LAYERS fragments per pixel
-
-# kernel name -> its csrc sources (each also depends on csrc/*.cuh)
-KERNELS = {"raster_fwd": ["raster_fwd.cu"],
-           "raster_fwd_ml": ["raster_fwd_ml.cu"]}
+MODES = ("tap", "mtap")  # K1's epilogues
 
 
 # ------------------------------------------------------------------ binning
@@ -202,20 +210,62 @@ def _trunc_i32(x):
     return torch.where(big, 2147483647, i)
 
 
-def _tap_epilogue(a, px, py, w_eps: float):
-    """The winner's coefficients ``a`` (N_COEF, ...) → (tattrs
-    (..., 6 planes) as a list [fx, fy, C rgba], tapidx i32): the
+def _plane(a, i: int, px, py):
+    """Plane ``i`` of the coefficients ``a`` at the pixel centers."""
+    return a[i] * px + a[i + 1] * py + a[i + 2]
+
+
+def _persp_inv(a, px, py, w_eps: float):
+    """1 / (the 1/w plane), with |1/w| clamped below by ``w_eps``."""
+    w1 = _plane(a, 6, px, py)
+    return torch.reciprocal(torch.where(w1.abs() < w_eps, w_eps, w1))
+
+
+def _lit_scale(a, px, py, inv, light):
+    """Directional lambert factor 0.3 + 0.7 * max(n.l / max(|n|, 1e-6),
+    0) from the winner's normal planes (coefficients 18..26) and the
+    unit ``light`` (pallas_raster.py:448-458)."""
+    nx = _plane(a, 18, px, py) * inv
+    ny = _plane(a, 21, px, py) * inv
+    nz = _plane(a, 24, px, py) * inv
+    ln = torch.sqrt(nx * nx + ny * ny + nz * nz).clamp(min=1e-6)
+    ndl = ((light[0] * nx + light[1] * ny + light[2] * nz) / ln).clamp(
+        min=0.0)
+    return 0.3 + 0.7 * ndl
+
+
+def _lit_color(a, px, py, inv, light) -> list:
+    """C rgba, rgb scaled by the lambert factor when ``light`` is given;
+    alpha stays unlit."""
+    if light is None:
+        return [a[10], a[11], a[12], a[13]]
+    s = _lit_scale(a, px, py, inv, light)
+    return [a[10] * s, a[11] * s, a[12] * s, a[13]]
+
+
+def _mtap_epilogue(a, px, py, w_eps: float, light=None) -> list:
+    """The winner's coefficients ``a`` (N_COEF or N_COEF_LIT, ...) → the
+    17 mtap planes as a list: perspective u, v, tex, off hi/lo, th, tw,
+    C rgba (lit when ``light`` is given) and the U/V/Q plane gradients
+    divided by Q. Zero coefficients (uncovered pixels) give zero planes."""
+    inv = _persp_inv(a, px, py, w_eps)
+    return ([_plane(a, 0, px, py) * inv, _plane(a, 3, px, py) * inv,
+             a[9], a[14], a[15], a[16], a[17]]
+            + _lit_color(a, px, py, inv, light)
+            + [a[0] * inv, a[1] * inv, a[3] * inv, a[4] * inv, a[6] * inv,
+               a[7] * inv])
+
+
+def _tap_epilogue(a, px, py, w_eps: float, light=None):
+    """The winner's coefficients ``a`` (N_COEF or N_COEF_LIT, ...) →
+    (tattrs (..., 6 planes) as a list [fx, fy, C rgba], tapidx i32): the
     bilinear tap address of the mip-0 quad-pool row, evaluated at the
-    pixel centers. Zero coefficients (uncovered pixels) give tapidx 0,
-    fx = fy = 0 and C = 0, as in the reference."""
-
-    def ev(i):
-        return a[i] * px + a[i + 1] * py + a[i + 2]
-
-    w1 = ev(6)
-    inv = torch.reciprocal(torch.where(w1.abs() < w_eps, w_eps, w1))
-    u = ev(0) * inv
-    v = ev(3) * inv
+    pixel centers; C rgb lit when ``light`` is given. Zero coefficients
+    (uncovered pixels) give tapidx 0, fx = fy = 0 and C = 0, as in the
+    reference."""
+    inv = _persp_inv(a, px, py, w_eps)
+    u = _plane(a, 0, px, py) * inv
+    v = _plane(a, 3, px, py) * inv
     th = a[16]
     tw = a[17]
     x = u * tw - 0.5
@@ -231,17 +281,22 @@ def _tap_epilogue(a, px, py, w_eps: float):
     offi = _trunc_i32(a[14]) * 4096 + _trunc_i32(a[15])
     idx = offi + y0c * wwi + x0c
     tapidx = torch.where(a[9] >= 0.0, idx, -1)
-    return [fx, fy, a[10], a[11], a[12], a[13]], tapidx
+    return [fx, fy] + _lit_color(a, px, py, inv, light), tapidx
 
 
-def _check_raster_args(cols, lists, glists, counts, width, height):
+def _n_coef(light) -> int:
+    return N_COEF if light is None else N_COEF_LIT
+
+
+def _check_raster_args(cols, lists, glists, counts, width, height,
+                       n_coef: int = N_COEF):
     if width % TILE_W or height % TILE_H:
         raise ValueError(f"band {width}x{height} not tile-aligned "
                          f"({TILE_W}x{TILE_H})")
     n_tiles = (height // TILE_H) * (width // TILE_W)
     if (cols.dtype != torch.float32 or cols.dim() != 2
-            or cols.shape[0] < N_RAST + N_COEF or cols.shape[1] % CT):
-        raise ValueError(f"cols must be f32 (>= {N_RAST + N_COEF}, k*{CT}),"
+            or cols.shape[0] < N_RAST + n_coef or cols.shape[1] % CT):
+        raise ValueError(f"cols must be f32 (>= {N_RAST + n_coef}, k*{CT}),"
                          f" got {cols.dtype} {tuple(cols.shape)}")
     for name, x, shape in (("lists", lists, (n_tiles, lists.shape[-1])),
                            ("glists", glists, (n_tiles, lists.shape[-1])),
@@ -253,65 +308,60 @@ def _check_raster_args(cols, lists, glists, counts, width, height):
             raise ValueError(f"{name} on {x.device}, cols on {cols.device}")
 
 
-def raster_fwd(cols, lists, glists, counts, origin, *, width: int,
-               height: int, w_eps: float):
-    """Binned single-layer raster with the tap epilogue over a band of
-    ``width`` x ``height`` px (tile-aligned) whose top-left pixel is
-    ``origin`` = (x0, y0).
+def _check_fwd_args(cols, lists, glists, counts, width, height, mode,
+                    light):
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
+    if light is not None and len(light) != 3:
+        raise ValueError(f"light must be a unit 3-vector, got {light!r}")
+    _check_raster_args(cols, lists, glists, counts, width, height,
+                       _n_coef(light))
 
-    Returns tile-major (zb (n_tiles, 1, P) f32 with 1.0 where uncovered,
-    ib (n_tiles, 1, P) i32 winner id or -1, tattrs (n_tiles, 6, P) f32
-    [fx, fy, C rgba], tapidx (n_tiles, 1, P) i32 quad-pool row or -1 for
-    untextured winners).
+
+def raster_fwd(cols, lists, glists, counts, origin, *, width: int,
+               height: int, w_eps: float, mode: str = "tap", light=None):
+    """Binned single-layer raster over a band of ``width`` x ``height``
+    px (tile-aligned) whose top-left pixel is ``origin`` = (x0, y0),
+    with the tap (``mode="tap"``) or the mip-tap (``"mtap"``) epilogue.
+    ``light`` (a unit 3-tuple; the lit column matrix of
+    ``device.setup_packed_cols(lighting=True)``) folds the lambert factor
+    into C rgb.
+
+    Returns tile-major tensors: zb (n_tiles, 1, P) f32 with 1.0 where
+    uncovered, ib (n_tiles, 1, P) i32 winner id or -1, then for "tap"
+    tattrs (n_tiles, 6, P) f32 [fx, fy, C rgba] and tapidx (n_tiles, 1,
+    P) i32 quad-pool row or -1 for untextured winners; for "mtap" mattrs
+    (n_tiles, 17, P) f32 (see ATTRS_MTAP).
 
     A CPU tensor runs ``raster_fwd_reference``. A CUDA tensor launches
     ``csrc/raster_fwd.cu`` (counted in ``raster_fwd.launches``) or
     raises."""
-    _check_raster_args(cols, lists, glists, counts, width, height)
+    _check_fwd_args(cols, lists, glists, counts, width, height, mode, light)
+    kw = dict(width=width, height=height, w_eps=w_eps, mode=mode,
+              light=light)
     if cols.device.type == "cpu":
         return raster_fwd_reference(cols, lists, glists, counts, origin,
-                                    width=width, height=height, w_eps=w_eps)
+                                    **kw)
     if cols.device.type != "cuda":
         raise ValueError(f"raster_fwd runs on CPU or CUDA, not "
                          f"{cols.device}")
-    return _raster_fwd_cuda(cols, lists, glists, counts, origin,
-                            width=width, height=height, w_eps=w_eps)
+    return _raster_fwd_cuda(cols, lists, glists, counts, origin, **kw)
 
 
 raster_fwd.launches = 0
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "raster_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                   _P, _P, _P, _P, _P],
-    "raster_fwd_ml": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                      _I, _I, _P, _P, _P, _P, _P, _P],
-}
-
-
-def _load_kernel(name: str):
-    fn = getattr(_build.load(name, KERNELS[name]), f"mtr_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def build_kernels() -> dict:
-    """Build every kernel of ``KERNELS`` that is not built yet, all
-    ``nvcc`` processes at once → {name: library path}."""
-    return _build.build_all(KERNELS)
-
-
-def kernel_report(name: str) -> str:
-    """Build the kernel ``name`` if needed; its ``ptxas info`` lines."""
-    return _build.ptxas_report(name, KERNELS[name])
+_FWD_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F,
+             _P, _P, _P, _P, _P]
+_ML_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P,
+            _P, _P, _P]
+_MICRO_ARGS = [_P, _I, _I, _I, _I, _P, _P, _P, _P]
 
 
 def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
-                     height, w_eps):
-    fn = _load_kernel("raster_fwd")
+                     height, w_eps, mode, light):
+    fn = _build.fn("raster_fwd", "mtr_raster_fwd", _FWD_ARGS)
     cols = cols.contiguous()
     lists = lists.contiguous()
     glists = glists.contiguous()
@@ -319,23 +369,27 @@ def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
     n_tx = width // TILE_W
     n_tiles = (height // TILE_H) * n_tx
     dev = cols.device
+    n_planes = ATTRS_TAP if mode == "tap" else ATTRS_MTAP
     zb = torch.empty((n_tiles, 1, P), dtype=torch.float32, device=dev)
     ib = torch.empty((n_tiles, 1, P), dtype=torch.int32, device=dev)
-    tattrs = torch.empty((n_tiles, ATTRS_TAP, P), dtype=torch.float32,
-                         device=dev)
-    tapidx = torch.empty((n_tiles, 1, P), dtype=torch.int32, device=dev)
+    attrs = torch.empty((n_tiles, n_planes, P), dtype=torch.float32,
+                        device=dev)
+    tapidx = (torch.empty((n_tiles, 1, P), dtype=torch.int32, device=dev)
+              if mode == "tap" else None)
+    lx, ly, lz = (0.0, 0.0, 0.0) if light is None else light
     x0, y0 = (int(o) for o in origin)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(cols.data_ptr(), cols.shape[1], lists.data_ptr(),
                  glists.data_ptr(), counts.data_ptr(), n_tiles,
-                 lists.shape[1], n_tx, x0, y0, w_eps, zb.data_ptr(),
-                 ib.data_ptr(), tattrs.data_ptr(), tapidx.data_ptr(),
-                 stream)
+                 lists.shape[1], n_tx, x0, y0, w_eps, MODES.index(mode),
+                 int(light is not None), lx, ly, lz, zb.data_ptr(),
+                 ib.data_ptr(), attrs.data_ptr(),
+                 None if tapidx is None else tapidx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_fwd kernel launch failed: cudaError {err}")
     raster_fwd.launches += 1
-    return zb, ib, tattrs, tapidx
+    return (zb, ib, attrs, tapidx) if mode == "tap" else (zb, ib, attrs)
 
 
 def _pixel_centers(width: int, height: int, origin, dev):
@@ -353,19 +407,17 @@ def _pixel_centers(width: int, height: int, origin, dev):
     return px, py
 
 
-def raster_fwd_reference(cols, lists, glists, counts, origin, *,
-                         width: int, height: int, w_eps: float):
-    """Plain PyTorch version of ``raster_fwd``, same contract. Batches
-    over the tiles that are live at each (list slot, group) step; reads
-    no chunk beyond a tile's ``counts`` and skips groups whose mask bit
-    is clear. Per pixel it keeps the lexicographic minimum of
-    (z, -global id) over candidates inside all three edges with
+def _raster_winners(cols, lists, glists, counts, px, py):
+    """The single-layer raster's visibility pass, plain PyTorch → (zbuf
+    (n_tiles, P) f32 with +inf where uncovered, win (n_tiles, P) i32 or
+    -1). Batches over the tiles that are live at each (list slot, group)
+    step; reads no chunk beyond a tile's ``counts`` and skips groups
+    whose mask bit is clear. Per pixel it keeps the lexicographic minimum
+    of (z, -global id) over candidates inside all three edges with
     0 <= z: each group's nearest (latest on ties) candidate replaces the
     running winner if nearer, or equally near with a larger id."""
-    _check_raster_args(cols, lists, glists, counts, width, height)
     dev = cols.device
-    n_tiles = (height // TILE_H) * (width // TILE_W)
-    px, py = _pixel_centers(width, height, origin, dev)
+    n_tiles = counts.shape[0]
     zbuf = torch.full((n_tiles, P), float("inf"), device=dev)
     win = torch.full((n_tiles, P), -1, dtype=torch.int32, device=dev)
     kk = torch.arange(KG, dtype=torch.int32, device=dev)
@@ -402,14 +454,122 @@ def raster_fwd_reference(cols, lists, glists, counts, origin, *,
                 (zmin < zb_a) | ((zmin == zb_a) & (new_id > wn_a)))
             zbuf[act] = torch.where(upd, zmin, zb_a)
             win[act] = torch.where(upd, new_id, wn_a)
+    return zbuf, win
 
+
+def raster_fwd_reference(cols, lists, glists, counts, origin, *,
+                         width: int, height: int, w_eps: float,
+                         mode: str = "tap", light=None):
+    """Plain PyTorch version of ``raster_fwd``, same contract: the
+    visibility pass of ``_raster_winners``, then the winner's
+    coefficient columns gathered by id (zero where uncovered) and the
+    epilogue evaluated at the pixel centers."""
+    _check_fwd_args(cols, lists, glists, counts, width, height, mode, light)
+    px, py = _pixel_centers(width, height, origin, cols.device)
+    zbuf, win = _raster_winners(cols, lists, glists, counts, px, py)
     covered = win >= 0
-    coef = cols[N_RAST:N_RAST + N_COEF][:, win.clamp(min=0).long()]
-    coef = torch.where(covered, coef, 0.0)                # (18, tiles, P)
-    planes, tapidx = _tap_epilogue(coef, px, py, w_eps)
-    zb = torch.where(covered, zbuf, 1.0)
-    return (zb[:, None, :], win[:, None, :], torch.stack(planes, 1),
-            tapidx[:, None, :])
+    nc = _n_coef(light)
+    coef = cols[N_RAST:N_RAST + nc][:, win.clamp(min=0).long()]
+    coef = torch.where(covered, coef, 0.0)                # (nc, tiles, P)
+    zb = torch.where(covered, zbuf, 1.0)[:, None, :]
+    if mode == "mtap":
+        return (zb, win[:, None, :],
+                torch.stack(_mtap_epilogue(coef, px, py, w_eps, light), 1))
+    planes, tapidx = _tap_epilogue(coef, px, py, w_eps, light)
+    return zb, win[:, None, :], torch.stack(planes, 1), tapidx[:, None, :]
+
+
+# ------------------------------------------------------ K3: the probe
+
+
+def blocks_per_sm(device) -> int:
+    """CTAs of K1 (unlit tap, the headline's instantiation) that one SM
+    of ``device`` holds at once."""
+    fn = _build.fn("raster_fwd", "mtr_raster_fwd_blocks_per_sm",
+                   [ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return out.value
+
+
+def _check_micro_args(chunk_cols, reps, n_coef, ctas):
+    if (chunk_cols.dtype != torch.float32 or chunk_cols.dim() != 2
+            or chunk_cols.shape[0] < N_RAST + n_coef
+            or chunk_cols.shape[1] < CT):
+        raise ValueError(f"chunk_cols must be f32 (>= {N_RAST + n_coef}, "
+                         f">= {CT}), got {chunk_cols.dtype} "
+                         f"{tuple(chunk_cols.shape)}")
+    if reps < 1 or n_coef < 0 or (ctas is not None and ctas < 1):
+        raise ValueError(f"bad reps={reps}, n_coef={n_coef}, ctas={ctas}")
+
+
+def raster_micro(chunk_cols, reps: int, n_coef: int, ctas: int | None = None):
+    """K1's speed-of-light probe (the counterpart of
+    ``tools/bench/raster_roofline.py::_micro``): K1's group body over one
+    16x128 tile with tile-local pixel centers, on the chunk whose setup
+    columns are ``chunk_cols`` (column-major (>= 15 + n_coef, >= 384)
+    f32, triangle k in column k), ``reps`` x 12 groups ungated, the loop
+    index passed as the chunk id (ids are rep * 384 + k).
+
+    Returns (z (ctas, 1, P) f32 with +inf where uncovered, id (ctas, 1,
+    P) i32 or -1, coef (ctas, n_coef, P) f32: the winner's first
+    ``n_coef`` coefficient columns, zero where uncovered). On the card
+    ``ctas`` identical CTAs each write one row (default: enough to fill
+    every SM at K1's occupancy); a CPU tensor runs
+    ``raster_micro_reference``, one row (``ctas`` must be None or 1).
+    A CUDA tensor launches ``csrc/raster_micro.cu`` (counted in
+    ``raster_micro.launches``) or raises."""
+    _check_micro_args(chunk_cols, reps, n_coef, ctas)
+    dev = chunk_cols.device
+    if dev.type == "cpu":
+        if ctas not in (None, 1):
+            raise ValueError("the plain probe computes one CTA's row")
+        return raster_micro_reference(chunk_cols, reps, n_coef)
+    if dev.type != "cuda":
+        raise ValueError(f"raster_micro runs on CPU or CUDA, not {dev}")
+    if ctas is None:
+        ctas = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * blocks_per_sm(dev))
+    fn = _build.fn("raster_micro", "mtr_raster_micro", _MICRO_ARGS)
+    cols = chunk_cols.contiguous()
+    z = torch.empty((ctas, 1, P), dtype=torch.float32, device=dev)
+    ids = torch.empty((ctas, 1, P), dtype=torch.int32, device=dev)
+    coef = torch.empty((ctas, n_coef, P), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cols.data_ptr(), cols.shape[1], reps, n_coef, ctas,
+                 z.data_ptr(), ids.data_ptr(), coef.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"raster_micro kernel launch failed: cudaError "
+                           f"{err}")
+    raster_micro.launches += 1
+    return z, ids, coef
+
+
+raster_micro.launches = 0
+
+
+def raster_micro_reference(chunk_cols, reps: int, n_coef: int):
+    """Plain PyTorch version of ``raster_micro``, one row: K1's plain
+    visibility pass over one tile at the origin whose chunk list is the
+    chunk ``reps`` times over, as chunks 0..reps-1 of ``reps`` copies of
+    its columns (so ids are rep * 384 + k), then the winner's columns
+    gathered by id."""
+    _check_micro_args(chunk_cols, reps, n_coef, None)
+    dev = chunk_cols.device
+    cols = chunk_cols[:N_RAST + n_coef, :CT].repeat(1, reps)
+    lists = torch.arange(reps, dtype=torch.int32, device=dev)[None]
+    glists = torch.full_like(lists, (1 << G) - 1)
+    counts = torch.full((1,), reps, dtype=torch.int32, device=dev)
+    px, py = _pixel_centers(TILE_W, TILE_H, (0, 0), dev)
+    z, win = _raster_winners(cols, lists, glists, counts, px, py)
+    covered = win >= 0
+    coef = cols[N_RAST:][:, win.clamp(min=0).long()]
+    coef = torch.where(covered, coef, 0.0).permute(1, 0, 2)
+    return z[:, None, :], win[:, None, :], coef.contiguous()
 
 
 # ------------------------------------------------------------ K2: raster ML
@@ -469,7 +629,7 @@ raster_fwd_ml.launches = 0
 
 def _raster_fwd_ml_cuda(cols, lists, glists, counts, origin, *, width,
                         height, layers, w_eps, opaque_cull, zhi):
-    fn = _load_kernel("raster_fwd_ml")
+    fn = _build.fn("raster_fwd_ml", "mtr_raster_fwd_ml", _ML_ARGS)
     cols = cols.contiguous()
     lists = lists.contiguous()
     glists = glists.contiguous()

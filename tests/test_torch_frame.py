@@ -171,8 +171,7 @@ def test_unaligned_resolution_pads_and_crops(case):
     assert (d.numpy() < 1.0).any()
 
 
-@pytest.mark.parametrize("kw", [dict(mipmap=True), dict(lighting=True),
-                                dict(backend="scan")])
+@pytest.mark.parametrize("kw", [dict(backend="scan")])
 def test_unported_options_raise(case, kw):
     _, vp, bones, _, ts, _, _ = case
     with pytest.raises(NotImplementedError, match="not ported"):

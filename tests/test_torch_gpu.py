@@ -7,9 +7,11 @@ file imports no jax, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
-Tolerance: none. K1 and K2 are built without FMA contraction, so they
-round every plane evaluation like the plain versions' separate ops: all
-four outputs of each are expected bit-equal. The frames on the card are
+Tolerance: none. K1, K2 and K3 are built without FMA contraction, so
+they round every plane evaluation like the plain versions' separate ops:
+their outputs are expected bit-equal (K1's mtap and lit epilogues are
+held to 2 ulp, with ids, coverage and tap addresses exact). K4 is
+integer arithmetic: bit-equal. The frames on the card are
 held to the CPU's under the golden rule (coverage exact, at most 0.3% of
 pixels with a channel off by more than 1).
 """
@@ -278,3 +280,95 @@ def test_split_frame_on_card_matches_cpu(cuda):
     diff = np.abs(td.unpack_rgba(gc).astype(np.int32)
                   - td.unpack_rgba(wc).astype(np.int32)).max(-1)
     assert (diff > 1).mean() <= 0.003
+
+
+def ulp_dist(a, b):
+    """Per-element distance in units in the last place of two f32
+    tensors (0 for +0 vs -0)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(2**31) - i, i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,lit", [("tap", True), ("mtap", False),
+                                      ("mtap", True)])
+def test_kernel_epilogues_match_plain_version(cuda, mode, lit):
+    """K1's mtap and lit epilogues on the demo scene with unit normals
+    (it carries none; without them the lambert factor is a constant):
+    ids, coverage and tap addresses exact, every plane within 2 ulp
+    (bit-equal expected: no FMA contraction on either side)."""
+    batch = demo.build_demo_batch(instances=9, skinned=True, subdiv=2)
+    c = batch.positions - batch.positions.mean(0)
+    batch.normals = (c / np.linalg.norm(c, axis=1, keepdims=True)).astype(
+        np.float32)
+    vp = np.asarray(demo.demo_camera(9, W, H).view_proj())
+    bones = demo.demo_bone_mats(0.5)
+    scene = td.upload(batch, "tri", device=cuda)
+    cols, bbox = td.setup_packed_cols(scene, td.vertex_stage(scene, vp,
+                                                             bones),
+                                      W, H, bone_mats=bones, lighting=lit)
+    pre = tr.prebin(cols, bbox, 0, 0, width=W, height=H,
+                    maxc=td.auto_maxc(batch, vp, bones, width=W, height=H))
+    kw = dict(width=W, height=H, w_eps=td.W_EPS, mode=mode,
+              light=td._light_unit() if lit else None)
+    before = tr.raster_fwd.launches
+    got = tr.raster_fwd(cols, *pre[:3], (0, 0), **kw)
+    torch.cuda.synchronize()
+    assert tr.raster_fwd.launches == before + 1
+    want = tr.raster_fwd_reference(cols, *pre[:3], (0, 0), **kw)
+    assert len(got) == len(want) == (4 if mode == "tap" else 3)
+    assert torch.equal(got[1], want[1])
+    assert 0.05 < float((want[1] >= 0).float().mean()) < 0.95
+    if mode == "tap":
+        assert torch.equal(got[3], want[3])
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        assert g.shape == w.shape
+        assert int(ulp_dist(g, w).max()) <= 2
+
+
+@pytest.mark.gpu
+def test_micro_kernel_matches_plain_version(cuda):
+    """K3 on chunk 0 of the demo scene's setup at 128x16: every CTA's row
+    equal to the others and to the plain probe, bit for bit."""
+    scene = td.upload(demo.build_demo_batch(instances=4, skinned=True,
+                                            subdiv=1), device=cuda)
+    vp = np.asarray(demo.demo_camera(4, 128, 16).view_proj())
+    cols, _ = td.setup_packed_cols(scene, td.vertex_stage(
+        scene, vp, demo.demo_bone_mats(0.3)), 128, 16)
+    chunk = cols[:, :tr.CT].contiguous()
+    before = tr.raster_micro.launches
+    got = tr.raster_micro(chunk, 3, tr.N_COEF)
+    torch.cuda.synchronize()
+    assert tr.raster_micro.launches == before + 1
+    ctas = got[0].shape[0]
+    props = torch.cuda.get_device_properties(cuda)
+    assert ctas == props.multi_processor_count * tr.blocks_per_sm(cuda)
+    want = tr.raster_micro_reference(chunk, 3, tr.N_COEF)
+    assert float((want[1] >= 0).float().mean()) > 0.02
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape[1:] == w.shape[1:]
+        assert torch.equal(g, w.expand_as(g))
+
+
+@pytest.mark.gpu
+def test_swar_kernel_matches_plain_version(cuda):
+    """K4 at a million rows (indices below 0 and past the pool, weights
+    at their rounding edges), bit for bit."""
+    rng = np.random.default_rng(4)
+    npool, n = 5461, 1 << 20
+    pool = torch.from_numpy(rng.integers(0, 2**32, (npool, 4),
+                                         dtype=np.uint32).view(np.int32))
+    idx = torch.from_numpy(rng.integers(-5, npool + 5, n).astype(np.int32))
+    fx = torch.from_numpy(rng.random(n, dtype=np.float32))
+    fy = torch.from_numpy(rng.random(n, dtype=np.float32))
+    fx[:6] = torch.tensor([0.0, 1.0, 0.5 / 256, 255.5 / 256, -1.0, 2.0])
+    args = [x.to(cuda) for x in (pool, idx, fx, fy)]
+    before = td.bilin_swar.launches
+    got = td.bilin_swar(*args)
+    torch.cuda.synchronize()
+    assert td.bilin_swar.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(
+        got.cpu(), td.bilin_swar_reference(pool, idx, fx, fy))

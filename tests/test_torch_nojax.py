@@ -1,7 +1,8 @@
 """The port runs where jax cannot be imported.
 
-A fresh interpreter makes ``import jax`` fail, imports the port, renders
-its ``entry()`` frame and a small split-peel frame of the glass scene on
+A fresh interpreter makes ``import jax`` fail, imports the port and its
+two card tools, renders its ``entry()`` frame, a small split-peel frame
+of the glass scene and a small mipmapped, lit frame from the tri pool on
 the CPU, and checks that no module of jax was loaded on the way."""
 
 import subprocess
@@ -26,6 +27,7 @@ sys.meta_path.insert(0, NoJax())
 import mt_renderer_tpu_torch
 from mt_renderer_tpu_torch import entry
 from mt_renderer_tpu_torch.render import engine, raster
+from mt_renderer_tpu_torch.tools import bilin_ab, raster_roofline
 
 fn, args = entry.entry("cpu")
 color = fn(*args)
@@ -38,6 +40,13 @@ eng = engine.FrameEngine(glass.scene, glass.batch, width=256, height=128,
                          peel=3, peel_mode="split")
 color, depth = eng.render(glass.view_proj(), glass.bone_mats(0.4))
 assert tuple(color.shape) == (128, 256) and isinstance(eng.tap_tiles, tuple)
+assert (depth < 1.0).any() and (color != -1).any()
+
+mip = entry.demo_case("cpu", instances=4, width=256, height=128, subdiv=1,
+                      pool_mode="tri")
+eng = engine.FrameEngine(mip.scene, mip.batch, width=256, height=128,
+                         mipmap=True, lighting=True)
+color, depth = eng.render(mip.view_proj(), mip.bone_mats(0.2))
 assert (depth < 1.0).any() and (color != -1).any()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert not loaded, loaded

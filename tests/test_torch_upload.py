@@ -84,7 +84,7 @@ def test_scene_from_numpy_matches_own_upload():
     assert carried.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("mode", ["narrow", "tri", "auto", "bc1", "bc7"])
+@pytest.mark.parametrize("mode", ["narrow", "auto", "bc1", "bc7"])
 def test_unported_pool_modes_raise(mode):
     batch = demo.build_demo_batch(instances=1, skinned=False)
     with pytest.raises(NotImplementedError, match="slice"):
