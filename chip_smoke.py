@@ -11,9 +11,14 @@ textured demo scene (1024 instances at subdiv 4, 196,608 triangles) at
 through ``FrameEngine(peel=4, peel_mode="split")`` and
 ``render_frame_peeled``; the same scene with the tri texel pool,
 mipmapped and lit, through ``FrameEngine(mipmap=True, lighting=True)``
-(the reference bench's ``pallas+mip+light`` row); and the two probe
-tools' paths, shortened: ``tools.raster_roofline`` on its ``default``
-preset and ``tools.bilin_ab``. Phases, each of which raises on failure:
+(the reference bench's ``pallas+mip+light`` row); the glass scene with
+the tri pool through ``FrameEngine(peel=4, mipmap=True,
+lighting=True)`` (the ``peel4+mip+light`` row); the archive world (280
+buildings, 239,664 triangles, the tri pool, mipmapped, the characters
+posed on the card: the ``pallas world`` row); and the two probe tools'
+paths, shortened: ``tools.raster_roofline`` on its ``default`` and
+``world`` presets and ``tools.bilin_ab``. Phases, each of which raises
+on failure:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build K1 (``csrc/raster_fwd.cu``), K2 (``csrc/raster_fwd_ml.cu``),
@@ -44,12 +49,41 @@ preset and ``tools.bilin_ab``. Phases, each of which raises on failure:
    peel_mode="split")`` with yaw and bones varying as in phase 5; at
    least one K1 and one K2 launch in every frame, no overflow, frame 0
    equal under the golden rule to the same frame through both plain
-   rasters.
+   rasters;
+9. K1's mtap + lit epilogues against their plain version at the
+   mip+light headline (tri pool), and 20 frames of
+   ``FrameEngine(mipmap=True, lighting=True)`` as in phase 5;
+10. K2's mtap + lit epilogues against their plain version at the glass
+    headline with the tri pool (the split peel's translucent set, no
+    opaque cull, ``zhi``) and at the opaque mip+light headline through
+    the ml peel (full, the opaque cull), L = 4: ids, coverage and every
+    plane equal (0 ulp expected); both timed;
+11. the split peel equals the ml peel bit for bit on the opaque
+    mip+light headline, and 20 frames of ``FrameEngine(peel=4,
+    peel_mode="split", mipmap=True, lighting=True)`` on the glass scene
+    with the tri pool: K1 and K2 in every frame, no overflow, frame 0
+    under the golden rule against both plain rasters;
+12. the world's verify legs (``verify.world_legs``: 256x144, 130
+    buildings): the invariants, the packed and the characters' frames
+    against the NumPy oracle, the mipmapped frame against the plain
+    raster, the palette animating;
+13. the world main path: 20 frames of the full world at 1920x1080 with
+    the caps sized at frame 0 (as the reference bench sizes them), each
+    frame's palette computed on the card by ``bone_mats_device``; frame
+    0's palette and frame equal, bit for bit, to the host palette's; K1
+    (mtap) against its plain version on frame 0's inputs;
+14. K3 against its plain version and the roofline on ``default`` (2
+    views) and ``world`` (8 views); K4 against its plain version and the
+    bilinear A/B.
 
 Each main path runs with every launch count set to 0 just before it and
-read just after. Prints the K1 and K2 records as one JSON line before
-the last, and as its last line ``{"ok": true, "device": {...}}``. Exits
-non-zero, with no result, when no CUDA device is visible.
+read just after. Prints the card's name and power limit, then every
+kernel's record (its launches on its main path, its error against the
+plain version, its time, the plain version's time and the bound: the
+larger of its bytes over HBM bandwidth and its f32 operations over the
+f32 peak, both from NVIDIA's H100 SXM data sheet) as one JSON line
+before the last, and as its last line ``{"ok": true, "device": {...}}``.
+Exits non-zero, with no result, when no CUDA device is visible.
 """
 
 from __future__ import annotations
@@ -77,12 +111,19 @@ SWAR_REPLACES = "tools/bench/bilin_ab.py:87"
 HEADLINE = dict(instances=1024, subdiv=4, width=1920, height=1080)
 GLASS = dict(HEADLINE, translucent=True, cam_scale=0.3)
 MIP = dict(HEADLINE, pool_mode="tri")
+GLASS_MIP = dict(GLASS, pool_mode="tri")
+WORLD = dict(buildings=280, building_subdivs=(4, 6, 8, 10, 12),
+             width=1920, height=1080)       # the bench's world row
 MICRO_REPS = 16             # reps of the timed one-CTA probe against its twin
 VERIFY_LEG = dict(instances=9, subdiv=2, width=256, height=256)
 LAYERS = 4                  # the glass preset's peel depth
 FRAMES = 20
 GOLDEN_SHARE = 0.003        # pixels allowed a channel off by more than 1
 ULP_TOL = 2
+# NVIDIA H100 SXM data sheet
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
+PLANE_OPS = 16              # 3 edge functions + the z plane, 2 mul + 2 add
 
 
 def log(msg: str) -> None:
@@ -125,6 +166,45 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM bandwidth and the f32 operations over the f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def binned_pairs(lists, glists) -> int:
+    """Live (tile, 32-triangle group) pairs: the popcount of the tiles'
+    group masks, the raster kernels' unit of work."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    g = torch.where(lists >= 0, glists, 0)
+    return sum(int(((g >> k) & 1).sum()) for k in range(rs.G))
+
+
+def raster_bound(args, outs, zhi=None) -> dict:
+    """A raster kernel's bound on these inputs: every binned (triangle,
+    pixel) pair evaluates three edge functions and the z plane
+    (PLANE_OPS f32 operations); each input read once, each output
+    written once."""
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    cols, lists, glists, counts = args[:4]
+    pairs = binned_pairs(lists, glists)
+    return dict(pairs=pairs, **bound(
+        nbytes(cols, lists, glists, counts, zhi, *outs),
+        pairs * rs.KG * rs.P * PLANE_OPS))
 
 
 def phase_device() -> dict:
@@ -253,7 +333,8 @@ def phase_kernel(case: dict) -> dict:
     plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw))
     log(f"raster_kernel_ms {kernel_ms!r}")
     log(f"raster_plain_ms {plain_ms!r}")
-    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms)
+    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
+                **raster_bound(args, got))
 
 
 def phase_golden(device) -> None:
@@ -386,6 +467,7 @@ def phase_ml_kernel(glass: dict, opaque: dict) -> dict:
                        warmup=1, reps=5)
     log(f"raster_ml_kernel_ms {kernel_ms!r}")
     log(f"raster_ml_plain_ms {plain_ms!r}")
+    bnd = raster_bound(args, got, zhi)
 
     scene = opaque["scene"]
     cols, bbox = dv.setup_packed_cols(
@@ -400,10 +482,11 @@ def phase_ml_kernel(glass: dict, opaque: dict) -> dict:
         f"K2 vs plain, opaque headline, full (opaque cull), L={LAYERS}"))
     full_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
     log(f"raster_ml_kernel_ms, opaque headline, full: {full_ms!r}")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
 
 
-def split_equals_ml(case: dict, layers: int, what: str) -> None:
+def split_equals_ml(case: dict, layers: int, what: str,
+                    mipmap: bool = False, lighting: bool = False) -> None:
     """The split peel (packed, caps measured for it) against the ml peel
     (unpacked, dense), color and depth bit for bit: the reference's
     ``peel_split`` verify leg."""
@@ -411,9 +494,10 @@ def split_equals_ml(case: dict, layers: int, what: str) -> None:
     from mt_renderer_tpu_torch.render import raster as rs
 
     kw = dict(width=case["width"], height=case["height"], layers=layers,
-              maxc=case["maxc"])
+              maxc=case["maxc"], lighting=lighting)
     caps = dv.measure_live_tap_tiles(case["scene"], case["vp"],
                                      case["bones"], mode="split", **kw)
+    kw["mipmap"] = mipmap
     sc, sd = dv.render_frame_peeled(case["scene"], case["vp"],
                                     case["bones"], peel_mode="split",
                                     packed=True, tap_tiles=caps, **kw)
@@ -435,25 +519,31 @@ def phase_split_vs_ml(device, opaque: dict) -> None:
     split_equals_ml(opaque, LAYERS, "opaque headline")
 
 
-def phase_peel_main(glass: dict) -> dict:
-    """FRAMES frames of the glass production loop (split peel, L=4) →
-    the K1 and K2 launch counts of this run and frame times."""
+def phase_peel_main(glass: dict, mipmap: bool = False,
+                    lighting: bool = False) -> dict:
+    """FRAMES frames of the glass production loop (split peel, L=4,
+    mipmapped and lit as asked) → the K1 and K2 launch counts of this
+    run and frame times."""
     import torch
 
     from mt_renderer_tpu_torch.render import device as dv
     from mt_renderer_tpu_torch.render import engine as en
     from mt_renderer_tpu_torch.render import raster as rs
 
+    what = ("peeled mip+light glass main path" if mipmap or lighting
+            else "glass main path")
+    metric = "peel_mip_frame_ms" if mipmap or lighting else "peel_frame_ms"
     w, h, demo = glass["width"], glass["height"], glass["demo"]
     cam = demo.camera
     frames = FRAMES
     base_yaw = cam.yaw
     eng = en.FrameEngine(demo.scene, demo.batch, width=w, height=h,
-                         peel=LAYERS, peel_mode="split")
+                         peel=LAYERS, peel_mode="split", mipmap=mipmap,
+                         lighting=lighting)
     rs.flush_overflow_checks()
     if rs.OVERFLOW_EVENTS:
         raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events "
-                             "before the glass main path")
+                             f"before the {what}")
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(frames + 1)]
     per_frame = []
@@ -477,36 +567,38 @@ def phase_peel_main(glass: dict) -> dict:
     cam.yaw = base_yaw
     eng.check()
     rs.flush_overflow_checks()
-    log(f"glass main path: {frames} frames, K1 launches {k1}, K2 launches "
+    log(f"{what}: {frames} frames, K1 launches {k1}, K2 launches "
         f"{k2} (per frame {per_frame}), overflow events "
         f"{rs.OVERFLOW_EVENTS}, caps maxc={eng.maxc} "
         f"tap_tiles={eng.tap_tiles}, recoveries {eng.recoveries}")
     if any(a < 1 or b < 1 for a, b in per_frame):
-        raise AssertionError("a glass frame launched no K1 or no K2")
+        raise AssertionError(f"a frame of the {what} launched no K1 or no "
+                             "K2")
     if rs.OVERFLOW_EVENTS:
-        raise AssertionError("overflow on the glass main path")
+        raise AssertionError(f"overflow on the {what}")
 
     color0, depth0, vp0, bones0, maxc0, taps0 = first
     if (tuple(color0.shape) != (h, w) or color0.dtype != torch.int32
             or tuple(depth0.shape) != (h, w)
             or not bool(torch.isfinite(depth0).all())):
-        raise AssertionError(f"glass frame 0 malformed: {color0.dtype} "
+        raise AssertionError(f"{what} frame 0 malformed: {color0.dtype} "
                              f"{tuple(color0.shape)}")
     coverage = float((depth0 < 1.0).float().mean())
     plain, _, _ = dv._render_frame_peeled_core(
         glass["scene"], vp0, bones0, width=w, height=h, layers=LAYERS,
         clear_color=(255, 255, 255, 255), maxc=maxc0, peel_mode="split",
-        tap_tiles=taps0, raster=rs.raster_fwd_reference,
+        tap_tiles=taps0, mipmap=mipmap, lighting=lighting,
+        raster=rs.raster_fwd_reference,
         raster_ml=rs.raster_fwd_ml_reference)
     share, n_diff = golden_share(dv.unpack_rgba(color0),
                                  dv.unpack_rgba(plain))
-    log(f"glass frame 0 vs plain rasters: {share:.6f} of pixels off by > 1, "
-        f"{n_diff} pixels differ; coverage {coverage:.4f}")
+    log(f"{what} frame 0 vs plain rasters: {share:.6f} of pixels off by "
+        f"> 1, {n_diff} pixels differ; coverage {coverage:.4f}")
     if share > GOLDEN_SHARE or not 0.0 < coverage <= 1.0:
-        raise AssertionError("glass main-path frame 0 is wrong")
+        raise AssertionError(f"{what} frame 0 is wrong")
     per = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
     frame_ms = ev[0].elapsed_time(ev[-1]) / frames
-    log(f"peel_frame_ms {frame_ms!r} (CUDA events over {frames} frames; "
+    log(f"{metric} {frame_ms!r} (CUDA events over {frames} frames; "
         f"host clock {wall_ms!r} ms/frame); per frame: median "
         f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
     return dict(k1=k1, k2=k2, frame_ms=frame_ms)
@@ -559,9 +651,195 @@ def phase_mip_kernel(case: dict) -> dict:
         if scene is case["scene"]:
             kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
             plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw))
+            bnd = raster_bound(args, got)
     log(f"raster_mtap_lit_kernel_ms {kernel_ms!r}")
     log(f"raster_mtap_lit_plain_ms {plain_ms!r}")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
+
+
+def phase_ml_mip_kernel(glass: dict, opaque: dict) -> dict:
+    """K2's mtap + lit epilogues against their plain version: at the
+    glass headline with the tri pool as the split peel calls it (the
+    translucent set, no opaque cull, K1's opaque z-buffer as ``zhi``),
+    and at the opaque mip+light headline as the ml peel calls it (every
+    triangle, the opaque cull); L = LAYERS, both timed."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = glass["width"], glass["height"]
+    pw, ph = dv._padded(w, h)
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap",
+              light=dv._light_unit())
+    lit = dict(bone_mats=glass["bones"], lighting=True)
+    scene = glass["scene"]
+    clip = dv.vertex_stage(scene, glass["vp"], glass["bones"])
+    (cols_op, bbox_op), (cols_tr, bbox_tr) = dv.setup_packed_cols(
+        scene, clip, w, h, opacity_split=True, **lit)
+    pre = rs.prebin(cols_op, bbox_op, 0, 0, width=pw, height=ph,
+                    maxc=glass["maxc"])
+    zo, io = rs.raster_fwd(cols_op, *pre[:3], (0, 0), **kw)[:2]
+    zhi = torch.where(io >= 0, zo, float("inf"))
+    lists, glists, counts, n_over = rs.prebin(
+        cols_tr, bbox_tr, 0, 0, width=pw, height=ph, maxc=glass["maxc"])
+    if int(n_over) or int(pre[3]):
+        raise AssertionError("glass frame 0 overflows maxc")
+    args = (cols_tr, lists, glists, counts, (0, 0))
+    mlkw = dict(kw, layers=LAYERS, opaque_cull=False, zhi=zhi)
+    got = rs.raster_fwd_ml(*args, **mlkw)
+    want = rs.raster_fwd_ml_reference(*args, **mlkw)
+    torch.cuda.synchronize()
+    err = compare_outputs(
+        got, want, f"K2 mtap+lit vs plain, glass headline (tri pool) "
+        f"{pw}x{ph}, translucent set, nocull + zhi, L={LAYERS}, "
+        f"{cols_tr.shape[0]}-row lit matrix")
+    bnd = raster_bound(args, got, zhi)
+    del got, want
+    kernel_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_ml_reference(*args, **mlkw),
+                       warmup=1, reps=5)
+    log(f"raster_ml_mtap_lit_kernel_ms {kernel_ms!r}")
+    log(f"raster_ml_mtap_lit_plain_ms {plain_ms!r}")
+
+    scene = opaque["scene"]
+    cols, bbox = dv.setup_packed_cols(
+        scene, dv.vertex_stage(scene, opaque["vp"], opaque["bones"]), w, h,
+        bone_mats=opaque["bones"], lighting=True)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph, maxc=opaque["maxc"])
+    args = (cols, lists, glists, counts, (0, 0))
+    mlkw = dict(kw, layers=LAYERS, opaque_cull=True)
+    got = rs.raster_fwd_ml(*args, **mlkw)
+    want = rs.raster_fwd_ml_reference(*args, **mlkw)
+    torch.cuda.synchronize()
+    err = max(err, compare_outputs(
+        got, want, f"K2 mtap+lit vs plain, opaque mip+light headline, full "
+        f"(opaque cull), L={LAYERS}"))
+    del got, want
+    full_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    full_plain_ms = cuda_ms(
+        lambda: rs.raster_fwd_ml_reference(*args, **mlkw), warmup=1, reps=3)
+    log(f"raster_ml_mtap_lit_kernel_ms, opaque mip+light headline, full: "
+        f"{full_ms!r} (plain {full_plain_ms!r})")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
+
+
+def phase_world_legs(device) -> None:
+    """The reference bench's world verify legs on the card."""
+    from mt_renderer_tpu_torch import verify
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    r = verify.world_legs(device)
+    log(f"world verify legs, 256x144, {r['materials']} materials, "
+        f"{r['tris']} tris ({time.perf_counter() - t0:.1f} s): "
+        + json.dumps({k: v for k, v in r.items() if isinstance(v, dict)}))
+    if not r["passed"] or rs.OVERFLOW_EVENTS:
+        raise AssertionError("a world verify leg failed")
+
+
+def phase_world_main(device) -> dict:
+    """FRAMES frames of the full world (the bench's ``pallas world`` row:
+    280 buildings, the tri pool, mipmapped, 1920x1080), the caps sized at
+    frame 0 as the bench sizes them, the yaw varying as in phase 5 and
+    each frame's palette computed on the card (``bone_mats_device`` at
+    scheduler frame 2t). Frame 0 is rendered from the host palette too:
+    palette and frame must agree bit for bit. K1 (mtap, unlit) is held
+    against its plain version on frame 0's inputs. → K1's launch count
+    of the loop, its record and frame times."""
+    import torch
+
+    from mt_renderer_tpu_torch.entry import world_case
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    case = world_case(device, pool_mode="tri", **WORLD)
+    w, h, cam = case.width, case.height, case.camera
+    base_yaw = cam.yaw
+    vp0, host_pal = case.view_proj(), case.bone_mats(0.0)
+    maxc = dv.auto_maxc(case.batch, vp0, host_pal, width=w, height=h)
+    taps = dv.auto_tap_tiles(case.batch, vp0, host_pal, width=w, height=h)
+    log(f"world: {case.world.info}, {w}x{h}, pool tri "
+        f"({case.scene.mip_pool.shape[0]} rows of 128 B), maxc={maxc}, "
+        f"tap_tiles={taps}, set-up {time.perf_counter() - t0:.1f} s")
+    fkw = dict(width=w, height=h, mipmap=True, packed=True, maxc=maxc,
+               tap_tiles=taps)
+
+    dev_pal = case.bone_mats_device(0.0)
+    pal_err = float((dev_pal.cpu() - torch.from_numpy(host_pal)).abs().max())
+    a, ad = dv.render_frame(case.scene, vp0, dev_pal, **fkw)
+    b, bd = dv.render_frame(case.scene, vp0, host_pal, **fkw)
+    n_px = int((a != b).sum())
+    log(f"world frame 0, card palette vs host palette: palette max abs "
+        f"diff {pal_err!r}, {n_px} pixels differ, depth equal "
+        f"{bool(torch.equal(ad, bd))}; coverage "
+        f"{float((ad < 1.0).float().mean()):.4f}")
+    if pal_err > 1e-5 or n_px or not torch.equal(ad, bd):
+        raise AssertionError("the card's palette changes the world frame")
+
+    pw, ph = dv._padded(w, h)
+    cols, bbox = dv.setup_packed_cols(
+        case.scene, dv.vertex_stage(case.scene, vp0, dev_pal), w, h)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph, maxc=maxc)
+    args = (cols, lists, glists, counts, (0, 0))
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap")
+    got = rs.raster_fwd(*args, **kw)
+    want = rs.raster_fwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare_outputs(got, want, f"K1 mtap vs plain, world frame 0, "
+                          f"{cols.shape[1]} tris, maxc={lists.shape[1]}")
+    bnd = raster_bound(args, got)
+    del got, want
+    kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
+                       warmup=1, reps=5)
+    log(f"raster_world_mtap_kernel_ms {kernel_ms!r}")
+    log(f"raster_world_mtap_plain_ms {plain_ms!r}")
+    del args, cols, lists, glists, counts
+
+    rs.flush_overflow_checks()
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events before "
+                             "the world main path")
+    dur = max(case.world.timeline.duration, 1)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(FRAMES + 1)]
+    per_frame = []
+    t0 = time.perf_counter()
+    reset_launches()
+    ev[0].record()
+    for t in range(FRAMES):
+        before = rs.raster_fwd.launches
+        cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
+        color, depth = dv.render_frame(
+            case.scene, case.view_proj(),
+            case.bone_mats_device((2.0 * t) % dur), **fkw)
+        per_frame.append(rs.raster_fwd.launches - before)
+        ev[t + 1].record()
+    ev[-1].synchronize()
+    launches = rs.raster_fwd.launches
+    wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    cam.yaw = base_yaw
+    rs.flush_overflow_checks()
+    coverage = float((depth < 1.0).float().mean())
+    log(f"world main path: {FRAMES} frames, K1 launches {launches}, "
+        f"overflow events {rs.OVERFLOW_EVENTS}; last frame coverage "
+        f"{coverage:.4f}")
+    if min(per_frame) < 1 or rs.OVERFLOW_EVENTS:
+        raise AssertionError("a world frame launched no K1, or overflowed")
+    if (tuple(color.shape) != (h, w) or color.dtype != torch.int32
+            or not 0.0 < coverage <= 1.0):
+        raise AssertionError("the last world frame is malformed")
+    per = [x.elapsed_time(y) for x, y in zip(ev[:-1], ev[1:])]
+    frame_ms = ev[0].elapsed_time(ev[-1]) / FRAMES
+    log(f"world_frame_ms {frame_ms!r} (CUDA events over {FRAMES} frames; "
+        f"host clock {wall_ms!r} ms/frame); per frame: median "
+        f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
+    return dict(launches=launches, frame_ms=frame_ms, max_abs_err=err,
+                ms=kernel_ms, plain_ms=plain_ms, **bnd)
 
 
 def micro_check(chunk, what: str) -> tuple:
@@ -620,12 +898,17 @@ def phase_micro(case: dict) -> dict:
         chunk, MICRO_REPS, rs.N_COEF), warmup=1, reps=5)
     log(f"raster_micro_kernel_ms (1 CTA, {MICRO_REPS} reps) {kernel_ms!r}")
     log(f"raster_micro_plain_ms ({MICRO_REPS} reps) {plain_ms!r}")
-    return dict(max_abs_err=max(err, err_s), ms=kernel_ms, plain_ms=plain_ms)
+    # one CTA: reps x 12 groups x 32 triangles x 2048 pixels, ungated
+    out_bytes = rs.P * 4 * (2 + rs.N_COEF)
+    return dict(max_abs_err=max(err, err_s), ms=kernel_ms, plain_ms=plain_ms,
+                **bound(nbytes(chunk) + out_bytes,
+                        MICRO_REPS * rs.G * rs.KG * rs.P * PLANE_OPS))
 
 
 def phase_roofline(device) -> dict:
     """The roofline path on its default preset, shortened to 2 views and
-    3 repeats → K3's launch count of this run and the readings."""
+    3 repeats → K3's launch count of this run and the readings; then the
+    world preset, 8 views, priced at the default's SOL."""
     from mt_renderer_tpu_torch.render import raster as rs
     from mt_renderer_tpu_torch.tools import raster_roofline
 
@@ -639,6 +922,11 @@ def phase_roofline(device) -> dict:
     if launches < 1 or not 0.0 < r["util"] < 10.0:
         raise AssertionError("the roofline path did not run K3 or read "
                              "no utilization")
+    world = raster_roofline.roofline("world", device, views=8, repeats=3,
+                                     sol=r["sol"])
+    log(raster_roofline.summary_line(world))
+    if not 0.0 < world["util"] < 10.0:
+        raise AssertionError("the world roofline read no utilization")
     return dict(launches=launches, **r)
 
 
@@ -655,6 +943,10 @@ def phase_bilin(device) -> dict:
     got = dv.bilin_swar(pool_u32, idx[0], f[0, 0], f[1, 0])
     want = dv.bilin_swar_reference(pool_u32, idx[0], f[0, 0], f[1, 0])
     torch.cuda.synchronize()
+    # the pool, the rows' index and fractions, the output; 4 f32 ops a
+    # row for the two 8-bit weights
+    bnd = bound(nbytes(pool_u32, idx[0], f[0, 0], f[1, 0], got),
+                4 * idx.shape[1])
     n_diff = int((got != want).sum())
     err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     log(f"K4 vs plain at {bilin_ab.ROWS} rows: {n_diff} rows differ, "
@@ -670,7 +962,7 @@ def phase_bilin(device) -> dict:
     if launches < 1:
         raise AssertionError("the bilinear A/B path did not run K4")
     return dict(launches=launches, max_abs_err=err, ms=res["swar-kernel"],
-                plain_ms=res["swar"], forms=res)
+                plain_ms=res["swar"], forms=res, **bnd)
 
 
 def main() -> int:
@@ -696,29 +988,49 @@ def main() -> int:
     mip = headline_case(device, **MIP)
     k1_mip = phase_mip_kernel(mip)
     mip_run = phase_main(mip, mipmap=True, lighting=True)
+    glass_mip = headline_case(device, **GLASS_MIP)
+    k2_mip = phase_ml_mip_kernel(glass_mip, mip)
+    split_equals_ml(mip, LAYERS, "opaque mip+light headline", mipmap=True,
+                    lighting=True)
+    peel_mip_run = phase_peel_main(glass_mip, mipmap=True, lighting=True)
+    del glass_mip, mip
+    phase_world_legs(device)
+    world_run = phase_world_main(device)
     k3 = phase_micro(case)
     roof = phase_roofline(device)
     k4 = phase_bilin(device)
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+
+    def record(name, source, replaces, launches, reading, **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    **{k: reading[k] for k in fields}, library_ms=None,
+                    **extra)
+
+    def raster_record(name, variant, launches, reading):
+        src, rep = ((KERNEL_SOURCE, KERNEL_REPLACES) if name == "raster_fwd"
+                    else (ML_KERNEL_SOURCE, ML_KERNEL_REPLACES))
+        return record(name, src, rep, launches, reading, variant=variant,
+                      pairs=reading["pairs"],
+                      floor_at_sol_ms=reading["pairs"] * roof["sol"] / 1e6)
+
     records = [
-        dict(name="raster_fwd", variant="tap", route="cuda",
-             source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
-             launches=main_run["launches"], **k1),
-        dict(name="raster_fwd", variant="mtap+lit", route="cuda",
-             source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
-             launches=mip_run["launches"], **k1_mip),
-        dict(name="raster_fwd_ml", route="cuda", source=ML_KERNEL_SOURCE,
-             replaces=ML_KERNEL_REPLACES, launches=peel_run["k2"], **k2),
-        dict(name="raster_micro", route="cuda", source=MICRO_SOURCE,
-             replaces=MICRO_REPLACES, launches=roof["launches"], **k3),
-        dict(name="bilin_swar", route="cuda", source=SWAR_SOURCE,
-             replaces=SWAR_REPLACES, launches=k4["launches"],
-             max_abs_err=k4["max_abs_err"], ms=k4["ms"],
-             plain_ms=k4["plain_ms"]),
+        raster_record("raster_fwd", "tap", main_run["launches"], k1),
+        raster_record("raster_fwd", "mtap+lit", mip_run["launches"], k1_mip),
+        raster_record("raster_fwd", "mtap (world)", world_run["launches"],
+                      world_run),
+        raster_record("raster_fwd_ml", "tap", peel_run["k2"], k2),
+        raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
+                      k2_mip),
+        record("raster_micro", MICRO_SOURCE, MICRO_REPLACES,
+               roof["launches"], k3),
+        record("bilin_swar", SWAR_SOURCE, SWAR_REPLACES, k4["launches"], k4),
     ]
-    for record in records:
-        for v in (record["max_abs_err"], record["ms"], record["plain_ms"]):
+    for rec in records:
+        for v in (rec["max_abs_err"], rec["ms"], rec["plain_ms"],
+                  rec["bound_ms"]):
             if not math.isfinite(v):
-                raise AssertionError(f"non-finite reading in {record}")
+                raise AssertionError(f"non-finite reading in {rec}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_info["kind"],

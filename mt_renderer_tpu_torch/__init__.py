@@ -1,15 +1,17 @@
 """mt_renderer_tpu_torch — the renderer's device path in PyTorch and CUDA.
 
-The counterpart of ``mt_renderer_tpu`` for one NVIDIA Hopper GPU. The
-host layers (asset formats, scene assembly, camera, the NumPy oracle)
-are shared with ``mt_renderer_tpu`` and imported from it unchanged; this
-package holds the device stages (``render.device``), the binned tile
-rasters and their hand-written CUDA kernels (``render.raster``;
-``csrc/raster_fwd.cu``, single layer, and ``csrc/raster_fwd_ml.cu``,
-multi-layer for order-independent transparency) and the frame loop
-(``render.engine``).
+The counterpart of ``mt_renderer_tpu`` for one NVIDIA Hopper GPU: the
+device stages (``render.device``), the binned tile rasters and their
+hand-written CUDA kernels (``render.raster``; ``csrc/raster_fwd.cu``,
+single layer, and ``csrc/raster_fwd_ml.cu``, multi-layer for
+order-independent transparency), the frame loop (``render.engine``) and
+the device animation (``scene.skeleton``, ``scene.animation``).
 
-It never imports ``jax``: the machine that runs it on the card has none.
+It imports neither ``jax`` nor anything of ``mt_renderer_tpu``: the
+machine that runs it on the card has no jax, and the port stands alone.
+The host layers it needs (asset formats, the DTI registry, scene
+assembly, the archive world, the camera, the NumPy oracle) are its own
+copies of the JAX package's, under the same names.
 """
 
 import torch

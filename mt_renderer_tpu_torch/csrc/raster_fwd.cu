@@ -36,8 +36,6 @@ namespace {
 
 using namespace mtr;
 
-enum Mode { TAP = 0, MTAP = 1 };
-
 template <int MODE, bool LIT>
 __global__ void __launch_bounds__(THREADS)
 raster_fwd_kernel(const float* __restrict__ cols, int tp,

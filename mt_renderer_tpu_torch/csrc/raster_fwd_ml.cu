@@ -1,10 +1,11 @@
 // Binned multi-layer (order-independent transparency) tile raster with
-// the bilinear-tap epilogue per layer, for Hopper (sm_90a).
+// the tap or mip-tap epilogue per layer, lit or unlit, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel mt_renderer_tpu/render/pallas_raster.py::
 // _raster_fwd_ml_kernel (wrapper raster_pallas_fwd_ml), variants "full"
-// (opaque cull) and "nocull" with or without the zhi horizon, tap
-// epilogue only.
+// (opaque cull) and "nocull" with or without the zhi horizon, with the
+// tap and mtap epilogues of _epilogue_rows, lit or unlit.
 //
 // What it computes. Per pixel, the L nearest fragments (L = 2..8) under
 // the strict total order (z ascending, then global triangle id
@@ -15,8 +16,9 @@
 // encodes translucency as a half-integer). With the cull, kept entries
 // strictly behind the final opaque z are invalidated (id -1). Outputs,
 // tile-major: zl (n_tiles, L, P) f32, 1.0 where the id is < 0; il
-// (n_tiles, L, P) i32; tattrs (n_tiles, 6L, P) f32, layer l's planes at
-// rows 6l..6l+5; tapidx (n_tiles, L, P) i32.
+// (n_tiles, L, P) i32; in tap mode tattrs (n_tiles, 6L, P) f32, layer l's
+// planes at rows 6l..6l+5, and tapidx (n_tiles, L, P) i32; in mtap mode
+// mattrs (n_tiles, 17L, P) f32, layer l's planes at rows 17l..17l+16.
 //
 // Why per-candidate insertion equals the reference's per-group
 // extraction. The reference extracts each group's L nearest candidates
@@ -42,9 +44,14 @@
 // The TPU kernel's second pass (a re-sweep of the chunk list that
 // recovers each layer's coefficients through a one-hot bf16x3 matrix
 // select) exists only because the columns have left VMEM once the list
-// reorders. Here the epilogue loads each kept id's 18 columns from the
-// column-major (ncol, Tp) matrix, as K1 does; that is exact by
-// construction.
+// reorders. Here the epilogue loads each kept id's 18 columns (27 lit)
+// from the column-major (ncol, Tp) matrix, as K1 does; that is exact by
+// construction. The epilogues are K1's (tap_epilogue.cuh), behind one
+// non-inlined function that takes the mode and the lighting as runtime
+// arguments, uniform over the grid: the branch and the call cost little
+// per kept layer and pixel, the template count stays at L x cull x zhi
+// (28 kernels), and the four epilogues are compiled once, not into each
+// of the 28.
 //
 // What bounds it: the same f32 ALU work over binned (triangle, pixel)
 // pairs as K1 (three edge functions and one depth plane per pair),
@@ -71,6 +78,24 @@ namespace {
 
 using namespace mtr;
 
+// Writes one kept layer's epilogue at pixel (px, py): the mtap planes, or
+// the tap planes and the quad-pool row, lit or not, as K1 writes them.
+__device__ __noinline__ void layer_epilogue(
+    const float* __restrict__ cols, int tp, int id, float px, float py,
+    float w_eps, int mode, int lit, Light light, float* __restrict__ attrs,
+    int* __restrict__ tapidx) {
+  if (mode == MTAP) {
+    if (lit)
+      mtap_epilogue<true>(cols, tp, id, px, py, w_eps, light, attrs);
+    else
+      mtap_epilogue<false>(cols, tp, id, px, py, w_eps, light, attrs);
+  } else if (lit) {
+    tap_epilogue<true>(cols, tp, id, px, py, w_eps, light, attrs, tapidx);
+  } else {
+    tap_epilogue<false>(cols, tp, id, px, py, w_eps, light, attrs, tapidx);
+  }
+}
+
 template <int L, bool OPAQUE_CULL, bool HAS_ZHI>
 __global__ void __launch_bounds__(THREADS)
 raster_fwd_ml_kernel(const float* __restrict__ cols, int tp,
@@ -78,9 +103,10 @@ raster_fwd_ml_kernel(const float* __restrict__ cols, int tp,
                      const int* __restrict__ glists,
                      const int* __restrict__ counts, int maxc, int n_tx,
                      int x0, int y0, float w_eps,
-                     const float* __restrict__ zhi,
-                     float* __restrict__ zl_out, int* __restrict__ il_out,
-                     float* __restrict__ tattrs_out,
+                     const float* __restrict__ zhi, int mode, int lit,
+                     Light light, float* __restrict__ zl_out,
+                     int* __restrict__ il_out,
+                     float* __restrict__ attrs_out,
                      int* __restrict__ tapidx_out) {
   __shared__ float s_cols[NRAST][CT];
   __shared__ bool s_opq[OPAQUE_CULL ? CT : 1];
@@ -188,9 +214,10 @@ raster_fwd_ml_kernel(const float* __restrict__ cols, int tp,
       const size_t o = ((size_t)t * L + l) * P + p;
       zl_out[o] = id >= 0 ? z : 1.0f;
       il_out[o] = id;
-      tap_epilogue(cols, tp, id, px, py[j], w_eps,
-                   tattrs_out + ((size_t)t * L + l) * NTAP * P + p,
-                   tapidx_out + o);
+      const int planes = mode == MTAP ? NMTAP : NTAP;
+      layer_epilogue(cols, tp, id, px, py[j], w_eps, mode, lit, light,
+                     attrs_out + ((size_t)t * L + l) * planes * P + p,
+                     mode == MTAP ? nullptr : tapidx_out + o);
     }
   }
 }
@@ -204,9 +231,11 @@ struct Args {
   int n_tiles, maxc, n_tx, x0, y0;
   float w_eps;
   const float* zhi;
+  int mode, lit;
+  Light light;
   float* zl;
   int* il;
-  float* tattrs;
+  float* attrs;
   int* tapidx;
   cudaStream_t stream;
 };
@@ -220,7 +249,8 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.n_tiles, THREADS, smem, a.stream>>>(
       a.cols, a.tp, a.lists, a.glists, a.counts, a.maxc, a.n_tx, a.x0,
-      a.y0, a.w_eps, a.zhi, a.zl, a.il, a.tattrs, a.tapidx);
+      a.y0, a.w_eps, a.zhi, a.mode, a.lit, a.light, a.zl, a.il, a.attrs,
+      a.tapidx);
   return cudaGetLastError();
 }
 
@@ -240,21 +270,26 @@ cudaError_t launch_layers(int layers, const Args& a) {
 
 }  // namespace
 
-// cols (ncol >= 33, tp) f32 column-major per-triangle setup; lists and
-// glists (n_tiles, maxc) i32; counts (n_tiles,) i32; zhi (n_tiles, 2048)
-// f32 or null. Outputs are tile-major: zl f32 and il i32 (n_tiles, L,
-// 2048), tattrs f32 (n_tiles, 6L, 2048), tapidx i32 (n_tiles, L, 2048).
+// cols (ncol >= 33, or 42 when lit, tp) f32 column-major per-triangle
+// setup; lists and glists (n_tiles, maxc) i32; counts (n_tiles,) i32; zhi
+// (n_tiles, 2048) f32 or null; mode 0 = tap, 1 = mtap; lit != 0 folds the
+// lambert factor of the unit light (lx, ly, lz) into C rgb. Outputs are
+// tile-major: zl f32 and il i32 (n_tiles, L, 2048); attrs f32 (n_tiles,
+// 6L, 2048) in tap mode, (n_tiles, 17L, 2048) in mtap mode; tapidx i32
+// (n_tiles, L, 2048) in tap mode (unused, may be null, in mtap mode).
 // Launches on ``stream`` and returns the launch status; does not
 // synchronise.
 extern "C" cudaError_t mtr_raster_fwd_ml(
     const float* cols, int tp, const int* lists, const int* glists,
     const int* counts, int n_tiles, int maxc, int n_tx, int x0, int y0,
-    float w_eps, int layers, int opaque_cull, const float* zhi, float* zl,
-    int* il, float* tattrs, int* tapidx, void* stream) {
+    float w_eps, int layers, int opaque_cull, const float* zhi, int mode,
+    int lit, float lx, float ly, float lz, float* zl, int* il, float* attrs,
+    int* tapidx, void* stream) {
   if (n_tiles <= 0) return cudaSuccess;
+  if (mode != TAP && mode != MTAP) return cudaErrorInvalidValue;
   const Args a{cols, tp, lists, glists, counts, n_tiles, maxc, n_tx, x0,
-               y0, w_eps, zhi, zl, il, tattrs, tapidx,
-               (cudaStream_t)stream};
+               y0, w_eps, zhi, mode, lit, Light{lx, ly, lz}, zl, il,
+               attrs, tapidx, (cudaStream_t)stream};
   if (opaque_cull)
     return zhi ? launch_layers<true, true>(layers, a)
                : launch_layers<true, false>(layers, a);

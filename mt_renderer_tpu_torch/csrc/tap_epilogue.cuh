@@ -43,6 +43,9 @@ constexpr int THREADS = 256;
 constexpr int PPT = P / THREADS;     // pixels per thread
 constexpr int ROWS_PER_PASS = THREADS / TILE_W;
 
+// The epilogue modes: the bilinear tap, the trilinear mip tap.
+enum Mode { TAP = 0, MTAP = 1 };
+
 // The unit light direction of the lit epilogues.
 struct Light {
   float x, y, z;
@@ -113,14 +116,6 @@ __device__ __forceinline__ void tap_epilogue(
   ta[3 * P] = LIT ? a[11] * s : a[11];
   ta[4 * P] = LIT ? a[12] * s : a[12];
   ta[5 * P] = a[13];
-}
-
-// The unlit tap epilogue (K2's).
-__device__ __forceinline__ void tap_epilogue(
-    const float* __restrict__ cols, int tp, int id, float px, float py,
-    float w_eps, float* __restrict__ ta, int* __restrict__ tapidx) {
-  tap_epilogue<false>(cols, tp, id, px, py, w_eps, Light{0.0f, 0.0f, 0.0f},
-                      ta, tapidx);
 }
 
 // Writes plane c of the pixel's mtap outputs to ta[c * P].

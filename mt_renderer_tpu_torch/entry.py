@@ -4,7 +4,8 @@ The counterpart of ``__graft_entry__.entry``: the textured + skinned
 instanced demo scene through the binned tile raster with the in-kernel
 tap epilogue, returning the packed frame. ``demo_case`` builds that
 scene, and its glass variant with translucent instances, at any size,
-so scripts reach it through the port alone.
+and ``world_case`` the archive world with its animated characters, so
+scripts reach both through the port alone.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from mt_renderer_tpu.scene import demo
+from .scene import demo
+from .scene import world as world_mod
 
 from .render import device as dv
 
@@ -59,6 +61,55 @@ def demo_case(device, *, instances: int, width: int, height: int,
     return DemoCase(batch=batch,
                     scene=dv.upload(batch, pool_mode, device=device),
                     camera=camera, width=width, height=height)
+
+
+@dataclass
+class WorldCase:
+    """The archive world at one size: the ``WorldScene`` (per-slot
+    tints, character placements, skeleton, timeline), its host batch,
+    the scene uploaded to a device, the camera that frames it and the
+    ``BoneAnimator`` that poses the characters."""
+    world: world_mod.WorldScene
+    batch: object               # host DrawBatch
+    scene: dv.DeviceScene
+    camera: object              # app.camera.Camera; its yaw may be moved
+    animator: object            # scene.animation.BoneAnimator
+    width: int
+    height: int
+
+    def view_proj(self) -> np.ndarray:
+        return np.asarray(self.camera.view_proj())
+
+    def bone_mats(self, frame: float) -> np.ndarray:
+        """Every character's palette at scheduler ``frame``, on the host."""
+        return self.world.bone_palette(self.animator.bone_mats(frame))
+
+    def bone_mats_device(self, frame):
+        """The same palette computed on the scene's device, where it stays
+        (the same bits as ``bone_mats``)."""
+        return self.world.bone_palette(
+            self.animator.bone_mats_device(frame, self.scene.device))
+
+
+def world_case(device, *, buildings: int, width: int, height: int,
+               characters: int = 12, variants: int = 24,
+               terrain_subdiv: int = 12,
+               building_subdivs=(2, 3, 4, 5, 6, 8),
+               pool_mode: str = "tri") -> WorldCase:
+    """``scene.world.build_world`` (distinct parsed building models over
+    mixed texture sizes, one material slot per instance, ``characters``
+    8-weight skinned characters on a ``.sdl`` timeline) uploaded to
+    ``device`` with the ``pool_mode`` texel pool ("tri" by default: the
+    mipmapped world's pool, as the reference bench picks it), and the
+    world camera at ``width`` x ``height``."""
+    ws = world_mod.build_world(
+        buildings=buildings, characters=characters, variants=variants,
+        terrain_subdiv=terrain_subdiv, building_subdivs=building_subdivs)
+    return WorldCase(world=ws, batch=ws.batch,
+                     scene=dv.upload(ws.batch, pool_mode, device=device),
+                     camera=world_mod.world_camera(width, height,
+                                                   buildings=buildings),
+                     animator=ws.animator(), width=width, height=height)
 
 
 def entry(device):

@@ -3,6 +3,9 @@
     python -m mt_renderer_tpu_torch.frame_profile            # headline, GPU
     python -m mt_renderer_tpu_torch.frame_profile --mipmap --lighting
     python -m mt_renderer_tpu_torch.frame_profile --translucent --peel 4
+    python -m mt_renderer_tpu_torch.frame_profile --translucent --peel 4 \\
+        --mipmap --lighting
+    python -m mt_renderer_tpu_torch.frame_profile --world --mipmap
     python -m mt_renderer_tpu_torch.frame_profile --device cpu \\
         --instances 4 --subdiv 1 --width 256 --height 128     # rehearsal
 
@@ -14,7 +17,11 @@ single-layer frame or, with ``--peel L``, the packed split-peel frame
 every 4th instance translucent, the camera position scaled by 0.3.
 ``--mipmap`` renders the trilinear frame from the tri pool (the pool
 ``bench.py`` takes for it), ``--lighting`` the lit frame (both: the
-reference bench's ``pallas+mip+light`` row); neither with ``--peel``.
+reference bench's ``pallas+mip+light`` row; with ``--peel`` its
+``peel4+mip+light`` row). ``--world`` renders the archive world instead
+(``--buildings`` buildings of subdivisions (4, 6, 8, 10, 12), the bench's
+``pallas world`` row with ``--mipmap``), its palette computed on the
+device by ``bone_mats_device``.
 
 * the host predictors ``FrameEngine`` runs before each frame
   (``predict_bin_counts`` + ``auto_tap_tiles``), and ``auto_maxc`` and
@@ -45,9 +52,8 @@ import time
 import numpy as np
 import torch
 
-from mt_renderer_tpu.render import cpu_reference as cr
-
-from .entry import demo_case
+from .entry import demo_case, world_case
+from .render import cpu_reference as cr
 from .render import device as dv
 from .render import raster as rs
 
@@ -159,52 +165,68 @@ def _single_stages(scene, clip, w, h, maxc, taps, *, bones=None,
     return stages, {"": (counts, glists)}
 
 
-def _peel_stages(scene, clip, w, h, maxc, taps, layers):
+def _peel_stages(scene, clip, w, h, maxc, taps, layers, *, bones=None,
+                 mipmap=False, lighting=False):
     """The split-peel frame's stages after the vertex stage, each a
     thunk, and the binning of its two sets."""
     pw, ph = dv._padded(w, h)
-    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS)
+    mode = "mtap" if mipmap else "tap"
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode=mode,
+              light=dv._light_unit() if lighting else None)
+    lit = dict(bone_mats=bones, lighting=lighting)
     clear = (255,) * 4
     (cols_op, bbox_op), (cols_tr, bbox_tr) = dv.setup_packed_cols(
-        scene, clip, w, h, opacity_split=True)
+        scene, clip, w, h, opacity_split=True, **lit)
     pre_op = rs.prebin(cols_op, bbox_op, 0, 0, width=pw, height=ph,
                        maxc=maxc)
     pre_tr = rs.prebin(cols_tr, bbox_tr, 0, 0, width=pw, height=ph,
                        maxc=maxc)
-    zo, io, tat_op, tid_op = rs.raster_fwd(cols_op, *pre_op[:3], (0, 0),
-                                           **kw)
+    opaque = rs.raster_fwd(cols_op, *pre_op[:3], (0, 0), **kw)
+    zo, io = opaque[:2]
     zhi = torch.where(io >= 0, zo, float("inf"))
     ml = dict(kw, layers=layers, opaque_cull=False, zhi=zhi)
-    zt, it, tat_tr, tid_tr = rs.raster_fwd_ml(cols_tr, *pre_tr[:3], (0, 0),
-                                              **ml)
-    src_op, cov_op, _ = dv.shade_tap_flat_channels(scene, tat_op, tid_op,
-                                                   io, tap_tiles=taps[0])
-    dst0 = dv._blend_channels(src_op, cov_op, clear)
+    translucent = rs.raster_fwd_ml(cols_tr, *pre_tr[:3], (0, 0), **ml)
+    zt, it = translucent[:2]
     cov_tr = (it >= 0) & ((zt < zhi) | ((zt == zhi) & (it > io)))
-    dst, _ = dv.composite_peeled_tap_flat(scene, tat_tr, tid_tr, it, layers,
-                                          clear, tap_tiles=taps[1],
-                                          covered=cov_tr, dst0=dst0)
 
     def shade_opaque():
-        src, cov, _ = dv.shade_tap_flat_channels(scene, tat_op, tid_op, io,
-                                                 tap_tiles=taps[0])
+        if mipmap:
+            src, cov, _ = dv.shade_mip_tap_flat_channels(
+                scene, opaque[2], io, tap_tiles=taps[0])
+        else:
+            src, cov, _ = dv.shade_tap_flat_channels(
+                scene, opaque[2], opaque[3], io, tap_tiles=taps[0])
         return dv._blend_channels(src, cov, clear)
 
+    dst0 = shade_opaque()
+
+    def composite():
+        if mipmap:
+            return dv.composite_peeled_mip_flat(
+                scene, translucent[2], it, layers, clear, tap_tiles=taps[1],
+                covered=cov_tr, dst0=dst0)
+        return dv.composite_peeled_tap_flat(
+            scene, translucent[2], translucent[3], it, layers, clear,
+            tap_tiles=taps[1], covered=cov_tr, dst0=dst0)
+
+    dst, _ = composite()
+    k = ("" if mode == "tap" and not lighting
+         else f", {mode}{'+lit' if lighting else ''}")
     return {
-        "setup_packed_cols, opacity split": lambda: dv.setup_packed_cols(
-            scene, clip, w, h, opacity_split=True),
+        f"setup_packed_cols, opacity split{', lit' if lighting else ''}":
+            lambda: dv.setup_packed_cols(scene, clip, w, h,
+                                         opacity_split=True, **lit),
         "prebin, opaque set": lambda: rs.prebin(
             cols_op, bbox_op, 0, 0, width=pw, height=ph, maxc=maxc),
-        "raster_fwd (K1), opaque set": lambda: rs.raster_fwd(
+        f"raster_fwd (K1){k}, opaque set": lambda: rs.raster_fwd(
             cols_op, *pre_op[:3], (0, 0), **kw),
         "prebin, translucent set": lambda: rs.prebin(
             cols_tr, bbox_tr, 0, 0, width=pw, height=ph, maxc=maxc),
-        "raster_fwd_ml (K2), translucent set": lambda: rs.raster_fwd_ml(
+        f"raster_fwd_ml (K2){k}, translucent set": lambda: rs.raster_fwd_ml(
             cols_tr, *pre_tr[:3], (0, 0), **ml),
-        "opaque tap shade + blend": shade_opaque,
-        "composite_peeled_tap_flat": lambda: dv.composite_peeled_tap_flat(
-            scene, tat_tr, tid_tr, it, layers, clear, tap_tiles=taps[1],
-            covered=cov_tr, dst0=dst0),
+        f"opaque {'trilinear' if mipmap else 'tap'} shade + blend":
+            shade_opaque,
+        f"composite_peeled_{mode}_flat": composite,
         "pack+unflatten+crop": lambda: rs.unflatten_tiles(
             dv.pack_u32_channels(dst), ph, pw)[:h, :w].contiguous(),
     }, {", opaque set": (pre_op[2], pre_op[1]),
@@ -229,26 +251,37 @@ def main(argv=None) -> int:
                     help="the trilinear frame, from the tri pool")
     ap.add_argument("--lighting", action="store_true",
                     help="the lit frame")
+    ap.add_argument("--world", action="store_true",
+                    help="the archive world instead of the demo scene")
+    ap.add_argument("--buildings", type=int, default=280,
+                    help="the world's buildings")
     args = ap.parse_args(argv)
-    if args.peel and (args.mipmap or args.lighting):
-        ap.error("--mipmap and --lighting profile the single-layer frame")
+    if args.world and (args.translucent or args.peel):
+        ap.error("--world profiles the single-layer frame")
     dev = torch.device(args.device)
     w, h = args.width, args.height
+    pool = "tri" if args.mipmap else "quad"
 
-    case = demo_case(dev, instances=args.instances, subdiv=args.subdiv,
-                     width=w, height=h, translucent=args.translucent,
-                     cam_scale=0.3 if args.translucent else 1.0,
-                     pool_mode="tri" if args.mipmap else "quad")
+    if args.world:
+        case = world_case(dev, buildings=args.buildings, width=w, height=h,
+                          building_subdivs=(4, 6, 8, 10, 12), pool_mode=pool)
+    else:
+        case = demo_case(dev, instances=args.instances, subdiv=args.subdiv,
+                         width=w, height=h, translucent=args.translucent,
+                         cam_scale=0.3 if args.translucent else 1.0,
+                         pool_mode=pool)
     batch, scene, cam = case.batch, case.scene, case.camera
     vp, bones = case.view_proj(), case.bone_mats(0.0)
     maxc = dv.auto_maxc(batch, vp, bones, width=w, height=h)
     if args.peel:
         taps = dv.measure_live_tap_tiles(scene, vp, bones, width=w,
                                          height=h, layers=args.peel,
-                                         maxc=maxc, mode="split")
+                                         maxc=maxc, lighting=args.lighting,
+                                         mode="split")
     else:
         taps = dv.auto_tap_tiles(batch, vp, bones, width=w, height=h)
-    print(f"scene: {len(batch.tris)} tris, {w}x{h}, translucent="
+    print(f"scene: {'world, ' if args.world else ''}{len(batch.tris)} tris, "
+          f"{w}x{h}, translucent="
           f"{args.translucent}, peel={args.peel}, mipmap={args.mipmap}, "
           f"lighting={args.lighting}, pool {scene.pool_mode}, maxc={maxc}, "
           f"tap_tiles={taps}, device {dev}")
@@ -281,12 +314,15 @@ def main(argv=None) -> int:
         if args.peel:
             return dv.render_frame_peeled(
                 scene, v, b, width=w, height=h, layers=args.peel,
-                maxc=maxc, peel_mode="split", packed=True, tap_tiles=taps)
+                maxc=maxc, peel_mode="split", packed=True, tap_tiles=taps,
+                mipmap=args.mipmap, lighting=args.lighting)
         return dv.render_frame(scene, v, b, width=w, height=h, maxc=maxc,
                                tap_tiles=taps, packed=True,
                                mipmap=args.mipmap, lighting=args.lighting)
 
-    vp_d, bones_d = dv._f32(vp, dev), dv._f32(bones, dev)
+    vp_d = dv._f32(vp, dev)
+    bones_d = (case.bone_mats_device(0.0) if args.world
+               else dv._f32(bones, dev))
     host_in = _timed(lambda: frame(vp, bones), dev, args.frames)
     dev_in = _timed(lambda: frame(vp_d, bones_d), dev, args.frames)
     rs.flush_overflow_checks()
@@ -296,7 +332,9 @@ def main(argv=None) -> int:
 
     clip = dv.vertex_stage(scene, vp_d, bones_d)
     if args.peel:
-        stages, bins = _peel_stages(scene, clip, w, h, maxc, taps, args.peel)
+        stages, bins = _peel_stages(scene, clip, w, h, maxc, taps, args.peel,
+                                    bones=bones_d, mipmap=args.mipmap,
+                                    lighting=args.lighting)
     else:
         stages, bins = _single_stages(scene, clip, w, h, maxc, taps,
                                       bones=bones_d,
@@ -304,6 +342,9 @@ def main(argv=None) -> int:
                                       lighting=args.lighting)
     stages = {"vertex_stage": lambda: dv.vertex_stage(scene, vp_d, bones_d),
               **stages}
+    if args.world:
+        stages = {"bone_mats_device (the palette on the device)":
+                  lambda: case.bone_mats_device(12.0), **stages}
     print("stages ms: " + json.dumps(
         {k: _timed(fn, dev, args.frames) for k, fn in stages.items()}))
     rs.flush_overflow_checks()

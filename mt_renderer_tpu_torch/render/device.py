@@ -1,10 +1,10 @@
 """Device stages of a frame — vertex, setup, binning, raster, shade, pack.
 
 The counterpart of ``mt_renderer_tpu/render/device.py`` on the packed
-single-layer paths (``render_frame(backend="pallas", packed=True)``,
-bilinear tap or, with ``mipmap``, trilinear; lit or unlit) and the
-peeled (order-independent transparency) tap path
-(``render_frame_peeled``, ``peel_mode="split"`` and ``"ml"``). The
+single-layer paths (``render_frame(backend="pallas", packed=True)``)
+and the peeled (order-independent transparency) paths
+(``render_frame_peeled``, ``peel_mode="split"`` and ``"ml"``), each
+bilinear tap or, with ``mipmap``, trilinear; lit or unlit. The
 single-layer frame runs:
 
 1. ``vertex_stage`` — bone-palette skinning (a gather and a weighted
@@ -30,12 +30,15 @@ The split peel partitions the setup by opacity
 through K1 and the translucent set through the multi-layer kernel K2
 (``raster.raster_fwd_ml``) behind the opaque z, shades the opaque pass
 and composites the translucent layers in front of it
-(``composite_peeled_tap_flat``).
+(``composite_peeled_tap_flat``; mipmapped, both kernels run the mtap
+epilogue and ``composite_peeled_mip_flat`` shades the layers
+trilinearly).
 
 Pixel rules (coverage at centers with the top-left rule and edge-snap
 band folded into a per-edge bias, back-face cull of area2 >= 0, the
 ``0 <= z`` test, LessEqual depth with later-global-id tie wins) match
-``mt_renderer_tpu.render.cpu_reference``.
+``render.cpu_reference`` (this package's copy of the JAX package's NumPy
+oracle).
 
 Tensors live on the scene's device; every function takes its device from
 its inputs. The host sizing helpers (``auto_maxc``, ``auto_tap_tiles``)
@@ -57,10 +60,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mt_renderer_tpu.render import cpu_reference as cr
-from mt_renderer_tpu.scene.model import DEBUG_PALETTE, DrawBatch
-
 from .. import _build
+from ..scene.model import DEBUG_PALETTE, DrawBatch
+from . import cpu_reference as cr
 from . import raster as rs
 
 logger = logging.getLogger("mt_renderer_tpu_torch.device")
@@ -73,11 +75,7 @@ _WHY_SCAN = ("the port keeps only the binned tile raster; scan stays a "
              "reference harness")
 
 # modes and options of the reference that later PRs port
-_REST = "ROADMAP Queue 1, 'the rest of slices 2 and 3'"
-_SLICE_PEEL_MIP = ("slice 3, with K2's mtap epilogue and the peeled mip "
-                   f"composite ({_REST})")
-_SLICE_PEEL_LIGHT = f"slice 3, with K2's lit epilogue ({_REST})"
-_SLICE_POOL_REST = f"slice 3, the rest of upload ({_REST})"
+_SLICE_POOL_REST = "slice 3, the rest of upload (ROADMAP Queue 1 item 10a)"
 _SLICE_POOL = {
     "narrow": _SLICE_POOL_REST,
     "auto": _SLICE_POOL_REST,
@@ -952,6 +950,53 @@ def shade_mip_tap_flat_channels(scene: DeviceScene, mattrs, ib,
     return src, covered, n_over_tap
 
 
+def composite_peeled_mip_flat(scene: DeviceScene, mattrs, il, layers: int,
+                              clear_color, tap_tiles: int | None = None,
+                              covered=None, dst0=None):
+    """Tile-major multi-layer trilinear composite over ``raster_fwd_ml(
+    mode="mtap")``'s outputs (mattrs (n_tiles, 17L, P), il (n_tiles, L,
+    P), nearest layer first): the mip twin of ``composite_peeled_tap_flat``.
+    The trilinear shade runs on the live (textured and covered) SEG_PX-px
+    (tile, layer) rows through the one code path of
+    ``shade_mip_tap_flat_channels`` (gather the live rows, trilinear,
+    scatter back), so ``tap_tiles`` None/0 (every row) and a cap agree
+    bit for bit; rows over the cap lose their texture and are counted in
+    n_over_tap. The layers blend back to front with src-alpha.
+    ``covered`` and ``dst0`` as in the tap version (the split peel's
+    behind-opaque cull and opaque base).
+
+    Returns (channels [r, g, b, a] each (n_tiles, P) f32 0-255, still
+    tile-major, n_over_tap)."""
+    nt, _, p = mattrs.shape
+    a4 = mattrs.reshape(nt, layers, rs.ATTRS_MTAP, p)
+    if covered is None:
+        covered = il >= 0
+    textured = a4[:, :, 2] >= 0.0
+    n = nt * layers * (p // SEG_PX)
+    cap = min(tap_tiles, n) if tap_tiles else n
+    live = (covered & textured).reshape(n, SEG_PX).any(1)
+    src_rows, slot, n_over_tap = _compact_live_rows(live, cap)
+    albc = _mip_albedo_channels(scene, _seg_rows(
+        a4.reshape(nt * layers, rs.ATTRS_MTAP, p))[src_rows.long()])
+    alb = [a.reshape(nt, layers, p) for a in _expand_rows(albc, slot, n)]
+    if dst0 is None:
+        clear = np.asarray(clear_color, np.float32)
+        dst = [torch.full((nt, p), float(clear[c]), device=il.device)
+               for c in range(4)]
+    else:
+        dst = list(dst0)
+    for layer in reversed(range(layers)):
+        src = [torch.where(textured[:, layer],
+                           alb[c][:, layer] * a4[:, layer, 7 + c],
+                           a4[:, layer, 7 + c]) for c in range(4)]
+        a = src[3] / 255.0
+        cov = covered[:, layer]
+        dst = ([torch.where(cov, src[c] * a + dst[c] * (1.0 - a), dst[c])
+                for c in range(3)]
+               + [torch.where(cov, src[3], dst[3])])
+    return dst, n_over_tap
+
+
 # ------------------------------------------------------- bilinear SWAR (K4)
 
 
@@ -1249,8 +1294,9 @@ def _live_rows(mask) -> torch.Tensor:
 
 def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
                            *, width: int, height: int, layers: int,
-                           maxc: int | None = None, margin: float = 1.5,
-                           mode: str = "ml", bands: int = 1):
+                           maxc: int | None = None, lighting: bool = False,
+                           margin: float = 1.5, mode: str = "ml",
+                           bands: int = 1):
     """Size ``tap_tiles`` for the peeled composite (see
     ``composite_peeled_tap_flat``), in SEG_PX-px (tile, layer) rows: run
     the frame's rasters once for this view, count the live rows on the
@@ -1262,7 +1308,11 @@ def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
     returns one cap. ``mode="split"`` runs K1 over the opaque set and K2
     over the translucent set behind the opaque z, and returns the
     (opaque, translucent) cap pair that ``render_frame_peeled(...,
-    peel_mode="split")`` takes."""
+    peel_mode="split")`` takes. ``lighting`` runs the lit setup and
+    epilogues, as the lit frame does. Liveness (z and id coverage and the
+    tex column) is the same for the tap and the mtap epilogues, so the
+    measurement runs the tap variant and its caps serve ``mipmap=True``
+    renders too, as in the reference."""
     if bands > 1:
         raise _not_ported("measure_live_tap_tiles(bands > 1)",
                           "slice 6 (ROADMAP Queue 1 item 18)")
@@ -1271,8 +1321,10 @@ def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
     pw, ph = _padded(width, height)
     nrows = (pw // rs.TILE_W) * (ph // (SEG_PX // rs.TILE_W))
     mc = maxc or rs.MAXC_DEFAULT
-    kw = dict(width=pw, height=ph, w_eps=W_EPS)
+    light = _light_unit() if lighting else None
+    kw = dict(width=pw, height=ph, w_eps=W_EPS, light=light)
     clip = vertex_stage(scene, view_proj, bone_mats)
+    setup_kw = dict(bone_mats=bone_mats, lighting=lighting)
 
     def cap(live: int, hi: int) -> int:
         return min(max(8, -(-int(np.ceil(live * margin)) // 8) * 8), hi)
@@ -1280,14 +1332,14 @@ def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
     if mode == "split":
         (_, io, _, tio), (_, it, _, tit), front, _ = _split_rasters(
             *setup_packed_cols(scene, clip, width, height,
-                               opacity_split=True),
-            pw=pw, ph=ph, layers=layers, maxc=mc)
+                               opacity_split=True, **setup_kw),
+            pw=pw, ph=ph, layers=layers, maxc=mc, light=light)
         live_op, live_tr = torch.stack(
             [_live_rows((io >= 0) & (tio >= 0)),
              _live_rows(front & (tit >= 0))]).tolist()
         return cap(live_op, nrows), cap(live_tr, nrows * layers)
 
-    cols, bbox = setup_packed_cols(scene, clip, width, height)
+    cols, bbox = setup_packed_cols(scene, clip, width, height, **setup_kw)
     lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
                                          height=ph, maxc=mc)
     _, il, _, ti = rs.raster_fwd_ml(cols, lists, glists, counts, (0, 0),
@@ -1297,18 +1349,21 @@ def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
 
 def _split_rasters(setup_op, setup_tr, *, pw: int, ph: int, layers: int,
                    maxc: int, raster=rs.raster_fwd,
-                   raster_ml=rs.raster_fwd_ml):
+                   raster_ml=rs.raster_fwd_ml, mode: str = "tap",
+                   light=None):
     """The split peel's two rasters over the padded ``pw`` x ``ph``
-    frame: K1 over the opaque set, then K2 over the translucent set
+    frame, with the ``mode`` epilogue ("tap" or "mtap", lit under
+    ``light``): K1 over the opaque set, then K2 over the translucent set
     (variant "nocull") with the opaque z-buffer as its ``zhi`` horizon.
     ``setup_op``/``setup_tr`` are the (cols, bbox) pairs of
     ``setup_packed_cols(opacity_split=True)``.
 
-    Returns (K1's (z, ids, tattrs, tapidx), K2's (zl, il, tattrs,
-    tapidx), front (n_tiles, L, P) bool: the translucent fragments kept
-    and in front of the opaque winner under the exact (z asc, id desc)
-    order, the device count of tiles over ``maxc`` in either binning)."""
-    kw = dict(width=pw, height=ph, w_eps=W_EPS)
+    Returns (K1's outputs (z, ids, attrs[, tapidx]), K2's (zl, il,
+    attrs[, tapidx]), front (n_tiles, L, P) bool: the translucent
+    fragments kept and in front of the opaque winner under the exact
+    (z asc, id desc) order, the device count of tiles over ``maxc`` in
+    either binning)."""
+    kw = dict(width=pw, height=ph, w_eps=W_EPS, mode=mode, light=light)
     (cols_op, bbox_op), (cols_tr, bbox_tr) = setup_op, setup_tr
     lists, glists, counts, nov_op = rs.prebin(cols_op, bbox_op, 0, 0,
                                               width=pw, height=ph, maxc=maxc)
@@ -1333,29 +1388,37 @@ def _split_peel_flat(scene: DeviceScene, setup_op, setup_tr, *, pw: int,
                      raster_ml=rs.raster_fwd_ml, mipmap: bool = False,
                      light=None):
     """The split peel over the padded ``pw`` x ``ph`` frame: the two
-    rasters of ``_split_rasters``, the opaque tap shade and blend, then
-    the translucent layers in front of the opaque winner composited over
-    it. ``tap_tiles`` is one cap or the (opaque, translucent) pair.
+    rasters of ``_split_rasters``, the opaque shade and blend, then the
+    translucent layers in front of the opaque winner composited over it:
+    bilinear taps, or with ``mipmap`` the mtap epilogues, the trilinear
+    shade and ``composite_peeled_mip_flat``; lit under ``light``.
+    ``tap_tiles`` is one cap or the (opaque, translucent) pair.
 
     Returns (channels [r, g, b, a] each (n_tiles, P) f32 tile-major, z0
     (n_tiles, P) nearest depth with 1.0 where empty, (n_over bins,
     n_over taps))."""
-    if mipmap:
-        raise _not_ported("the split peel's mip-tap composite",
-                          _SLICE_PEEL_MIP)
-    if light is not None:
-        raise _not_ported("the split peel's lit epilogue",
-                          _SLICE_PEEL_LIGHT)
-    (zo, io, tat_op, tid_op), (zt, it, tat_tr, tid_tr), front, nov = \
-        _split_rasters(setup_op, setup_tr, pw=pw, ph=ph, layers=layers,
-                       maxc=maxc, raster=raster, raster_ml=raster_ml)
+    opaque, translucent, front, nov = _split_rasters(
+        setup_op, setup_tr, pw=pw, ph=ph, layers=layers, maxc=maxc,
+        raster=raster, raster_ml=raster_ml,
+        mode="mtap" if mipmap else "tap", light=light)
+    (zo, io), (zt, it) = opaque[:2], translucent[:2]
     cap_op, cap_tr = (tap_tiles if isinstance(tap_tiles, tuple)
                       else (tap_tiles, tap_tiles))
-    src_op, cov_op, novt_op = shade_tap_flat_channels(
-        scene, tat_op, tid_op, io, tap_tiles=cap_op)
-    dst, novt_tr = composite_peeled_tap_flat(
-        scene, tat_tr, tid_tr, it, layers, clear_color, tap_tiles=cap_tr,
-        covered=front, dst0=_blend_channels(src_op, cov_op, clear_color))
+    if mipmap:
+        src_op, cov_op, novt_op = shade_mip_tap_flat_channels(
+            scene, opaque[2], io, tap_tiles=cap_op)
+    else:
+        src_op, cov_op, novt_op = shade_tap_flat_channels(
+            scene, opaque[2], opaque[3], io, tap_tiles=cap_op)
+    dst0 = _blend_channels(src_op, cov_op, clear_color)
+    if mipmap:
+        dst, novt_tr = composite_peeled_mip_flat(
+            scene, translucent[2], it, layers, clear_color,
+            tap_tiles=cap_tr, covered=front, dst0=dst0)
+    else:
+        dst, novt_tr = composite_peeled_tap_flat(
+            scene, translucent[2], translucent[3], it, layers, clear_color,
+            tap_tiles=cap_tr, covered=front, dst0=dst0)
     inf = float("inf")
     z0 = torch.minimum(torch.where(it[:, 0] >= 0, zt[:, 0], inf),
                        torch.where(io[:, 0] >= 0, zo[:, 0], inf))
@@ -1367,6 +1430,7 @@ def _render_frame_peeled_core(scene: DeviceScene, view_proj, bone_mats=None,
                               *, width: int, height: int, layers: int,
                               clear_color: tuple, maxc: int | None,
                               peel_mode: str, tap_tiles,
+                              mipmap: bool = False, lighting: bool = False,
                               raster=rs.raster_fwd,
                               raster_ml=rs.raster_fwd_ml):
     """Peeled frame body → (packed color (H, W) i32, nearest depth
@@ -1375,25 +1439,35 @@ def _render_frame_peeled_core(scene: DeviceScene, view_proj, bone_mats=None,
     renders the same frame through them on any device."""
     pw, ph = _padded(width, height)
     mc = maxc or rs.MAXC_DEFAULT
+    light = _light_unit() if lighting else None
     clip = vertex_stage(scene, view_proj, bone_mats)
+    setup_kw = dict(bone_mats=bone_mats, lighting=lighting)
     if peel_mode == "split":
         setup_op, setup_tr = setup_packed_cols(scene, clip, width, height,
-                                               opacity_split=True)
+                                               opacity_split=True,
+                                               **setup_kw)
         dst, z0, n_over = _split_peel_flat(
             scene, setup_op, setup_tr, pw=pw, ph=ph, layers=layers,
             maxc=mc, tap_tiles=tap_tiles, clear_color=clear_color,
-            raster=raster, raster_ml=raster_ml)
+            raster=raster, raster_ml=raster_ml, mipmap=mipmap, light=light)
     else:
-        cols, bbox = setup_packed_cols(scene, clip, width, height)
+        cols, bbox = setup_packed_cols(scene, clip, width, height,
+                                       **setup_kw)
         lists, glists, counts, nov = rs.prebin(cols, bbox, 0, 0, width=pw,
                                                height=ph, maxc=mc)
-        zl, il, tattrs, tapidx = raster_ml(
-            cols, lists, glists, counts, (0, 0), width=pw, height=ph,
-            layers=layers, w_eps=W_EPS, opaque_cull=True)
-        dst, novt = composite_peeled_tap_flat(
-            scene, tattrs, tapidx, il, layers, clear_color,
-            tap_tiles=tap_tiles)
-        z0 = zl[:, 0, :]
+        out = raster_ml(cols, lists, glists, counts, (0, 0), width=pw,
+                        height=ph, layers=layers, w_eps=W_EPS,
+                        opaque_cull=True, mode="mtap" if mipmap else "tap",
+                        light=light)
+        if mipmap:
+            dst, novt = composite_peeled_mip_flat(
+                scene, out[2], out[1], layers, clear_color,
+                tap_tiles=tap_tiles)
+        else:
+            dst, novt = composite_peeled_tap_flat(
+                scene, out[2], out[3], out[1], layers, clear_color,
+                tap_tiles=tap_tiles)
+        z0 = out[0][:, 0, :]
         n_over = (nov, novt)
     color = rs.unflatten_tiles(pack_u32_channels(dst), ph, pw)
     depth = rs.unflatten_tiles(z0, ph, pw)
@@ -1425,6 +1499,10 @@ def render_frame_peeled(scene: DeviceScene, view_proj, bone_mats=None, *,
     (opaque, translucent) pair); None = dense. Bin and tap overflow go
     to the deferred queue (``check_overflow``), as in ``render_frame``.
 
+    ``mipmap`` and ``lighting`` as in ``render_frame``: every layer runs
+    the mtap epilogue and the trilinear shade (``composite_peeled_mip_
+    flat``), and C is lit in the rasters' epilogues.
+
     ``packed``: color is (H, W) int32 holding RGBA8 bits; otherwise it
     is the (H, W, 4) uint8 view of the same plane."""
     if peel_mode not in ("ml", "multipass", "split"):
@@ -1435,12 +1513,6 @@ def render_frame_peeled(scene: DeviceScene, view_proj, bone_mats=None, *,
             "layer and stays the reference's differential oracle for 'ml'")
     if backend != "pallas":
         raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
-    if mipmap:
-        raise _not_ported("render_frame_peeled(mipmap=True)",
-                          _SLICE_PEEL_MIP)
-    if lighting:
-        raise _not_ported("render_frame_peeled(lighting=True)",
-                          _SLICE_PEEL_LIGHT)
     if peel_mode == "split" and layers < 2:
         raise ValueError("peel_mode='split' requires layers >= 2")
     if not 2 <= layers <= rs.MAX_LAYERS:
@@ -1452,7 +1524,8 @@ def render_frame_peeled(scene: DeviceScene, view_proj, bone_mats=None, *,
     color, depth, n_over = _render_frame_peeled_core(
         scene, view_proj, bone_mats, width=width, height=height,
         layers=layers, clear_color=clear_color, maxc=maxc,
-        peel_mode=peel_mode, tap_tiles=tap_tiles)
+        peel_mode=peel_mode, tap_tiles=tap_tiles, mipmap=mipmap,
+        lighting=lighting)
     if check_overflow:
         _queue_frame_overflow(n_over, maxc, tap_tiles, width, height)
     if not packed:

@@ -1,10 +1,9 @@
 """Production frame engine — sized caps + overflow recovery.
 
 The counterpart of ``mt_renderer_tpu/render/engine.py`` for the packed
-single-layer frame (bilinear, or trilinear with ``mipmap``; lit or not)
-and the packed peeled frame (``peel`` layers, ``peel_mode`` "split" or
-"ml"; bilinear and unlit). ``FrameEngine`` owns the frame loop's
-wiring:
+single-layer frame and the packed peeled frame (``peel`` layers,
+``peel_mode`` "split" or "ml"), each bilinear or, with ``mipmap``,
+trilinear, lit or not. ``FrameEngine`` owns the frame loop's wiring:
 
 * lazy sizing at the first rendered view: ``auto_maxc`` for the binning
   cap; for the single-layer frame ``auto_tap_tiles`` for the compacted
@@ -46,12 +45,6 @@ class FrameEngine:
             raise device._by_decision(
                 "FrameEngine(peel_mode='multipass')", "the engine runs the "
                 "single-pass peels, 'split' and 'ml'")
-        if peel and mipmap:
-            raise device._not_ported("FrameEngine(peel=..., mipmap=True)",
-                                     device._SLICE_PEEL_MIP)
-        if peel and lighting:
-            raise device._not_ported("FrameEngine(peel=..., lighting=True)",
-                                     device._SLICE_PEEL_LIGHT)
         self.scene = scene
         self.batch = batch
         self.width = width
@@ -79,7 +72,8 @@ class FrameEngine:
             self.scene, np.asarray(view_proj),
             bone_mats if self.batch.skinned else None, width=self.width,
             height=self.height, layers=self.peel, maxc=self.maxc,
-            mode=self.peel_mode, margin=self.headroom)
+            lighting=self.lighting, mode=self.peel_mode,
+            margin=self.headroom)
 
     def size(self, view_proj, bone_mats=None) -> None:
         """Size the binning and compacted-tap caps for this view: host
@@ -111,6 +105,7 @@ class FrameEngine:
             out = device.render_frame_peeled(
                 self.scene, view_proj, bone_mats, width=self.width,
                 height=self.height, layers=self.peel, maxc=self.maxc,
+                mipmap=self.mipmap, lighting=self.lighting,
                 peel_mode=self.peel_mode, packed=True,
                 tap_tiles=self.tap_tiles)
         else:

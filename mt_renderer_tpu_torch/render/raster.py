@@ -66,7 +66,7 @@ ATTRS_MTAP = 17          # mtap epilogue output planes: u, v, tex, off
                          # Q_x, Q_y], the analytic LOD's inputs
 TEX_ROW = N_RAST + 9     # tex column: an integer value marks an opaque row
 MAX_LAYERS = 8           # K2 keeps 2..MAX_LAYERS fragments per pixel
-MODES = ("tap", "mtap")  # K1's epilogues
+MODES = ("tap", "mtap")  # the raster kernels' epilogues
 
 
 # ------------------------------------------------------------------ binning
@@ -224,11 +224,18 @@ def _persp_inv(a, px, py, w_eps: float):
 def _lit_scale(a, px, py, inv, light):
     """Directional lambert factor 0.3 + 0.7 * max(n.l / max(|n|, 1e-6),
     0) from the winner's normal planes (coefficients 18..26) and the
-    unit ``light`` (pallas_raster.py:448-458)."""
+    unit ``light`` (pallas_raster.py:448-458).
+
+    The square root runs in f64 and rounds once to f32, which is the
+    correctly rounded f32 root the kernels' ``sqrtf`` gives: PyTorch's
+    vectorised f32 ``sqrt`` on the CPU is not correctly rounded, and
+    where a thread's chunk ends it takes the scalar one, which is; near a
+    normal that interpolates through zero an ulp of |n| shows in C."""
     nx = _plane(a, 18, px, py) * inv
     ny = _plane(a, 21, px, py) * inv
     nz = _plane(a, 24, px, py) * inv
-    ln = torch.sqrt(nx * nx + ny * ny + nz * nz).clamp(min=1e-6)
+    ln = torch.sqrt((nx * nx + ny * ny + nz * nz).to(torch.float64)).to(
+        torch.float32).clamp(min=1e-6)
     ndl = ((light[0] * nx + light[1] * ny + light[2] * nz) / ln).clamp(
         min=0.0)
     return 0.3 + 0.7 * ndl
@@ -310,6 +317,8 @@ def _check_raster_args(cols, lists, glists, counts, width, height,
 
 def _check_fwd_args(cols, lists, glists, counts, width, height, mode,
                     light):
+    """The raster kernels' shared checks: the epilogue mode, the light,
+    the column matrix (33 rows, 42 lit) and the binning."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
     if light is not None and len(light) != 3:
@@ -354,8 +363,8 @@ raster_fwd.launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F,
              _P, _P, _P, _P, _P]
-_ML_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P,
-            _P, _P, _P]
+_ML_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _I,
+            _F, _F, _F, _P, _P, _P, _P, _P]
 _MICRO_ARGS = [_P, _I, _I, _I, _I, _P, _P, _P, _P]
 
 
@@ -575,8 +584,9 @@ def raster_micro_reference(chunk_cols, reps: int, n_coef: int):
 # ------------------------------------------------------------ K2: raster ML
 
 
-def _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi):
-    _check_raster_args(cols, lists, glists, counts, width, height)
+def _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi,
+                   mode, light):
+    _check_fwd_args(cols, lists, glists, counts, width, height, mode, light)
     if not 2 <= layers <= MAX_LAYERS:
         raise ValueError(f"layers={layers} out of range [2, {MAX_LAYERS}]")
     if zhi is not None:
@@ -590,10 +600,14 @@ def _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi):
 
 def raster_fwd_ml(cols, lists, glists, counts, origin, *, width: int,
                   height: int, layers: int, w_eps: float,
-                  opaque_cull: bool, zhi=None):
+                  opaque_cull: bool, zhi=None, mode: str = "tap",
+                  light=None):
     """Binned multi-layer (order-independent transparency) raster with
-    the tap epilogue per layer, over a band of ``width`` x ``height`` px
-    (tile-aligned) whose top-left pixel is ``origin`` = (x0, y0).
+    the tap (``mode="tap"``) or mip-tap (``"mtap"``) epilogue per layer,
+    over a band of ``width`` x ``height`` px (tile-aligned) whose
+    top-left pixel is ``origin`` = (x0, y0). ``light`` (a unit 3-tuple;
+    the lit column matrix) folds the lambert factor into each layer's C
+    rgb, as in ``raster_fwd``.
 
     Per pixel it keeps the ``layers`` (2..8) nearest fragments, ordered
     by z ascending and then by global id descending on exact ties, among
@@ -604,17 +618,20 @@ def raster_fwd_ml(cols, lists, glists, counts, origin, *, width: int,
     invalidates kept entries strictly behind it: the reference's
     ``variant="full"``; without it, ``"nocull"``.
 
-    Returns tile-major (zl (n_tiles, L, P) f32 with 1.0 where the id is
-    < 0, il (n_tiles, L, P) i32 kept id or -1, tattrs (n_tiles, 6L, P)
-    f32 with layer l's [fx, fy, C rgba] at rows 6l..6l+5, tapidx
-    (n_tiles, L, P) i32), nearest layer first.
+    Returns tile-major tensors, nearest layer first: zl (n_tiles, L, P)
+    f32 with 1.0 where the id is < 0, il (n_tiles, L, P) i32 kept id or
+    -1, then for "tap" tattrs (n_tiles, 6L, P) f32 with layer l's [fx,
+    fy, C rgba] at rows 6l..6l+5 and tapidx (n_tiles, L, P) i32; for
+    "mtap" mattrs (n_tiles, 17L, P) f32 with layer l's planes (see
+    ATTRS_MTAP) at rows 17l..17l+16.
 
     A CPU tensor runs ``raster_fwd_ml_reference``. A CUDA tensor
     launches ``csrc/raster_fwd_ml.cu`` (counted in
     ``raster_fwd_ml.launches``) or raises."""
-    _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi)
+    _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi,
+                   mode, light)
     kw = dict(width=width, height=height, layers=layers, w_eps=w_eps,
-              opaque_cull=opaque_cull, zhi=zhi)
+              opaque_cull=opaque_cull, zhi=zhi, mode=mode, light=light)
     if cols.device.type == "cpu":
         return raster_fwd_ml_reference(cols, lists, glists, counts, origin,
                                        **kw)
@@ -628,7 +645,8 @@ raster_fwd_ml.launches = 0
 
 
 def _raster_fwd_ml_cuda(cols, lists, glists, counts, origin, *, width,
-                        height, layers, w_eps, opaque_cull, zhi):
+                        height, layers, w_eps, opaque_cull, zhi, mode,
+                        light):
     fn = _build.fn("raster_fwd_ml", "mtr_raster_fwd_ml", _ML_ARGS)
     cols = cols.contiguous()
     lists = lists.contiguous()
@@ -638,12 +656,14 @@ def _raster_fwd_ml_cuda(cols, lists, glists, counts, origin, *, width,
     n_tx = width // TILE_W
     n_tiles = (height // TILE_H) * n_tx
     dev = cols.device
+    n_planes = ATTRS_TAP if mode == "tap" else ATTRS_MTAP
     zl = torch.empty((n_tiles, layers, P), dtype=torch.float32, device=dev)
     il = torch.empty((n_tiles, layers, P), dtype=torch.int32, device=dev)
-    tattrs = torch.empty((n_tiles, layers * ATTRS_TAP, P),
-                         dtype=torch.float32, device=dev)
-    tapidx = torch.empty((n_tiles, layers, P), dtype=torch.int32,
-                         device=dev)
+    attrs = torch.empty((n_tiles, layers * n_planes, P),
+                        dtype=torch.float32, device=dev)
+    tapidx = (torch.empty((n_tiles, layers, P), dtype=torch.int32,
+                          device=dev) if mode == "tap" else None)
+    lx, ly, lz = (0.0, 0.0, 0.0) if light is None else light
     x0, y0 = (int(o) for o in origin)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -651,18 +671,20 @@ def _raster_fwd_ml_cuda(cols, lists, glists, counts, origin, *, width,
                  glists.data_ptr(), counts.data_ptr(), n_tiles,
                  lists.shape[1], n_tx, x0, y0, w_eps, layers,
                  int(opaque_cull), None if zhi is None else zhi.data_ptr(),
-                 zl.data_ptr(), il.data_ptr(), tattrs.data_ptr(),
-                 tapidx.data_ptr(), stream)
+                 MODES.index(mode), int(light is not None), lx, ly, lz,
+                 zl.data_ptr(), il.data_ptr(), attrs.data_ptr(),
+                 None if tapidx is None else tapidx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_fwd_ml kernel launch failed: cudaError "
                            f"{err}")
     raster_fwd_ml.launches += 1
-    return zl, il, tattrs, tapidx
+    return (zl, il, attrs, tapidx) if mode == "tap" else (zl, il, attrs)
 
 
 def raster_fwd_ml_reference(cols, lists, glists, counts, origin, *,
                             width: int, height: int, layers: int,
-                            w_eps: float, opaque_cull: bool, zhi=None):
+                            w_eps: float, opaque_cull: bool, zhi=None,
+                            mode: str = "tap", light=None):
     """Plain PyTorch version of ``raster_fwd_ml``, same contract, in the
     reference's per-group form. Batches over the tiles that are live at
     each (list slot, group) step. Each group culls its candidates against
@@ -673,8 +695,9 @@ def raster_fwd_ml_reference(cols, lists, glists, counts, origin, *,
     number of kept entries that precede it under (z asc, id desc). With
     ``opaque_cull``, kept entries strictly behind the final opaque z are
     invalidated. Coefficients are gathered by id, and each layer runs
-    the single-layer raster's tap epilogue."""
-    _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi)
+    the single-layer raster's tap or mtap epilogue."""
+    _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi,
+                   mode, light)
     dev = cols.device
     n_tiles = counts.shape[0]
     px, py = _pixel_centers(width, height, origin, dev)
@@ -751,12 +774,18 @@ def raster_fwd_ml_reference(cols, lists, glists, counts, origin, *,
     if opaque_cull:
         il = torch.where(zl > zop[:, None, :], -1, il)
     covered = il >= 0
-    coef = cols[N_RAST:N_RAST + N_COEF][:, il.clamp(min=0).long()]
-    coef = torch.where(covered, coef, 0.0)             # (18, tiles, L, P)
-    planes, tapidx = _tap_epilogue(coef, px[:, None, :], py[:, None, :],
-                                   w_eps)
+    nc = _n_coef(light)
+    coef = cols[N_RAST:N_RAST + nc][:, il.clamp(min=0).long()]
+    coef = torch.where(covered, coef, 0.0)             # (nc, tiles, L, P)
+    zl = torch.where(covered, zl, 1.0)
+    pxl, pyl = px[:, None, :], py[:, None, :]
+    if mode == "mtap":
+        planes = _mtap_epilogue(coef, pxl, pyl, w_eps, light)
+        return zl, il, torch.stack(planes, 2).reshape(
+            n_tiles, layers * ATTRS_MTAP, P)
+    planes, tapidx = _tap_epilogue(coef, pxl, pyl, w_eps, light)
     tattrs = torch.stack(planes, 2).reshape(n_tiles, layers * ATTRS_TAP, P)
-    return torch.where(covered, zl, 1.0), il, tattrs, tapidx
+    return zl, il, tattrs, tapidx
 
 
 def unflatten_tiles(x, height: int, width: int):

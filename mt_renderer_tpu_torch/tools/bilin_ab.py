@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mt_renderer_tpu.scene import demo
+from ..scene import demo
 
 from ..render import device as dv
 from . import card_line, cuda_times, median, require_cuda

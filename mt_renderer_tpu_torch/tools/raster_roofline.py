@@ -24,12 +24,14 @@ The counterpart of ``tools/bench/raster_roofline.py``, for the H100:
    could skip.
 
 Presets: ``default``, the headline (the skinned demo scene, 1024
-instances at subdiv 4, 196,608 triangles, 1920x1080), and ``dense``,
-the same with the camera position scaled by 0.3 (inside the field);
-eight views each, the yaw stepping 3 degrees. The reference's ``world``
-preset waits for the world scene (ROADMAP Queue 1, "the rest of
-slices 2 and 3"). Prints the card, the SOL line and one summary
-line per preset. Refuses to run without a CUDA device.
+instances at subdiv 4, 196,608 triangles, 1920x1080); ``dense``, the
+same with the camera position scaled by 0.3 (inside the field); and
+``world``, the archive world as the reference builds it (280 buildings,
+``building_subdivs=(4, 6, 8, 10, 12)``, the characters' palettes at
+scheduler frame 0.5, the world camera), whose K1 runs the mtap
+epilogue; eight views each, the yaw stepping 3 degrees. Prints the
+card, the SOL line and one summary line per preset. Refuses to run
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import sys
 
 import torch
 
-from ..entry import demo_case
+from ..entry import demo_case, world_case
 from ..render import device as dv
 from ..render import raster as rs
 from . import card_line, cuda_times, median, require_cuda
@@ -46,25 +48,31 @@ from . import card_line, cuda_times, median, require_cuda
 W, H = 1920, 1080
 VIEWS = 8                  # views per preset
 R1, R2 = 32, 160           # the probe's two rep counts
-PRESETS = ("default", "dense")
+PRESETS = ("default", "dense", "world")
+WORLD = dict(buildings=280, building_subdivs=(4, 6, 8, 10, 12))
 
 
 def build(preset: str, device, *, views: int = VIEWS):
-    """(DemoCase, view_proj per view, bone palette) of a preset."""
-    if preset == "world":
-        raise dv._not_ported(
-            "the roofline's world preset",
-            f"{dv._REST}: scene/world.py builds its skeleton through "
-            "scene/skeleton.py, which imports jax (skeleton.py:17)")
+    """(DemoCase or WorldCase, view_proj per view, bone palette, K1's
+    epilogue mode) of a preset."""
     if preset not in PRESETS:
         raise ValueError(f"unknown preset {preset!r}: one of {PRESETS}")
-    case = demo_case(device, instances=1024, subdiv=4, width=W, height=H,
-                     cam_scale=0.3 if preset == "dense" else 1.0)
+    if preset == "world":
+        case = world_case(device, width=W, height=H, pool_mode="quad",
+                          **WORLD)
+        base_yaw = case.camera.yaw
+        yaws = [base_yaw + 3.0 * i for i in range(views)]
+        bones, mode = case.bone_mats(0.5), "mtap"
+    else:
+        case = demo_case(device, instances=1024, subdiv=4, width=W,
+                         height=H, cam_scale=0.3 if preset == "dense" else 1.0)
+        yaws = [15.0 + 3.0 * i for i in range(views)]
+        bones, mode = case.bone_mats(0.3), "tap"
     vps = []
-    for i in range(views):
-        case.camera.yaw = 15.0 + 3.0 * i
+    for yaw in yaws:
+        case.camera.yaw = yaw
         vps.append(case.view_proj())
-    return case, vps, case.bone_mats(0.3)
+    return case, vps, bones, mode
 
 
 def _binned(scene, vp, bones, maxc: int):
@@ -97,17 +105,18 @@ def pair_counts(scene, vps, bones, maxc: int) -> tuple[int, int]:
     return median(binned), median(winning)
 
 
-def raster_ms(scene, vps, bones, maxc: int, *, repeats: int = 5) -> float:
-    """K1's time in ms per frame: CUDA events around ``raster_fwd``
-    alone on each view's prebinned inputs, the median over ``repeats``
-    of the mean over the views."""
+def raster_ms(scene, vps, bones, maxc: int, *, repeats: int = 5,
+              mode: str = "tap") -> float:
+    """K1's time in ms per frame with the ``mode`` epilogue: CUDA events
+    around ``raster_fwd`` alone on each view's prebinned inputs, the
+    median over ``repeats`` of the mean over the views."""
     dev = require_cuda(scene.device)
     runs = [_binned(scene, vp, bones, maxc) for vp in vps]
 
     def call(i):
         cols, pre, pw, ph = runs[i]
         rs.raster_fwd(cols, *pre[:3], (0, 0), width=pw, height=ph,
-                      w_eps=dv.W_EPS)
+                      w_eps=dv.W_EPS, mode=mode)
 
     return median(cuda_times(call, dev, repeats, calls=len(runs)))
 
@@ -137,14 +146,14 @@ def roofline(preset: str, device, *, views: int = VIEWS, repeats: int = 5,
     and winning pairs, slack, K1 ns/pair, SOL (measured on this preset's
     first view unless given), utilization and the time floors at SOL."""
     dev = require_cuda(device)
-    case, vps, bones = build(preset, dev, views=views)
+    case, vps, bones, mode = build(preset, dev, views=views)
     maxc = dv.auto_maxc(case.batch, vps[0], bones, width=W, height=H)
     ctas = None
     if sol is None:
         sol, ctas = sol_ns_per_pair(case.scene, vps[0], bones,
                                     repeats=repeats)
     binned, winning = pair_counts(case.scene, vps, bones, maxc)
-    ms = raster_ms(case.scene, vps, bones, maxc, repeats=repeats)
+    ms = raster_ms(case.scene, vps, bones, maxc, repeats=repeats, mode=mode)
     rs.flush_overflow_checks()
     ns_pair = ms * 1e6 / binned
     return dict(preset=preset, tris=len(case.batch.tris), maxc=maxc,

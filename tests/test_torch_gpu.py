@@ -9,22 +9,24 @@ file imports no jax, so it also runs on a machine without it:
 
 Tolerance: none. K1, K2 and K3 are built without FMA contraction, so
 they round every plane evaluation like the plain versions' separate ops:
-their outputs are expected bit-equal (K1's mtap and lit epilogues are
-held to 2 ulp, with ids, coverage and tap addresses exact). K4 is
-integer arithmetic: bit-equal. The frames on the card are
+their outputs are expected bit-equal (K1's and K2's mtap and lit
+epilogues are held to 2 ulp, with ids, coverage and tap addresses
+exact). K4 is integer arithmetic: bit-equal. The frames on the card are
 held to the CPU's under the golden rule (coverage exact, at most 0.3% of
-pixels with a channel off by more than 1).
+pixels with a channel off by more than 1); the animated palette of the
+world, computed on the card, equals the host's bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mt_renderer_tpu.app.camera import Camera
-from mt_renderer_tpu.scene import demo
-from mt_renderer_tpu.scene.model import DrawBatch
+from mt_renderer_tpu_torch import entry
+from mt_renderer_tpu_torch.app.camera import Camera
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
+from mt_renderer_tpu_torch.scene import demo
+from mt_renderer_tpu_torch.scene.model import DrawBatch
 
 W, H = 256, 128
 
@@ -88,17 +90,30 @@ def stack_view_proj(width: int, height: int) -> np.ndarray:
     return np.asarray(cam.view_proj())
 
 
+def with_normals(batch):
+    """Unit normals pointing away from the batch's centroid: the demo
+    scene carries none, and without them the lambert factor is a
+    constant."""
+    c = batch.positions - batch.positions.mean(0)
+    batch.normals = (c / np.linalg.norm(c, axis=1, keepdims=True)).astype(
+        np.float32)
+    return batch
+
+
 def _binned(device, *, maxc=None, instances=9, subdiv=2, width=W,
-            height=H, glass=None):
+            height=H, glass=None, lighting=False):
     """The port's own vertex, setup and binning stages on ``device`` →
     the raster's positional arguments. ``glass`` bins the glass scene
     instead of the demo scene: "all" its every triangle, "opaque" or
     "translucent" one set of its opacity split; "stack" bins
-    ``stack_batch`` instead."""
+    ``stack_batch`` instead. ``lighting`` gives the glass scene unit
+    normals and sets up the lit column matrix."""
     if glass == "stack":
         batch, vp, bones = stack_batch(), stack_view_proj(width, height), None
     elif glass:
         batch, vp, bones = _glass(instances, subdiv, width, height)
+        if lighting:
+            batch = with_normals(batch)
     else:
         batch = demo.build_demo_batch(instances=instances, skinned=True,
                                       subdiv=subdiv)
@@ -109,12 +124,13 @@ def _binned(device, *, maxc=None, instances=9, subdiv=2, width=W,
         maxc = td.auto_maxc(batch, vp, bones, width=width, height=height)
     scene = td.upload(batch, device=device)
     clip = td.vertex_stage(scene, vp, bones)
+    lit = dict(bone_mats=bones, lighting=lighting)
     if glass in ("opaque", "translucent"):
         setup = td.setup_packed_cols(scene, clip, width, height,
-                                     opacity_split=True)
+                                     opacity_split=True, **lit)
         cols, bbox = setup[glass == "translucent"]
     else:
-        cols, bbox = td.setup_packed_cols(scene, clip, width, height)
+        cols, bbox = td.setup_packed_cols(scene, clip, width, height, **lit)
     lists, glists, counts, n_over = tr.prebin(cols, bbox, 0, 0, width=width,
                                               height=height, maxc=maxc)
     return (cols, lists, glists, counts, (0, 0)), n_over
@@ -183,11 +199,11 @@ def test_packed_frame_on_card_matches_cpu(cuda):
     assert (diff > 1).mean() <= 0.003
 
 
-def _opaque_horizon(device):
+def _opaque_horizon(device, lighting=False):
     """K1's opaque z-buffer of the glass scene, +inf where uncovered: the
     split peel's ``zhi`` for K2."""
-    args, _ = _binned(device, glass="opaque")
-    zo, io, _, _ = tr.raster_fwd(*args, width=W, height=H, w_eps=td.W_EPS)
+    args, _ = _binned(device, glass="opaque", lighting=lighting)
+    zo, io = tr.raster_fwd(*args, width=W, height=H, w_eps=td.W_EPS)[:2]
     return torch.where(io >= 0, zo, float("inf"))
 
 
@@ -218,6 +234,62 @@ def test_ml_kernel_matches_plain_version(cuda, layers, variant):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers", [2, 4, 8])
+@pytest.mark.parametrize("variant", ["full", "nocull_zhi"])
+@pytest.mark.parametrize("mode,lit", [("mtap", False), ("mtap", True),
+                                      ("tap", True)])
+def test_ml_kernel_epilogues_match_plain_version(cuda, layers, variant, mode,
+                                                 lit):
+    """K2's mtap and lit epilogues on the glass scene with unit normals:
+    "full" over every triangle, "nocull" over the translucent set behind
+    K1's opaque z-buffer. Ids, coverage and tap addresses exact, every
+    plane within 2 ulp (bit-equal expected)."""
+    glass = "all" if variant == "full" else "translucent"
+    args, _ = _binned(cuda, glass=glass, lighting=lit)
+    kw = dict(opaque_cull=variant == "full",
+              zhi=None if variant == "full" else _opaque_horizon(cuda, lit),
+              width=W, height=H, layers=layers, w_eps=td.W_EPS, mode=mode,
+              light=td._light_unit() if lit else None)
+    before = tr.raster_fwd_ml.launches
+    got = tr.raster_fwd_ml(*args, **kw)
+    torch.cuda.synchronize()
+    assert tr.raster_fwd_ml.launches == before + 1
+    want = tr.raster_fwd_ml_reference(*args, **kw)
+    n_planes = tr.ATTRS_MTAP if mode == "mtap" else tr.ATTRS_TAP
+    assert len(got) == len(want) == (3 if mode == "mtap" else 4)
+    assert tuple(got[2].shape) == (args[3].shape[0], layers * n_planes, tr.P)
+    assert float((want[1][:, 0] >= 0).float().mean()) > 0.01
+    assert torch.equal(got[1], want[1])
+    if mode == "tap":
+        assert torch.equal(got[3], want[3])
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        assert g.shape == w.shape
+        assert int(ulp_dist(g, w).max()) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["tap", "mtap"])
+def test_ml_kernel_empty_translucent_feed(cuda, mode):
+    """The split peel of an opaque scene hands K2 an empty translucent
+    set: it launches and returns empty layers."""
+    batch = demo.build_demo_batch(instances=9, skinned=True, subdiv=2)
+    vp = np.asarray(demo.demo_camera(9, W, H).view_proj())
+    scene = td.upload(batch, device=cuda)
+    _, (cols, bbox) = td.setup_packed_cols(
+        scene, td.vertex_stage(scene, vp, demo.demo_bone_mats(0.5)), W, H,
+        opacity_split=True)
+    lists, glists, counts, _ = tr.prebin(cols, bbox, 0, 0, width=W,
+                                         height=H, maxc=8)
+    assert int(counts.max()) == 0
+    got = tr.raster_fwd_ml(cols, lists, glists, counts, (0, 0), width=W,
+                           height=H, layers=4, w_eps=td.W_EPS,
+                           opaque_cull=False, mode=mode)
+    torch.cuda.synchronize()
+    assert (got[1] == -1).all() and (got[0] == 1.0).all()
+    assert (got[2] == 0).all()
 
 
 @pytest.mark.gpu
@@ -372,3 +444,33 @@ def test_swar_kernel_matches_plain_version(cuda):
     assert td.bilin_swar.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(
         got.cpu(), td.bilin_swar_reference(pool, idx, fx, fy))
+
+
+@pytest.mark.gpu
+def test_world_frame_on_card_matches_cpu(cuda):
+    """A small archive world, mipmapped, from the tri pool: the palette
+    computed on the card by ``bone_mats_device`` equals the host's bit
+    for bit, and the frame on the card matches the CPU's (plain raster)
+    under the golden rule with exact coverage."""
+    kw = dict(buildings=16, width=W, height=H, characters=3, variants=4,
+              terrain_subdiv=2, building_subdivs=(1, 2))
+    out = {}
+    for dev in ("cpu", cuda):
+        case = entry.world_case(dev, **kw)
+        # the reference's bird's-eye view of the character row
+        case.camera.position = np.float32([0.0, -4 * 1.6 - 2.0, 9.0])
+        case.camera.far = 120.0
+        pal = (case.bone_mats_device(12.0) if dev == cuda
+               else case.bone_mats(12.0))
+        out[str(dev)] = pal, td.render_frame(
+            case.scene, case.view_proj(), pal, width=W, height=H,
+            mipmap=True, packed=True)
+    tr.flush_overflow_checks()
+    (gp, (gc, gd)), (wp, (wc, wd)) = out["cuda"], out["cpu"]
+    assert gp.device.type == "cuda"
+    assert torch.equal(gp.cpu(), torch.from_numpy(wp))
+    assert torch.equal(gd.cpu() < 1.0, wd < 1.0)
+    assert 0.05 < float((wd < 1.0).float().mean())
+    diff = np.abs(td.unpack_rgba(gc).astype(np.int32)
+                  - td.unpack_rgba(wc).astype(np.int32)).max(-1)
+    assert (diff > 1).mean() <= 0.003

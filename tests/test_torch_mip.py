@@ -150,7 +150,7 @@ def test_scene_from_numpy_carries_the_tri_pool():
 
 def test_unported_parts_of_upload_raise():
     batch = TRI_SCENES["untextured"]()
-    with pytest.raises(NotImplementedError, match="pool_bias.*rest of slices 2 and 3"):
+    with pytest.raises(NotImplementedError, match="pool_bias.*item 10a"):
         td.upload(batch, "tri", device="cpu", pool_bias=1)
 
 
@@ -354,10 +354,3 @@ def test_frame_engine_renders_the_mip_lit_frame(lit):
     tr.flush_overflow_checks()
     assert tr.OVERFLOW_EVENTS == before
 
-
-def test_peeled_mip_and_lit_are_not_ported_yet(lit):
-    for kw in (dict(mipmap=True), dict(lighting=True)):
-        with pytest.raises(NotImplementedError,
-                           match="rest of slices 2 and 3"):
-            te.FrameEngine(lit["ts"], lit["batch"], width=W, height=H,
-                           peel=2, **kw)

@@ -1,9 +1,13 @@
-"""The port runs where jax cannot be imported.
+"""The port runs where neither jax nor the JAX package can be imported.
 
-A fresh interpreter makes ``import jax`` fail, imports the port and its
-two card tools, renders its ``entry()`` frame, a small split-peel frame
-of the glass scene and a small mipmapped, lit frame from the tri pool on
-the CPU, and checks that no module of jax was loaded on the way."""
+A fresh interpreter makes ``import jax`` and ``import mt_renderer_tpu``
+(with its submodules; ``mt_renderer_tpu_torch`` stays importable) fail,
+imports the port and its two card tools, renders on the CPU its
+``entry()`` frame, a small split-peel frame of the glass scene, a small
+mipmapped, lit frame from the tri pool, the same scene's peeled
+mipmapped, lit frame, and a small archive-world frame whose palette
+``bone_mats_device`` computes, and checks that no module of jax or of
+the JAX package was loaded on the way."""
 
 import subprocess
 import sys
@@ -15,18 +19,24 @@ SCRIPT = r"""
 import importlib.abc
 import sys
 
+BLOCKED = ("jax", "jaxlib", "mt_renderer_tpu")
 
-class NoJax(importlib.abc.MetaPathFinder):
+
+def blocked(name):
+    return name.split(".")[0] in BLOCKED
+
+
+class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if blocked(name):
             raise ImportError(f"{name} is blocked: the port must not need it")
 
 
-sys.meta_path.insert(0, NoJax())
+sys.meta_path.insert(0, Block())
 
 import mt_renderer_tpu_torch
 from mt_renderer_tpu_torch import entry
-from mt_renderer_tpu_torch.render import engine, raster
+from mt_renderer_tpu_torch.render import device, engine, raster
 from mt_renderer_tpu_torch.tools import bilin_ab, raster_roofline
 
 fn, args = entry.entry("cpu")
@@ -48,7 +58,26 @@ eng = engine.FrameEngine(mip.scene, mip.batch, width=256, height=128,
                          mipmap=True, lighting=True)
 color, depth = eng.render(mip.view_proj(), mip.bone_mats(0.2))
 assert (depth < 1.0).any() and (color != -1).any()
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+
+peeled = entry.demo_case("cpu", instances=12, width=256, height=128,
+                         subdiv=1, translucent=True, cam_scale=0.3,
+                         pool_mode="tri")
+eng = engine.FrameEngine(peeled.scene, peeled.batch, width=256, height=128,
+                         peel=3, mipmap=True, lighting=True)
+color, depth = eng.render(peeled.view_proj(), peeled.bone_mats(0.4))
+assert (depth < 1.0).any() and (color != -1).any()
+
+world = entry.world_case("cpu", buildings=8, width=128, height=96,
+                         characters=2, variants=3, terrain_subdiv=2,
+                         building_subdivs=(1,))
+palette = world.bone_mats_device(12.0)
+color, depth = device.render_frame(world.scene, world.view_proj(), palette,
+                                   width=128, height=96, mipmap=True,
+                                   packed=True)
+assert (depth < 1.0).any() and (color != -1).any()
+raster.flush_overflow_checks()
+
+loaded = sorted(m for m in sys.modules if blocked(m))
 assert not loaded, loaded
 print("ok")
 """

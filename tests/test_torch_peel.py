@@ -491,8 +491,6 @@ def test_peel_arguments_are_checked(glass):
 @pytest.mark.parametrize("kw,what", [
     (dict(peel_mode="multipass"), "by decision"),
     (dict(backend="scan"), "by decision"),
-    (dict(mipmap=True), "slice 3"),
-    (dict(lighting=True), "slice 3"),
 ])
 def test_unported_peel_options_raise(glass, kw, what):
     with pytest.raises(NotImplementedError, match=what):
@@ -505,11 +503,6 @@ def test_unported_split_and_measure_options_raise(glass):
     with pytest.raises(NotImplementedError, match="slice 6"):
         td.measure_live_tap_tiles(ts, vp, None, width=W, height=H,
                                   layers=2, mode="split", bands=2)
-    for kw in (dict(mipmap=True), dict(light=(0.0, 0.0, 1.0))):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            td._split_peel_flat(ts, None, None, pw=W, ph=H, layers=2,
-                                maxc=8, tap_tiles=None,
-                                clear_color=(255,) * 4, **kw)
 
 
 # ------------------------------------------------------------------ (h)

@@ -33,6 +33,7 @@ from jax.experimental import pallas as pl
 from mt_renderer_tpu.render import device as jd
 from mt_renderer_tpu.render import pallas_raster as pr
 from mt_renderer_tpu.scene import demo
+from mt_renderer_tpu_torch import entry
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.tools import bilin_ab, raster_roofline
@@ -233,8 +234,15 @@ def test_pair_counts_match_jax_tool(jax_roofline, monkeypatch):
 
 
 def test_roofline_presets():
-    with pytest.raises(NotImplementedError, match="rest of slices 2 and 3.*skeleton.py"):
-        raster_roofline.build("world", "cpu")
+    """The world preset is the reference tool's: 280 buildings of
+    subdivisions (4, 6, 8, 10, 12), the characters posed at scheduler
+    frame 0.5, the world camera's yaw stepping 3 degrees, K1 in mtap."""
+    case, vps, bones, mode = raster_roofline.build("world", "cpu", views=2)
+    assert isinstance(case, entry.WorldCase) and mode == "mtap"
+    assert case.world.info["buildings"] == 280
+    assert len(vps) == 2 and not np.array_equal(vps[0], vps[1])
+    np.testing.assert_array_equal(bones, case.bone_mats(0.5))
+    assert bones.shape == (case.batch.inverse_bind_mats.shape[0], 4, 4)
     with pytest.raises(ValueError, match="unknown preset"):
         raster_roofline.build("nope", "cpu")
 
