@@ -28,7 +28,12 @@ on failure:
 3. K1 against its plain PyTorch version on the card at the headline
    shapes: winner ids, tap addresses and coverage equal, z and the tap
    planes within 2 ulp (bit-equal is expected: both are built without
-   FMA contraction); both timed with CUDA events;
+   FMA contraction); both timed with CUDA events; and K1's breakdown
+   line (its time with every chunk count zeroed and with no winner, so
+   no coefficient gathers, CTAs per SM, the per-tile pair tail against a
+   CTA's share, the surviving (triangle, warp) pairs of its cull's plain
+   twin, and a check that every winner survived its warp's cull),
+   printed again at phases 9 and 13;
 4. the fixture golden (96x96, ``tests/golden/fixture_scene_96.npz``)
    under the golden rule (at most 0.3% of pixels with a channel off by
    more than 1);
@@ -72,17 +77,24 @@ on failure:
     frame's palette computed on the card by ``bone_mats_device``; frame
     0's palette and frame equal, bit for bit, to the host palette's; K1
     (mtap) against its plain version on frame 0's inputs;
-14. K3 against its plain version and the roofline on ``default`` (2
-    views) and ``world`` (8 views); K4 against its plain version and the
-    bilinear A/B.
+14. K3 against its plain version on a chunk that covers nothing of its
+    tile and on two that cover it, then timed over the full grid; the
+    roofline on ``default`` (2 views), whose rates line gives K3's two
+    rates (ns per (group, warp) cull test, ns per surviving (triangle,
+    warp)), and on ``world`` (8 views) at those rates; K4 against its
+    plain version and the bilinear A/B.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Prints the card's name and power limit, then every
 kernel's record (its launches on its main path, its error against the
 plain version, its time, the plain version's time and the bound: the
 larger of its bytes over HBM bandwidth and its f32 operations over the
-f32 peak, both from NVIDIA's H100 SXM data sheet) as one JSON line
-before the last, and as its last line ``{"ok": true, "device": {...}}``.
+f32 peak, both from NVIDIA's H100 SXM data sheet, K1's operations its
+cull tests and its surviving pairs' pixels; K1's records also its
+surviving pairs, the earlier every-binned-pair bound, the zero-count
+and no-winner times and the floor at K3's rates) as one JSON line
+before the last, and as its last line ``{"ok": true, "device":
+{...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
 """
 
@@ -114,7 +126,7 @@ MIP = dict(HEADLINE, pool_mode="tri")
 GLASS_MIP = dict(GLASS, pool_mode="tri")
 WORLD = dict(buildings=280, building_subdivs=(4, 6, 8, 10, 12),
              width=1920, height=1080)       # the bench's world row
-MICRO_REPS = 16             # reps of the timed one-CTA probe against its twin
+MICRO_REPS = 16             # reps of the timed probe against its twin
 VERIFY_LEG = dict(instances=9, subdiv=2, width=256, height=256)
 LAYERS = 4                  # the glass preset's peel depth
 FRAMES = 20
@@ -124,6 +136,8 @@ ULP_TOL = 2
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 PLANE_OPS = 16              # 3 edge functions + the z plane, 2 mul + 2 add
+CULL_OPS = 12               # a (triangle, warp) cull test: 3 corner edge
+                            # functions, 2 mul + 2 add each
 
 
 def log(msg: str) -> None:
@@ -193,18 +207,88 @@ def binned_pairs(lists, glists) -> int:
     return sum(int(((g >> k) & 1).sum()) for k in range(rs.G))
 
 
-def raster_bound(args, outs, zhi=None) -> dict:
-    """A raster kernel's bound on these inputs: every binned (triangle,
-    pixel) pair evaluates three edge functions and the z plane
-    (PLANE_OPS f32 operations); each input read once, each output
-    written once."""
+def raster_bound(args, outs, zhi=None, surviving=None) -> dict:
+    """A raster kernel's bound on these inputs: each input read once,
+    each output written once, and the f32 operations its work needs. K2
+    evaluates three edge functions and the z plane (PLANE_OPS) at every
+    binned (triangle, pixel) pair. K1 (``surviving`` given: its cull's
+    surviving (triangle, warp) pairs on these inputs) runs one cull test
+    (CULL_OPS) per binned (triangle, warp) pair and evaluates the planes
+    only at the pixels of the surviving pairs; its ``binned_bound_ms``
+    keeps the every-binned-pair figure of the earlier design's
+    records."""
     from mt_renderer_tpu_torch.render import raster as rs
 
     cols, lists, glists, counts = args[:4]
     pairs = binned_pairs(lists, glists)
-    return dict(pairs=pairs, **bound(
-        nbytes(cols, lists, glists, counts, zhi, *outs),
-        pairs * rs.KG * rs.P * PLANE_OPS))
+    n_bytes = nbytes(cols, lists, glists, counts, zhi, *outs)
+    binned = bound(n_bytes, pairs * rs.KG * rs.P * PLANE_OPS)
+    if surviving is None:
+        return dict(pairs=pairs, **binned)
+    return dict(pairs=pairs, binned_bound_ms=binned["bound_ms"], **bound(
+        n_bytes, pairs * rs.WARPS * rs.KG * CULL_OPS
+        + surviving * rs.WARP_W * rs.WARP_H * PLANE_OPS))
+
+
+def k1_breakdown(args, kw, got, what: str) -> dict:
+    """K1's breakdown and bound on these inputs, logged as one line: its
+    time with every chunk count set to 0 (launch, epilogue without
+    gathers, output writes) and with no winner (every z plane at -1:
+    the same cull and evaluation, no coefficient gathers; the difference
+    to K1's time prices the gathers), its CTAs per SM, the per-tile live
+    pairs' maximum against a CTA's share, and the surviving (triangle,
+    warp) pairs of its cull (``raster.warp_cull_reference``, checked
+    against the kernel: every pixel the kernel covers lies in a warp that
+    kept its winner), as ``tools.raster_roofline`` reads them. → the
+    surviving count, both times and ``raster_bound``."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import raster as rs
+    from mt_renderer_tpu_torch.tools import raster_roofline as rr
+
+    cols, lists, glists, counts, origin = args
+    dev = cols.device
+    empty = torch.zeros_like(counts)
+    empty_ms = cuda_ms(lambda: rs.raster_fwd(cols, lists, glists, empty,
+                                             origin, **kw))
+    nowin = rr.no_winner(cols)
+    nowin_ms = cuda_ms(lambda: rs.raster_fwd(nowin, lists, glists, counts,
+                                             origin, **kw))
+    del nowin
+    bps = rs.blocks_per_sm(dev)
+    resident = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * bps
+    hist = rr.pair_histogram(rr.tile_pairs(lists, glists, counts), resident,
+                             rs.PARTS)
+    live = rs.warp_cull_reference(cols, lists, glists, counts, origin,
+                                  width=kw["width"], height=kw["height"])
+    surviving = int(live.sum())
+    # every covered pixel's winner survived its warp's cull
+    ib = got[1][:, 0, :]
+    n_tiles = ib.shape[0]
+    wp = torch.arange(rs.P, device=dev)
+    row, col = wp // rs.TILE_W, wp % rs.TILE_W
+    warp = ((col // rs.PART_W) * (rs.WARPS // rs.PARTS)
+            + (row // rs.WARP_H) * (rs.PART_W // rs.WARP_W)
+            + (col % rs.PART_W) // rs.WARP_W)
+    win = ib.clamp(min=0).long()
+    slot = (lists[:, :, None] == (win // rs.CT)[:, None, :]).int().argmax(1)
+    ok = live[torch.arange(n_tiles, device=dev)[:, None], slot,
+              (win % rs.CT) // rs.KG, warp[None, :], win % rs.KG]
+    n_bad = int(((ib >= 0) & ~ok).sum())
+    log(f"K1 breakdown, {what}: counts=0 {empty_ms!r} ms; no winner "
+        f"{nowin_ms!r} ms; {bps} CTAs per "
+        f"SM ({resident} resident, {rs.PARTS} per tile); pairs "
+        f"{hist['pairs']} over {hist['live_tiles']} tiles, max "
+        f"{hist['max']}, p90 {hist['p90']!r}, mean {hist['mean']!r}, a "
+        f"CTA's share {hist['share']!r}, heaviest/share "
+        f"{hist['heavy_over_share']!r}; surviving (triangle, warp) "
+        f"{surviving} of {hist['pairs'] * rs.WARPS * rs.KG} binned; "
+        f"winners outside their warp's live mask: {n_bad}")
+    if n_bad:
+        raise AssertionError(f"{what}: a winner the cull twin rejects")
+    return dict(surviving=surviving, empty_ms=empty_ms, nowin_ms=nowin_ms,
+                **raster_bound(args[:4], got, surviving=surviving))
 
 
 def phase_device() -> dict:
@@ -334,7 +418,7 @@ def phase_kernel(case: dict) -> dict:
     log(f"raster_kernel_ms {kernel_ms!r}")
     log(f"raster_plain_ms {plain_ms!r}")
     return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-                **raster_bound(args, got))
+                **k1_breakdown(args, kw, got, "headline, tap"))
 
 
 def phase_golden(device) -> None:
@@ -651,7 +735,8 @@ def phase_mip_kernel(case: dict) -> dict:
         if scene is case["scene"]:
             kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
             plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw))
-            bnd = raster_bound(args, got)
+            bnd = k1_breakdown(args, kw, got,
+                               "mip+light headline, mtap + lit")
     log(f"raster_mtap_lit_kernel_ms {kernel_ms!r}")
     log(f"raster_mtap_lit_plain_ms {plain_ms!r}")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
@@ -791,7 +876,7 @@ def phase_world_main(device) -> dict:
     torch.cuda.synchronize()
     err = compare_outputs(got, want, f"K1 mtap vs plain, world frame 0, "
                           f"{cols.shape[1]} tris, maxc={lists.shape[1]}")
-    bnd = raster_bound(args, got)
+    bnd = k1_breakdown(args, kw, got, "world frame 0, mtap")
     del got, want
     kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
     plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
@@ -843,8 +928,9 @@ def phase_world_main(device) -> dict:
 
 
 def micro_check(chunk, what: str) -> tuple:
-    """K3 (every CTA, 4 reps) against its plain version on one chunk's
-    columns → (max abs error, coverage); raises if any row differs."""
+    """K3 (every row of the card's grid, 4 reps) against its plain
+    version on one chunk's columns → (max abs error, coverage); raises
+    if any row differs."""
     import torch
 
     from mt_renderer_tpu_torch.render import raster as rs
@@ -852,15 +938,15 @@ def micro_check(chunk, what: str) -> tuple:
     got = rs.raster_micro(chunk, 4, rs.N_COEF)
     want = rs.raster_micro_reference(chunk, 4, rs.N_COEF)
     torch.cuda.synchronize()
-    ctas = got[0].shape[0]
+    rows = got[0].shape[0]
     n_bad = sum(int((g != w.expand_as(g)).any(-1).any(-1).sum())
                 for g, w in zip(got, want))
     cover = float((want[1] >= 0).float().mean())
     err = max(float(torch.where(torch.isfinite(w), g - w, 0).abs().max())
               for g, w in ((got[0], want[0]), (got[2], want[2])))
-    log(f"K3 vs plain, {what}, 4 reps, {ctas} CTAs "
-        f"({rs.blocks_per_sm(chunk.device)} per SM): {n_bad} rows differ; "
-        f"coverage {cover:.4f}, max_abs_err {err!r}")
+    log(f"K3 vs plain, {what}, 4 reps, {rows} rows of {rs.PARTS} CTAs "
+        f"({rs.blocks_per_sm(chunk.device)} CTAs per SM): {n_bad} rows "
+        f"differ; coverage {cover:.4f}, max_abs_err {err!r}")
     if n_bad:
         raise AssertionError(f"K3 disagrees with its plain version ({what})")
     return err, cover
@@ -868,47 +954,56 @@ def micro_check(chunk, what: str) -> tuple:
 
 def phase_micro(case: dict) -> dict:
     """K3 against its plain version on chunk 0 of the headline setup
-    (the roofline path's input; it covers nothing of the probe's tile)
-    and on chunk 0 of the 4-instance demo scene at a 128x16 viewport
-    (which does); then one CTA against the twin on the headline chunk,
-    timed at MICRO_REPS reps."""
-    from mt_renderer_tpu_torch.entry import demo_case
-    from mt_renderer_tpu_torch.render import device as dv
+    (it covers nothing of the probe's tile: the cull tests alone), on
+    chunk 0 of the 4-instance demo scene at 128x16 (which covers part of
+    it) and on the roofline's full-cover chunk (every triangle covers
+    all of it); then the full grid (``raster.card_rows``, K1's
+    occupancy) on the full-cover chunk, timed at MICRO_REPS reps against
+    the plain version of the same rows, and priced on that grid's work:
+    per rep and row 12 x WARPS cull tests of 32 triangles (CULL_OPS
+    each) and the surviving (triangle, warp) pairs' 256 pixels
+    (PLANE_OPS each)."""
     from mt_renderer_tpu_torch.render import raster as rs
+    from mt_renderer_tpu_torch.tools import raster_roofline as rr
 
-    def chunk0(scene, vp, bones, width, height):
-        cols, _ = dv.setup_packed_cols(scene, dv.vertex_stage(scene, vp,
-                                                              bones),
-                                       width, height)
-        return cols[:, :rs.CT].contiguous()
-
-    chunk = chunk0(case["scene"], case["vp"], case["bones"], case["width"],
-                   case["height"])
+    chunk = rr.chunk0(case["scene"], case["vp"], case["bones"],
+                      case["width"], case["height"])
     err, _ = micro_check(chunk, "chunk 0 of the headline")
-    small = demo_case(chunk.device, instances=4, subdiv=1, width=rs.TILE_W,
-                      height=rs.TILE_H)
-    err_s, cover = micro_check(
-        chunk0(small.scene, small.view_proj(), small.bone_mats(0.3),
-               rs.TILE_W, rs.TILE_H), "chunk 0 of 4 instances at 128x16")
-    if not cover > 0.0:
+    err_s, cover = micro_check(rr.covering_chunk(chunk.device),
+                               "chunk 0 of 4 instances at 128x16")
+    cover_chunk = rr.full_cover_chunk(chunk.device)
+    err_d, cover_d = micro_check(cover_chunk, "the full-cover chunk")
+    if not min(cover, cover_d) > 0.0:
         raise AssertionError("K3's covering check covers no pixel")
-    kernel_ms = cuda_ms(lambda: rs.raster_micro(chunk, MICRO_REPS, rs.N_COEF,
-                                                ctas=1))
-    plain_ms = cuda_ms(lambda: rs.raster_micro_reference(
-        chunk, MICRO_REPS, rs.N_COEF), warmup=1, reps=5)
-    log(f"raster_micro_kernel_ms (1 CTA, {MICRO_REPS} reps) {kernel_ms!r}")
-    log(f"raster_micro_plain_ms ({MICRO_REPS} reps) {plain_ms!r}")
-    # one CTA: reps x 12 groups x 32 triangles x 2048 pixels, ungated
-    out_bytes = rs.P * 4 * (2 + rs.N_COEF)
-    return dict(max_abs_err=max(err, err_s), ms=kernel_ms, plain_ms=plain_ms,
-                **bound(nbytes(chunk) + out_bytes,
-                        MICRO_REPS * rs.G * rs.KG * rs.P * PLANE_OPS))
+    rows = rs.card_rows(chunk.device)
+    surv = rr.probe_surviving(cover_chunk)
+    kernel_ms = cuda_ms(lambda: rs.raster_micro(cover_chunk, MICRO_REPS,
+                                                rs.N_COEF))
+
+    def plain():
+        return [x.expand(rows, -1, -1).contiguous()
+                for x in rs.raster_micro_reference(cover_chunk, MICRO_REPS,
+                                                   rs.N_COEF)]
+
+    plain_ms = cuda_ms(plain, warmup=1, reps=5)
+    log(f"raster_micro_kernel_ms ({rows} rows, {MICRO_REPS} reps, full-"
+        f"cover chunk, {surv} surviving (triangle, warp) a rep) "
+        f"{kernel_ms!r}")
+    log(f"raster_micro_plain_ms (one row, broadcast to {rows}) {plain_ms!r}")
+    out_bytes = rows * rs.P * 4 * (2 + rs.N_COEF)
+    ops = rows * MICRO_REPS * (rs.G * rs.WARPS * rs.KG * CULL_OPS
+                               + surv * rs.WARP_W * rs.WARP_H * PLANE_OPS)
+    return dict(max_abs_err=max(err, err_s, err_d), ms=kernel_ms,
+                plain_ms=plain_ms,
+                rows=rows, surviving=surv,
+                **bound(nbytes(cover_chunk) + out_bytes, ops))
 
 
 def phase_roofline(device) -> dict:
     """The roofline path on its default preset, shortened to 2 views and
-    3 repeats → K3's launch count of this run and the readings; then the
-    world preset, 8 views, priced at the default's SOL."""
+    3 repeats → K3's launch count of this run and the readings (K3's two
+    rates among them); then the world preset, 8 views, priced at the
+    default's rates."""
     from mt_renderer_tpu_torch.render import raster as rs
     from mt_renderer_tpu_torch.tools import raster_roofline
 
@@ -916,10 +1011,11 @@ def phase_roofline(device) -> dict:
     r = raster_roofline.roofline("default", device, views=2, repeats=3)
     launches = rs.raster_micro.launches
     log(f"roofline path: K3 launches {launches}, K1 launches "
-        f"{rs.raster_fwd.launches}; SOL {r['sol']!r} ns/pair over "
-        f"{r['ctas']} CTAs")
+        f"{rs.raster_fwd.launches}")
+    log(raster_roofline.rates_line(r["sol"]))
     log(raster_roofline.summary_line(r))
-    if launches < 1 or not 0.0 < r["util"] < 10.0:
+    if (launches < 1 or not 0.0 < r["util"] < 10.0
+            or not r["sol"]["eval_ns"] > 0.0):
         raise AssertionError("the roofline path did not run K3 or read "
                              "no utilization")
     world = raster_roofline.roofline("world", device, views=8, repeats=3,
@@ -999,6 +1095,9 @@ def main() -> int:
     k3 = phase_micro(case)
     roof = phase_roofline(device)
     k4 = phase_bilin(device)
+    from mt_renderer_tpu_torch.render import raster as rs
+    from mt_renderer_tpu_torch.tools import raster_roofline
+
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
     def record(name, source, replaces, launches, reading, **extra):
@@ -1007,12 +1106,23 @@ def main() -> int:
                     **{k: reading[k] for k in fields}, library_ms=None,
                     **extra)
 
+    sol = roof["sol"]
+
     def raster_record(name, variant, launches, reading):
-        src, rep = ((KERNEL_SOURCE, KERNEL_REPLACES) if name == "raster_fwd"
-                    else (ML_KERNEL_SOURCE, ML_KERNEL_REPLACES))
-        return record(name, src, rep, launches, reading, variant=variant,
-                      pairs=reading["pairs"],
-                      floor_at_sol_ms=reading["pairs"] * roof["sol"] / 1e6)
+        if name == "raster_fwd":     # K1: its cull tests and survivors
+            return record(name, KERNEL_SOURCE, KERNEL_REPLACES, launches,
+                          reading, variant=variant, pairs=reading["pairs"],
+                          surviving=reading["surviving"],
+                          binned_bound_ms=reading["binned_bound_ms"],
+                          empty_ms=reading["empty_ms"],
+                          nowin_ms=reading["nowin_ms"],
+                          floor_ms=raster_roofline.floor_ms(
+                              reading["pairs"], reading["surviving"], sol))
+        # K2 evaluates every binned (triangle, warp) pair
+        return record(name, ML_KERNEL_SOURCE, ML_KERNEL_REPLACES, launches,
+                      reading, variant=variant, pairs=reading["pairs"],
+                      floor_ms=reading["pairs"] * rs.KG * rs.WARPS
+                      * sol["eval_ns"] / 1e6)
 
     records = [
         raster_record("raster_fwd", "tap", main_run["launches"], k1),
@@ -1023,7 +1133,9 @@ def main() -> int:
         raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
                       k2_mip),
         record("raster_micro", MICRO_SOURCE, MICRO_REPLACES,
-               roof["launches"], k3),
+               roof["launches"], k3, rows=k3["rows"],
+               surviving=k3["surviving"], test_ns=sol["test_ns"],
+               eval_ns=sol["eval_ns"]),
         record("bilin_swar", SWAR_SOURCE, SWAR_REPLACES, k4["launches"], k4),
     ]
     for rec in records:

@@ -6,29 +6,36 @@
 // _epilogue_rows, lit or unlit), on every path but zlow (the multipass
 // peel's input, not ported by decision).
 //
-// What bounds it: f32 ALU work over the binned (triangle, pixel) pairs:
-// three edge functions and one depth plane per pair. The 1080p frame of
-// the 196,608-triangle demo scene binds 4,520 live (tile, group) pairs
-// after the group-mask skip, i.e. about 0.3 G (triangle, pixel) pairs
-// (the count pallas_raster.py:62-67 gives for the same binning). Bytes
-// are small next to that: each live 32-triangle group is 15 columns x
-// 32 floats, read once per tile.
+// What bounds it: the f32 work over binned (triangle, pixel) pairs (three
+// edge functions and a depth plane each) would, but most of those pairs
+// are provably empty: half the triangles are back-facing or clipped
+// (REJECT bias) and a triangle's group bbox is far larger than the
+// pixels it covers. So the design evaluates fewer pairs, and what is
+// left is the latency of the chunk loads and the epilogue's writes.
 //
-// Design, and all of it: one CTA per 16x128 tile, 256 threads, 8 pixels
-// per thread with the running (z, winner id) pair in registers. For each
-// chunk of the tile's list, the 15 raster columns of the live groups
-// (bit g of the tile's group mask) are staged into shared memory with
-// coalesced loads from the column-major (ncol, Tp) matrix; groups whose
-// bit is clear are neither loaded nor evaluated. The group body is
-// raster_group.cuh, which the speed-of-light probe K3 (raster_micro.cu)
-// runs too. The epilogue (tap_epilogue.cuh, shared with K2) loads the
-// winner's 18 (27 lit) coefficient columns by global id (no one-hot
-// select) and evaluates the tap or mtap planes. Uncovered pixels evaluate
-// zero coefficients, as the reference does.
+// Design (the layout and group body are raster_group.cuh's, which the
+// probe K3 runs too):
+// - PARTS (4) CTAs of 64 threads per 16x128 tile, each owning a 16x32
+//   part: two warps of 32x8 pixels, 8 per lane, the running (z, winner
+//   id) pair in registers. Each CTA walks its tile's whole list, so a
+//   heavy tile's arithmetic spreads over four SMs and no merge is needed.
+//   (On an H100 at 700 W, four quarter-tile CTAs ran about 18% faster
+//   than two half-tile ones and about 40% faster than one full-tile CTA;
+//   PERF.md has the sweep.)
+// - The tile's live (chunk, group) pairs (bit g of the group mask) form
+//   one stream. Each pair's 15 raster columns (1,920 bytes) are copied
+//   with cp.async into a RING-slot ring in shared memory, RING - 1 pairs
+//   ahead of the pair being rastered; one barrier per pair.
+// - Each warp culls the group against its 32x8 rectangle exactly (one
+//   triangle per lane, then a ballot) and evaluates only the survivors.
+// - The epilogue (tap_epilogue.cuh, shared with K2) loads the winner's 18
+//   (27 lit) coefficient columns by global id and evaluates the tap or
+//   mtap planes; uncovered pixels evaluate zero coefficients, as the
+//   reference does.
 //
 // Built with -fmad=false so every a*x + b*y + c rounds like the plain
-// PyTorch version's separate ops. TMA, cp.async double buffering and
-// warp specialisation are left for later work.
+// PyTorch version's separate ops (and the cull's corner evaluation like
+// its plain twin's).
 
 #include "raster_group.cuh"
 
@@ -36,8 +43,65 @@ namespace {
 
 using namespace mtr;
 
+constexpr int RING = 12;                     // staged pairs in flight + 1
+constexpr int STAGE_SEGS = NRAST * KG / 4;   // 16-byte copies per pair
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Walks a tile's live (list slot, group) pairs in list order, ascending
+// groups within a slot. Every thread of the CTA walks the same pairs.
+struct PairCursor {
+  int s = -1;
+  unsigned m = 0;
+
+  __device__ __forceinline__ bool next(int count,
+                                       const int* __restrict__ gmasks,
+                                       int& slot, int& g) {
+    while (m == 0) {
+      if (++s >= count) {
+        s = count;
+        return false;
+      }
+      m = (unsigned)__ldg(gmasks + s) & GROUP_BITS;
+    }
+    g = __ffs(m) - 1;
+    m &= m - 1;
+    slot = s;
+    return true;
+  }
+};
+
+// Starts the copy of the cursor's next pair into `dst`, if there is one.
+__device__ __forceinline__ void stage_next(
+    PairCursor& cur, int count, const int* __restrict__ list,
+    const int* __restrict__ gmasks, const float* __restrict__ cols, int tp,
+    float (*dst)[KG]) {
+  int s, g;
+  if (!cur.next(count, gmasks, s, g)) return;
+  const float* src = cols + (size_t)__ldg(list + s) * CT + g * KG;
+  for (int i = threadIdx.x; i < STAGE_SEGS; i += K1_THREADS) {
+    const int r = i / (KG / 4);
+    const int q = i % (KG / 4);
+    cp_async16(&dst[r][4 * q], src + (size_t)r * tp + 4 * q);
+  }
+}
+
 template <int MODE, bool LIT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(K1_THREADS)
 raster_fwd_kernel(const float* __restrict__ cols, int tp,
                   const int* __restrict__ lists,
                   const int* __restrict__ glists,
@@ -46,56 +110,57 @@ raster_fwd_kernel(const float* __restrict__ cols, int tp,
                   float* __restrict__ zb_out, int* __restrict__ ib_out,
                   float* __restrict__ attrs_out,
                   int* __restrict__ tapidx_out) {
-  __shared__ float s_cols[NRAST][CT];
+  __shared__ __align__(16) float s_ring[RING][NRAST][KG];
 
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float px0 = (float)((t % n_tx) * TILE_W + x0);
-  const float py0 = (float)((t / n_tx) * TILE_H + y0);
-  // pixel p = tid + j * THREADS of the flattened (TILE_H, TILE_W) tile
-  const float px = (float)(tid % TILE_W) + (px0 + 0.5f);
-  float py[PPT];
-  float zbest[PPT];
-  int wid[PPT];
+  const int t = blockIdx.x / PARTS;
+  const WarpPixels w = warp_pixels(blockIdx.x % PARTS,
+                                   (float)((t % n_tx) * TILE_W + x0),
+                                   (float)((t / n_tx) * TILE_H + y0));
+  float zbest[K1_PPT];
+  int wid[K1_PPT];
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    py[j] = (float)(tid / TILE_W + j * ROWS_PER_PASS) + (py0 + 0.5f);
+  for (int j = 0; j < K1_PPT; ++j) {
     zbest[j] = INFINITY;
     wid[j] = -1;
   }
 
   const int count = counts[t];
-  for (int s = 0; s < count; ++s) {
-    const int cid = lists[t * maxc + s];
-    const int gmask = glists[t * maxc + s];
-    const float* chunk = cols + (size_t)cid * CT;
-    for (int i = tid; i < NRAST * CT; i += THREADS) {
-      const int c = i / CT;
-      const int k = i - c * CT;
-      if ((gmask >> (k / KG)) & 1) s_cols[c][k] = chunk[(size_t)c * tp + k];
-    }
-    __syncthreads();
-    for (int g = 0; g < G; ++g) {
-      if (!((gmask >> g) & 1)) continue;       // uniform over the CTA
-      raster_group(s_cols, g, cid, px, py, zbest, wid);
-    }
-    __syncthreads();
+  const int* list = lists + (size_t)t * maxc;
+  const int* gmasks = glists + (size_t)t * maxc;
+  PairCursor prod, cons;
+  for (int i = 0; i < RING - 1; ++i) {
+    stage_next(prod, count, list, gmasks, cols, tp, s_ring[i]);
+    cp_async_commit();
   }
+  for (int i = 0;; ++i) {
+    int s, g;
+    if (!cons.next(count, gmasks, s, g)) break;     // uniform over the CTA
+    cp_async_wait<RING - 2>();                       // pair i has landed
+    __syncthreads();                                 // ... for every thread,
+                                                     // and pair i - 1's slot
+                                                     // is free
+    stage_next(prod, count, list, gmasks, cols, tp,
+               s_ring[(i + RING - 1) % RING]);
+    cp_async_commit();
+    raster_group(s_ring[i % RING], __ldg(list + s) * CT + g * KG, w, zbest,
+                 wid);
+  }
+  cp_async_wait<0>();
 
   constexpr int NPLANES = MODE == TAP ? NTAP : NMTAP;
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int p = tid + j * THREADS;
-    const int w = wid[j];
+  for (int j = 0; j < K1_PPT; ++j) {
+    const int p = w.p0 + j * TILE_W;
+    const int id = wid[j];
     const size_t o = (size_t)t * P + p;
-    zb_out[o] = w >= 0 ? zbest[j] : 1.0f;
-    ib_out[o] = w;
+    zb_out[o] = id >= 0 ? zbest[j] : 1.0f;
+    ib_out[o] = id;
     float* ta = attrs_out + (size_t)t * NPLANES * P + p;
     if constexpr (MODE == TAP)
-      tap_epilogue<LIT>(cols, tp, w, px, py[j], w_eps, light, ta,
+      tap_epilogue<LIT>(cols, tp, id, w.px, w.py[j], w_eps, light, ta,
                         tapidx_out + o);
     else
-      mtap_epilogue<LIT>(cols, tp, w, px, py[j], w_eps, light, ta);
+      mtap_epilogue<LIT>(cols, tp, id, w.px, w.py[j], w_eps, light, ta);
   }
 }
 
@@ -105,7 +170,7 @@ cudaError_t launch(const float* cols, int tp, const int* lists,
                    int maxc, int n_tx, int x0, int y0, float w_eps,
                    Light light, float* zb, int* ib, float* attrs,
                    int* tapidx, cudaStream_t stream) {
-  raster_fwd_kernel<MODE, LIT><<<n_tiles, THREADS, 0, stream>>>(
+  raster_fwd_kernel<MODE, LIT><<<n_tiles * PARTS, K1_THREADS, 0, stream>>>(
       cols, tp, lists, glists, counts, maxc, n_tx, x0, y0, w_eps, light, zb,
       ib, attrs, tapidx);
   return cudaGetLastError();
@@ -114,13 +179,13 @@ cudaError_t launch(const float* cols, int tp, const int* lists,
 }  // namespace
 
 // cols (ncol >= 33, or 42 when lit, tp) f32 column-major per-triangle
-// setup; lists and glists (n_tiles, maxc) i32; counts (n_tiles,) i32;
-// mode 0 = tap, 1 = mtap; lit != 0 folds the lambert factor of the unit
-// light (lx, ly, lz) into C rgb. Outputs are tile-major: zb f32 and ib
-// i32 (n_tiles, 2048), attrs f32 (n_tiles, 6 or 17, 2048), tapidx i32
-// (n_tiles, 2048) in tap mode (unused, may be null, in mtap mode).
-// Launches on ``stream`` and returns the launch status; does not
-// synchronise.
+// setup, 16-byte aligned; lists and glists (n_tiles, maxc) i32; counts
+// (n_tiles,) i32; mode 0 = tap, 1 = mtap; lit != 0 folds the lambert
+// factor of the unit light (lx, ly, lz) into C rgb. Outputs are
+// tile-major: zb f32 and ib i32 (n_tiles, 2048), attrs f32 (n_tiles, 6
+// or 17, 2048), tapidx i32 (n_tiles, 2048) in tap mode (unused, may be
+// null, in mtap mode). Launches on ``stream`` and returns the launch
+// status; does not synchronise.
 extern "C" cudaError_t mtr_raster_fwd(
     const float* cols, int tp, const int* lists, const int* glists,
     const int* counts, int n_tiles, int maxc, int n_tx, int x0, int y0,
@@ -152,5 +217,5 @@ extern "C" cudaError_t mtr_raster_fwd(
 // the occupancy at which the probe K3 fills the card.
 extern "C" cudaError_t mtr_raster_fwd_blocks_per_sm(int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, raster_fwd_kernel<TAP, false>, THREADS, 0);
+      blocks, raster_fwd_kernel<TAP, false>, K1_THREADS, 0);
 }

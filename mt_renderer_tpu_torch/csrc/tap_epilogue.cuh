@@ -39,7 +39,8 @@ constexpr int TEX_ROW = NRAST + 9;   // tex column: integer = opaque
 constexpr int NTAP = 6;              // fx, fy, C rgba
 constexpr int NMTAP = 17;            // u, v, tex, off hi/lo, th, tw, C rgba,
                                      // U_x U_y V_x V_y Q_x Q_y over Q
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;         // K2's CTA: one tile (K1's layout is
+                                     // raster_group.cuh's)
 constexpr int PPT = P / THREADS;     // pixels per thread
 constexpr int ROWS_PER_PASS = THREADS / TILE_W;
 

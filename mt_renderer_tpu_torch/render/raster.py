@@ -32,6 +32,14 @@ tensors' device: a CPU tensor runs the plain PyTorch version
 ``raster_micro_reference``); a CUDA tensor launches the hand-written
 kernel (``csrc/raster_fwd.cu``, ``csrc/raster_fwd_ml.cu``,
 ``csrc/raster_micro.cu``) or raises.
+
+K1 and K3 run ``PARTS`` CTAs per tile, each with ``WARPS // PARTS``
+warps of ``WARP_W`` x ``WARP_H`` pixels, and every warp culls each
+group's triangles against its rectangle of pixel centers before it
+evaluates them. ``warp_cull_reference`` is that cull's plain twin: the
+tests hold it exact per edge and conservative against the per-pixel
+test, and the roofline counts the surviving (triangle, warp) pairs with
+it.
 """
 
 from __future__ import annotations
@@ -67,6 +75,14 @@ ATTRS_MTAP = 17          # mtap epilogue output planes: u, v, tex, off
 TEX_ROW = N_RAST + 9     # tex column: an integer value marks an opaque row
 MAX_LAYERS = 8           # K2 keeps 2..MAX_LAYERS fragments per pixel
 MODES = ("tap", "mtap")  # the raster kernels' epilogues
+PARTS = 4                # K1's and K3's CTAs per tile: 16x32 px each
+PART_W = TILE_W // PARTS
+WARP_W, WARP_H = 32, 8   # a K1 warp's pixel block; a lane owns a column
+WARPS = P // (WARP_W * WARP_H)   # K1 warps per tile, over its parts
+# csrc/raster_group.cuh fixes the same layout; each library built from it
+# is held to this copy at its first use (_check_layout)
+LAYOUT = (PARTS, WARP_W, WARP_H, 32 * WARPS // PARTS)
+_LAYOUT_CHECKED: set = set()
 
 
 # ------------------------------------------------------------------ binning
@@ -368,10 +384,28 @@ _ML_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _I,
 _MICRO_ARGS = [_P, _I, _I, _I, _I, _P, _P, _P, _P]
 
 
+def _check_layout(name: str) -> None:
+    """Raise unless kernel ``name``'s library (K1's or K3's) was built
+    with this module's CTA layout (LAYOUT); checked once per library."""
+    if name in _LAYOUT_CHECKED:
+        return
+    out = (ctypes.c_int * 4)()
+    _build.fn(name, "mtr_raster_layout",
+              [ctypes.POINTER(ctypes.c_int)])(out)
+    if tuple(out) != LAYOUT:
+        raise RuntimeError(f"{name} was built with the layout (PARTS, "
+                           f"WARP_W, WARP_H, threads) {tuple(out)}, this "
+                           f"module has {LAYOUT}")
+    _LAYOUT_CHECKED.add(name)
+
+
 def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
                      height, w_eps, mode, light):
+    _check_layout("raster_fwd")
     fn = _build.fn("raster_fwd", "mtr_raster_fwd", _FWD_ARGS)
     cols = cols.contiguous()
+    if cols.data_ptr() % 16:          # the kernel stages 16-byte copies
+        cols = cols.clone()
     lists = lists.contiguous()
     glists = glists.contiguous()
     counts = counts.contiguous()
@@ -488,12 +522,82 @@ def raster_fwd_reference(cols, lists, glists, counts, origin, *,
     return zb, win[:, None, :], torch.stack(planes, 1), tapidx[:, None, :]
 
 
+# ------------------------------------------------ K1's cull: the plain twin
+
+
+def warp_pixel_centers(width: int, height: int, origin, dev):
+    """The pixel centers of K1's warps → (px, py), each (n_tiles, WARPS,
+    WARP_W * WARP_H) f32. With n = WARPS // PARTS warps a part and m =
+    PART_W // WARP_W of them across it, warp w of a tile is warp i = w %
+    n of part w // n (whose PART_W columns start at PART_W * part); it
+    covers the part's columns WARP_W * (i % m) + [0, WARP_W) and rows
+    WARP_H * (i // m) + [0, WARP_H), as ``csrc/raster_group.cuh::
+    warp_pixels`` maps them."""
+    px, py = _pixel_centers(width, height, origin, dev)
+    n = px.shape[0]
+
+    def by_warp(x):
+        return (x.reshape(n, TILE_H // WARP_H, WARP_H, PARTS,
+                          PART_W // WARP_W, WARP_W)
+                .permute(0, 3, 1, 4, 2, 5)
+                .reshape(n, WARPS, WARP_H * WARP_W))
+
+    return by_warp(px), by_warp(py)
+
+
+def _edge_may_pass(a, b, c, bias, x0, x1, y0, y1):
+    """False only where no pixel center of the rectangle [x0, x1] x [y0,
+    y1] (its corners pixel centers) passes a*x + b*y + c > bias: the
+    value at the corner picked by the signs of a and b, rounded as the
+    pixels round it, is their largest (each rounding is monotone). K1's
+    cull, op for op (``csrc/raster_group.cuh::edge_may_pass``); a NaN
+    corner never rejects."""
+    m = a * torch.where(a >= 0.0, x1, x0) + b * torch.where(b >= 0.0, y1,
+                                                            y0) + c
+    return ~(m <= bias)
+
+
+def warp_cull_reference(cols, lists, glists, counts, origin, *, width: int,
+                        height: int):
+    """Plain PyTorch twin of K1's per-warp cull on ``raster_fwd``'s
+    inputs → live (n_tiles, maxc, G, WARPS, KG) bool: True where triangle
+    k of group g of the chunk in list slot s survives warp w's test (see
+    ``warp_pixel_centers`` for the warps); False for slots at or past a
+    tile's count and for groups whose mask bit is clear. The kernel
+    evaluates exactly the True entries, so ``live.sum()`` is the
+    surviving (triangle, warp) pairs of a launch. Not on the frame path:
+    the tests and the roofline's counts use it."""
+    _check_raster_args(cols, lists, glists, counts, width, height, 0)
+    dev = cols.device
+    n_tiles, maxc = lists.shape
+    px, py = warp_pixel_centers(width, height, origin, dev)
+    x0, x1 = px.amin(-1)[:, None, :], px.amax(-1)[:, None, :]
+    y0, y1 = py.amin(-1)[:, None, :], py.amax(-1)[:, None, :]
+    live = torch.zeros((n_tiles, maxc, G, WARPS, KG), dtype=torch.bool,
+                       device=dev)
+    kk = torch.arange(CT, device=dev)
+    gg = torch.arange(G, device=dev)
+    for s in range(int(counts.max()) if n_tiles else 0):
+        act = torch.nonzero(counts > s).squeeze(1)
+        ids = lists[act, s, None].long() * CT + kk              # (A, CT)
+        r = cols[:12][:, ids][..., None]                    # (12, A, CT, 1)
+        rect = (x0[act], x1[act], y0[act], y1[act])           # (A, 1, WARPS)
+        ok = (_edge_may_pass(r[0], r[3], r[6], r[9], *rect)
+              & _edge_may_pass(r[1], r[4], r[7], r[10], *rect)
+              & _edge_may_pass(r[2], r[5], r[8], r[11], *rect))
+        gbit = ((glists[act, s, None] >> gg) & 1) != 0         # (A, G)
+        live[act, s] = (ok.reshape(-1, G, KG, WARPS).transpose(2, 3)
+                        & gbit[:, :, None, None])
+    return live
+
+
 # ------------------------------------------------------ K3: the probe
 
 
 def blocks_per_sm(device) -> int:
-    """CTAs of K1 (unlit tap, the headline's instantiation) that one SM
-    of ``device`` holds at once."""
+    """CTAs of K1 (unlit tap, the headline's instantiation; PARTS of
+    them per tile) that one SM of ``device`` holds at once."""
+    _check_layout("raster_fwd")
     fn = _build.fn("raster_fwd", "mtr_raster_fwd_blocks_per_sm",
                    [ctypes.POINTER(ctypes.c_int)])
     out = ctypes.c_int(0)
@@ -504,52 +608,60 @@ def blocks_per_sm(device) -> int:
     return out.value
 
 
-def _check_micro_args(chunk_cols, reps, n_coef, ctas):
+def _check_micro_args(chunk_cols, reps, n_coef, rows):
     if (chunk_cols.dtype != torch.float32 or chunk_cols.dim() != 2
             or chunk_cols.shape[0] < N_RAST + n_coef
             or chunk_cols.shape[1] < CT):
         raise ValueError(f"chunk_cols must be f32 (>= {N_RAST + n_coef}, "
                          f">= {CT}), got {chunk_cols.dtype} "
                          f"{tuple(chunk_cols.shape)}")
-    if reps < 1 or n_coef < 0 or (ctas is not None and ctas < 1):
-        raise ValueError(f"bad reps={reps}, n_coef={n_coef}, ctas={ctas}")
+    if reps < 1 or n_coef < 0 or (rows is not None and rows < 1):
+        raise ValueError(f"bad reps={reps}, n_coef={n_coef}, rows={rows}")
 
 
-def raster_micro(chunk_cols, reps: int, n_coef: int, ctas: int | None = None):
+def card_rows(device) -> int:
+    """The probe's rows that fill every SM of ``device`` at K1's
+    occupancy: SMs x K1's CTAs per SM over the PARTS CTAs of a row."""
+    return (torch.cuda.get_device_properties(device).multi_processor_count
+            * blocks_per_sm(device) // PARTS)
+
+
+def raster_micro(chunk_cols, reps: int, n_coef: int, rows: int | None = None):
     """K1's speed-of-light probe (the counterpart of
-    ``tools/bench/raster_roofline.py::_micro``): K1's group body over one
-    16x128 tile with tile-local pixel centers, on the chunk whose setup
-    columns are ``chunk_cols`` (column-major (>= 15 + n_coef, >= 384)
-    f32, triangle k in column k), ``reps`` x 12 groups ungated, the loop
-    index passed as the chunk id (ids are rep * 384 + k).
+    ``tools/bench/raster_roofline.py::_micro``): K1's group body (the
+    per-warp cull, then the survivors' evaluation) over one 16x128 tile
+    with tile-local pixel centers, on the chunk whose setup columns are
+    ``chunk_cols`` (column-major (>= 15 + n_coef, >= 384) f32, triangle
+    k in column k), ``reps`` x 12 groups ungated, the loop index passed
+    as the chunk id (ids are rep * 384 + k).
 
-    Returns (z (ctas, 1, P) f32 with +inf where uncovered, id (ctas, 1,
-    P) i32 or -1, coef (ctas, n_coef, P) f32: the winner's first
+    Returns (z (rows, 1, P) f32 with +inf where uncovered, id (rows, 1,
+    P) i32 or -1, coef (rows, n_coef, P) f32: the winner's first
     ``n_coef`` coefficient columns, zero where uncovered). On the card
-    ``ctas`` identical CTAs each write one row (default: enough to fill
-    every SM at K1's occupancy); a CPU tensor runs
-    ``raster_micro_reference``, one row (``ctas`` must be None or 1).
-    A CUDA tensor launches ``csrc/raster_micro.cu`` (counted in
-    ``raster_micro.launches``) or raises."""
-    _check_micro_args(chunk_cols, reps, n_coef, ctas)
+    ``rows`` identical rows are computed, each by K1's PARTS CTAs
+    (default ``card_rows``: every SM filled at K1's occupancy); a CPU
+    tensor runs ``raster_micro_reference``, one row (``rows`` must be
+    None or 1). A CUDA tensor launches ``csrc/raster_micro.cu`` (counted
+    in ``raster_micro.launches``) or raises."""
+    _check_micro_args(chunk_cols, reps, n_coef, rows)
     dev = chunk_cols.device
     if dev.type == "cpu":
-        if ctas not in (None, 1):
-            raise ValueError("the plain probe computes one CTA's row")
+        if rows not in (None, 1):
+            raise ValueError("the plain probe computes one row")
         return raster_micro_reference(chunk_cols, reps, n_coef)
     if dev.type != "cuda":
         raise ValueError(f"raster_micro runs on CPU or CUDA, not {dev}")
-    if ctas is None:
-        ctas = (torch.cuda.get_device_properties(dev).multi_processor_count
-                * blocks_per_sm(dev))
+    if rows is None:
+        rows = card_rows(dev)
+    _check_layout("raster_micro")
     fn = _build.fn("raster_micro", "mtr_raster_micro", _MICRO_ARGS)
     cols = chunk_cols.contiguous()
-    z = torch.empty((ctas, 1, P), dtype=torch.float32, device=dev)
-    ids = torch.empty((ctas, 1, P), dtype=torch.int32, device=dev)
-    coef = torch.empty((ctas, n_coef, P), dtype=torch.float32, device=dev)
+    z = torch.empty((rows, 1, P), dtype=torch.float32, device=dev)
+    ids = torch.empty((rows, 1, P), dtype=torch.int32, device=dev)
+    coef = torch.empty((rows, n_coef, P), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(cols.data_ptr(), cols.shape[1], reps, n_coef, ctas,
+        err = fn(cols.data_ptr(), cols.shape[1], reps, n_coef, rows,
                  z.data_ptr(), ids.data_ptr(), coef.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_micro kernel launch failed: cudaError "

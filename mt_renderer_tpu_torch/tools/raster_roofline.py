@@ -1,27 +1,55 @@
 """Raster roofline on the card: how close K1 runs to its speed of light,
-and how far its binned work sits above the visible surface.
+how far its binned work sits above what it has to evaluate, and what
+the rest of its time is made of.
 
-    python -m mt_renderer_tpu_torch.tools.raster_roofline [default|dense ...]
+    python -m mt_renderer_tpu_torch.tools.raster_roofline [default|dense|world ...] [--k1]
 
-The counterpart of ``tools/bench/raster_roofline.py``, for the H100:
+The counterpart of ``tools/bench/raster_roofline.py``, for the H100.
+K1's group body (``csrc/raster_group.cuh``) first culls each group
+against each warp's 32x8 rectangle, then evaluates the survivors, so its
+work has two units and two rates:
 
-1. **Speed of light (SOL).** The probe kernel K3 (``raster.raster_micro``,
-   ``csrc/raster_micro.cu``) runs K1's group body (``csrc/
-   raster_group.cuh``, the very code K1 runs) on one chunk staged in
-   shared memory, with no chunk loads, group gates or binning, in enough
-   identical CTAs to fill every SM at K1's occupancy. SOL ns/pair is the
-   difference of its CUDA-event times at two rep counts over the
-   (group, tile) pairs the difference added: (r2 - r1) x 12 x ctas. It is
-   a card-wide rate, like K1's below.
-2. **Utilization.** K1's time (CUDA events around ``raster.raster_fwd``
-   alone, on prebinned inputs, the median over repeats of the mean over
-   the views) over its binned pairs is its ns/pair; SOL over that is its
-   utilization. The gap prices what surrounds the math: chunk loads,
-   the gates, the chunk loop, the epilogue, the tail of the grid.
-3. **Pair slack.** Binned pairs (the popcount of the tiles' group masks,
-   K1's unit of work) over winning pairs (distinct (tile, group) pairs
-   whose group wins at least one pixel): how much work perfect binning
-   could skip.
+1. **Rates (SOL).** The probe kernel K3 (``raster.raster_micro``,
+   ``csrc/raster_micro.cu``) runs that body on one chunk staged in
+   shared memory, with no chunk loads, group gates or binning, in
+   ``raster.card_rows`` identical rows that fill every SM at K1's
+   occupancy. Per rep and row it does 12 x ``raster.WARPS`` cull tests
+   (one per (group, warp)) and evaluates the surviving (triangle, warp)
+   pairs, counted by ``raster.warp_cull_reference``. It is timed on two
+   chunks: chunk 0 of the preset's first view, which covers nothing of
+   the probe's tile (cull tests alone), and ``full_cover_chunk``,
+   whose 384 triangles each cover the whole tile, so every (triangle,
+   warp) pair survives and every warp is busy: the evaluation at full
+   density, the fastest the body can go. (A scene's chunk crowds its
+   survivors into a few warps of the tile, and its rate is then the
+   latency of those warps, not the body's throughput.) Each time is the
+   difference of CUDA-event times at two rep counts over the reps and
+   rows that difference added; the two equations give ``test_ns`` per
+   (group, warp) and ``eval_ns`` per surviving (triangle, warp),
+   card-wide rates like K1's below.
+2. **K1's breakdown** (``k1_breakdown``), on each view's prebinned
+   inputs, CUDA events around ``raster.raster_fwd`` alone, the median
+   over repeats of the mean over the views: ``k1_ms``; ``empty_ms``,
+   every tile's chunk count 0 (the launch, the epilogue without
+   coefficient gathers, the output writes); ``nowin_ms``, every z plane
+   set to -1 (``no_winner``: the same chunk loads, cull and evaluation,
+   but no pixel is covered, so the epilogue gathers nothing); so
+   ``gather_ms`` = k1 - nowin prices the epilogue's coefficient gathers
+   and nowin - empty the loop. ``fill_ms`` is one ``zero_`` of K1's
+   output bytes (the card's own rate for those writes; K1 never calls
+   it). View 0's live (tile, group) pairs per tile give the heaviest
+   tile over a CTA's share: each of a tile's ``raster.PARTS`` CTAs
+   walks the tile's whole list, so a CTA's share is total pairs x parts
+   over the CTAs the card holds at once (SMs x ``raster.blocks_per_sm``).
+3. **Utilization.** ``k1_ms`` against its floor at the probe's rates:
+   live (group, warp) pairs (binned pairs x WARPS) x ``test_ns`` +
+   surviving (triangle, warp) pairs x ``eval_ns``. The gap prices what
+   surrounds the loop: chunk loads, the barriers, the epilogue, the tail
+   of the grid. K1's ns per binned (group, tile) pair is printed too, the
+   unit of the earlier design's speed of light.
+4. **Pair slack.** Binned pairs (the popcount of the tiles' group masks)
+   over winning pairs (distinct (tile, group) pairs whose group wins at
+   least one pixel): how much work perfect binning could skip.
 
 Presets: ``default``, the headline (the skinned demo scene, 1024
 instances at subdiv 4, 196,608 triangles, 1920x1080); ``dense``, the
@@ -30,19 +58,24 @@ same with the camera position scaled by 0.3 (inside the field); and
 ``building_subdivs=(4, 6, 8, 10, 12)``, the characters' palettes at
 scheduler frame 0.5, the world camera), whose K1 runs the mtap
 epilogue; eight views each, the yaw stepping 3 degrees. Prints the
-card, the SOL line and one summary line per preset. Refuses to run
-without a CUDA device.
+card, the rates line and one summary line per preset; with ``--k1``,
+only K1's breakdown line per preset (no probe, no cull counts: it runs
+on any checkout whose K1 takes ``raster_fwd``'s arguments). Refuses to
+run without a CUDA device.
 """
 
 from __future__ import annotations
 
 import sys
 
+import numpy as np
 import torch
 
+from ..app.camera import Camera
 from ..entry import demo_case, world_case
 from ..render import device as dv
 from ..render import raster as rs
+from ..scene.model import DrawBatch
 from . import card_line, cuda_times, median, require_cuda
 
 W, H = 1920, 1080
@@ -105,87 +138,267 @@ def pair_counts(scene, vps, bones, maxc: int) -> tuple[int, int]:
     return median(binned), median(winning)
 
 
-def raster_ms(scene, vps, bones, maxc: int, *, repeats: int = 5,
-              mode: str = "tap") -> float:
-    """K1's time in ms per frame with the ``mode`` epilogue: CUDA events
-    around ``raster_fwd`` alone on each view's prebinned inputs, the
-    median over ``repeats`` of the mean over the views."""
-    dev = require_cuda(scene.device)
-    runs = [_binned(scene, vp, bones, maxc) for vp in vps]
-
-    def call(i):
-        cols, pre, pw, ph = runs[i]
-        rs.raster_fwd(cols, *pre[:3], (0, 0), width=pw, height=ph,
-                      w_eps=dv.W_EPS, mode=mode)
-
-    return median(cuda_times(call, dev, repeats, calls=len(runs)))
+def surviving_pairs(scene, vps, bones, maxc: int) -> int:
+    """Median over the views of K1's surviving (triangle, warp) pairs:
+    the entries of ``raster.warp_cull_reference`` on each view's binned
+    inputs. A count: it runs on any device."""
+    out = []
+    for vp in vps:
+        cols, (lists, glists, counts, _), pw, ph = _binned(scene, vp,
+                                                           bones, maxc)
+        out.append(int(rs.warp_cull_reference(
+            cols, lists, glists, counts, (0, 0), width=pw,
+            height=ph).sum()))
+    return median(out)
 
 
-def sol_ns_per_pair(scene, vp, bones, *,
-                    repeats: int = 5) -> tuple[float, int]:
-    """(SOL ns per (group, tile) pair, CTAs) of K1's group body on chunk
-    0 of the view's setup: the median over ``repeats`` of the probe's
-    time at R2 reps less its time at R1, over (R2 - R1) x 12 x ctas."""
-    dev = require_cuda(scene.device)
+def probe_surviving(chunk) -> int:
+    """Surviving (triangle, warp) pairs of one rep of the probe K3 on
+    ``chunk``: its tile at the origin, the chunk once, every group."""
+    dev = chunk.device
+    one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    return int(rs.warp_cull_reference(
+        chunk[:, :rs.CT].contiguous(), one, one + (1 << rs.G) - 1,
+        torch.ones(1, dtype=torch.int32, device=dev), (0, 0),
+        width=rs.TILE_W, height=rs.TILE_H).sum())
+
+
+def chunk0(scene, vp, bones, width: int, height: int):
+    """The first chunk's columns of a view's setup at width x height."""
     cols, _ = dv.setup_packed_cols(scene, dv.vertex_stage(scene, vp, bones),
-                                   W, H)
-    chunk = cols[:, :rs.CT].contiguous()
-    ctas = (torch.cuda.get_device_properties(dev).multi_processor_count
-            * rs.blocks_per_sm(dev))
+                                   width, height)
+    return cols[:, :rs.CT].contiguous()
+
+
+def covering_chunk(device):
+    """Chunk 0 of the 4-instance demo scene at 128x16, which covers part
+    of the probe's tile (39 surviving (triangle, warp) pairs a rep)."""
+    small = demo_case(device, instances=4, subdiv=1, width=rs.TILE_W,
+                      height=rs.TILE_H)
+    return chunk0(small.scene, small.view_proj(), small.bone_mats(0.3),
+                  rs.TILE_W, rs.TILE_H)
+
+
+def full_cover_chunk(device, seed: int = 0):
+    """One chunk of 384 front-facing triangles, each far larger than the
+    probe's 128x16 view, at seeded depths between 2.2 and 4 units from
+    the camera, set up by the port's own upload, vertex and setup
+    stages: every pixel of the tile lies inside every triangle, so all
+    384 x WARPS (triangle, warp) pairs survive the cull."""
+    rng = np.random.default_rng(seed)
+    t = rs.CT
+    pos = np.tile(np.float32([[-50.0, -50.0, 0.0], [50.0, -50.0, 0.0],
+                              [0.0, 50.0, 0.0]]), (t, 1))
+    pos[:, 2] = np.repeat(rng.uniform(-1.0, 0.8, t), 3)
+    n = 3 * t
+    batch = DrawBatch(
+        positions=pos, uvs=np.zeros((n, 2), np.float32),
+        joints=np.zeros((n, 4), np.int32),
+        weights=np.zeros((n, 4), np.float32),
+        tris=np.arange(n, dtype=np.int32).reshape(t, 3),
+        tri_texture=np.zeros(t, np.int32), tri_parts=np.zeros(t, np.int32),
+        tri_debug_id=np.zeros(t, np.int32),
+        textures=[np.full((8, 8, 4), 255, np.uint8)])
+    cam = Camera(position=[0.0, 0.0, 3.0])
+    cam.aspect = rs.TILE_W / rs.TILE_H
+    scene = dv.upload(batch, device=device)
+    return chunk0(scene, np.asarray(cam.view_proj()), None, rs.TILE_W,
+                  rs.TILE_H)
+
+
+def probe_ns_per_rep(chunk, *, repeats: int = 5) -> float:
+    """Card-wide ns per (rep, row) of K3 on ``chunk``: the median over
+    ``repeats`` of its time at R2 reps less its time at R1, over (R2 -
+    R1) x rows."""
+    dev = require_cuda(chunk.device)
+    rows = rs.card_rows(dev)
     ests = []
     for _ in range(repeats):
         t1, t2 = (cuda_times(lambda _i, r=r: rs.raster_micro(
-            chunk, r, rs.N_COEF, ctas), dev, 1)[0] for r in (R1, R2))
-        ests.append((t2 - t1) * 1e6 / ((R2 - R1) * rs.G * ctas))
-    return median(ests), ctas
+            chunk, r, rs.N_COEF, rows), dev, 1)[0] for r in (R1, R2))
+        ests.append((t2 - t1) * 1e6 / ((R2 - R1) * rows))
+    return median(ests)
+
+
+def rates(scene, vp, bones, *, repeats: int = 5) -> dict:
+    """K1's two rates from the probe (see the module docstring): chunk 0
+    of the view at W x H (cull tests alone, where it covers nothing of
+    the probe's tile) and the covering chunk → test_ns per (group,
+    warp), eval_ns per surviving (triangle, warp), the counts and
+    times they come from."""
+    dev = require_cuda(scene.device)
+    tests = rs.G * rs.WARPS
+    chunks = (chunk0(scene, vp, bones, W, H), full_cover_chunk(dev))
+    (s_a, s_b) = (probe_surviving(c) for c in chunks)
+    t_a, t_b = (probe_ns_per_rep(c, repeats=repeats) for c in chunks)
+    if s_b <= s_a:
+        raise RuntimeError(f"the covering chunk leaves {s_b} survivors, "
+                           f"the empty one {s_a}: no rate to solve for")
+    eval_ns = (t_b - t_a) / (s_b - s_a)
+    return dict(test_ns=(t_a - s_a * eval_ns) / tests, eval_ns=eval_ns,
+                surviving_empty=s_a, surviving_cover=s_b,
+                ns_rep_empty=t_a, ns_rep_cover=t_b, rows=rs.card_rows(dev))
+
+
+def tile_pairs(lists, glists, counts):
+    """Live (tile, group) pairs per tile, (n_tiles,) i64: the popcount
+    of the group masks of the first ``counts`` list slots."""
+    slot = torch.arange(lists.shape[1], device=lists.device)
+    g = torch.where((slot[None, :] < counts[:, None]) & (lists >= 0),
+                    glists, 0)
+    return sum(((g >> k) & 1).sum(1, dtype=torch.int64)
+               for k in range(rs.G))
+
+
+def pair_histogram(pairs, resident: int, parts: int) -> dict:
+    """The per-tile pair counts' total, maximum, 90th percentile and
+    mean over tiles with work, and the heaviest tile over a CTA's share
+    (total x parts / resident CTAs)."""
+    live = pairs[pairs > 0].double()
+    total = int(pairs.sum())
+    share = total * parts / resident
+    top = int(pairs.max()) if pairs.numel() else 0
+    return dict(live_tiles=int(live.numel()), pairs=total, max=top,
+                p90=float(torch.quantile(live, 0.9)) if live.numel() else 0.0,
+                mean=float(live.mean()) if live.numel() else 0.0,
+                share=share, heavy_over_share=top / share if share else 0.0)
+
+
+def no_winner(cols):
+    """A copy of ``cols`` whose z planes are -1 at every pixel: the edges
+    (so the cull and the evaluated pairs) are unchanged, but the z >= 0
+    test fails everywhere, so no pixel is covered and K1's epilogue
+    gathers no coefficients."""
+    out = cols.clone()
+    out[12:14] = 0.0
+    out[14] = -1.0
+    return out
+
+
+def k1_breakdown(scene, vps, bones, maxc: int, *, mode: str = "tap",
+                 repeats: int = 5) -> dict:
+    """K1's time with the ``mode`` epilogue on the views' prebinned
+    inputs, beside the same launches with the chunk counts zeroed and
+    with no winner, a fill of its output bytes, its CTAs per SM and view
+    0's per-tile pair histogram (see the module docstring)."""
+    dev = require_cuda(scene.device)
+    runs = []
+    for vp in vps:
+        cols, (lists, glists, counts, _), pw, ph = _binned(scene, vp, bones,
+                                                           maxc)
+        runs.append(dict(
+            k1=(cols, lists, glists, counts),
+            empty=(cols, lists, glists, torch.zeros_like(counts)),
+            nowin=(no_winner(cols), lists, glists, counts)))
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode=mode)
+
+    def ms(what):
+        return median(cuda_times(
+            lambda i: rs.raster_fwd(*runs[i][what], (0, 0), **kw), dev,
+            repeats, calls=len(runs)))
+
+    out = {f"{what}_ms": ms(what) for what in ("k1", "empty", "nowin")}
+    out_bytes = sum(o.numel() * o.element_size()
+                    for o in rs.raster_fwd(*runs[0]["empty"], (0, 0), **kw))
+    buf = torch.empty(out_bytes // 4, dtype=torch.float32, device=dev)
+    out["fill_ms"] = median(cuda_times(lambda _i: buf.zero_(), dev, repeats,
+                                       calls=len(runs)))
+    bps = rs.blocks_per_sm(dev)
+    resident = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * bps
+    parts = getattr(rs, "PARTS", 1)     # 1: a K1 of one CTA per tile
+    return dict(out, mode=mode, gather_ms=out["k1_ms"] - out["nowin_ms"],
+                out_mb=out_bytes / 1e6, blocks_per_sm=bps,
+                resident_ctas=resident, parts=parts,
+                **pair_histogram(tile_pairs(*runs[0]["k1"][1:]), resident,
+                                 parts))
+
+
+def floor_ms(pairs: int, surviving: int, r: dict) -> float:
+    """K1's floor at the probe's rates: live (group, warp) pairs x
+    test_ns + surviving (triangle, warp) pairs x eval_ns."""
+    return (pairs * rs.WARPS * r["test_ns"] + surviving * r["eval_ns"]) / 1e6
 
 
 def roofline(preset: str, device, *, views: int = VIEWS, repeats: int = 5,
-             sol: float | None = None) -> dict:
-    """One preset's readings on the card: triangles, maxc, K1 ms, binned
-    and winning pairs, slack, K1 ns/pair, SOL (measured on this preset's
-    first view unless given), utilization and the time floors at SOL."""
+             sol: dict | None = None) -> dict:
+    """One preset's readings on the card: triangles, maxc, K1's breakdown
+    (its ms as ``raster_ms``), binned, winning and surviving pairs,
+    slack, K1 ns per binned pair, the rates (``sol``: measured on this
+    preset's first view unless given), the floor and the utilization."""
     dev = require_cuda(device)
     case, vps, bones, mode = build(preset, dev, views=views)
     maxc = dv.auto_maxc(case.batch, vps[0], bones, width=W, height=H)
-    ctas = None
     if sol is None:
-        sol, ctas = sol_ns_per_pair(case.scene, vps[0], bones,
-                                    repeats=repeats)
+        sol = rates(case.scene, vps[0], bones, repeats=repeats)
     binned, winning = pair_counts(case.scene, vps, bones, maxc)
-    ms = raster_ms(case.scene, vps, bones, maxc, repeats=repeats, mode=mode)
+    surviving = surviving_pairs(case.scene, vps, bones, maxc)
+    k1 = k1_breakdown(case.scene, vps, bones, maxc, mode=mode,
+                      repeats=repeats)
+    ms = k1["k1_ms"]
     rs.flush_overflow_checks()
-    ns_pair = ms * 1e6 / binned
-    return dict(preset=preset, tris=len(case.batch.tris), maxc=maxc,
-                raster_ms=ms, pairs=binned, winning=winning,
-                slack=binned / max(winning, 1), ns_pair=ns_pair, sol=sol,
-                ctas=ctas, util=sol / ns_pair,
-                floor_ms=binned * sol / 1e6,
-                floor_winning_ms=winning * sol / 1e6)
+    floor = floor_ms(binned, surviving, sol)
+    return dict(k1, preset=preset, tris=len(case.batch.tris),
+                maxc=maxc, raster_ms=ms, pairs=binned, winning=winning,
+                slack=binned / max(winning, 1), surviving=surviving,
+                survive_share=surviving / max(binned * rs.WARPS * rs.KG, 1),
+                ns_pair=ms * 1e6 / binned, sol=sol, floor_ms=floor,
+                util=floor / ms)
+
+
+def rates_line(r: dict) -> str:
+    return (f"rates (K1's group body on a resident chunk, no loads or "
+            f"gates, {r['rows']} rows of {rs.PARTS} CTAs): "
+            f"test_ns={r['test_ns']!r} per (group, warp), "
+            f"eval_ns={r['eval_ns']!r} per surviving (triangle, warp); "
+            f"ns/rep/row {r['ns_rep_empty']!r} with "
+            f"{r['surviving_empty']} survivors, {r['ns_rep_cover']!r} with "
+            f"{r['surviving_cover']}")
+
+
+def k1_line(r: dict) -> str:
+    return (f"K1 {r['mode']}: k1={r['k1_ms']!r}ms "
+            f"empty(counts=0)={r['empty_ms']!r}ms "
+            f"nowin(z<0)={r['nowin_ms']!r}ms gather={r['gather_ms']!r}ms "
+            f"({r['gather_ms'] / r['k1_ms'] * 100!r}%) "
+            f"fill({r['out_mb']!r}MB)={r['fill_ms']!r}ms; "
+            f"{r['blocks_per_sm']} CTAs per SM, {r['parts']} per tile, "
+            f"{r['resident_ctas']} resident; view 0: pairs={r['pairs']} "
+            f"live_tiles={r['live_tiles']} max={r['max']} p90={r['p90']!r} "
+            f"mean={r['mean']!r} share={r['share']!r} "
+            f"heavy/share={r['heavy_over_share']!r}")
 
 
 def summary_line(r: dict) -> str:
     return (f"{r['preset']:8s} tris={r['tris']} maxc={r['maxc']} "
             f"raster={r['raster_ms']!r}ms pairs={r['pairs']} "
             f"winning={r['winning']} slack={r['slack']!r}x "
-            f"ns/pair={r['ns_pair']!r} util={r['util'] * 100!r}% "
-            f"floor@SOL={r['floor_ms']!r}ms "
-            f"floor@SOL,winning={r['floor_winning_ms']!r}ms")
+            f"surviving={r['surviving']} "
+            f"({r['survive_share'] * 100!r}% of binned (triangle, warp)) "
+            f"ns/pair={r['ns_pair']!r} floor={r['floor_ms']!r}ms "
+            f"util={r['util'] * 100!r}%; " + k1_line(r))
 
 
 def main(argv=None) -> int:
-    presets = [a for a in (sys.argv[1:] if argv is None else argv)
-               if not a.startswith("-")] or list(PRESETS)
+    args = sys.argv[1:] if argv is None else argv
+    presets = [a for a in args if not a.startswith("-")] or list(PRESETS)
     dev = require_cuda()
     print(f"card: {torch.cuda.get_device_name(dev)}; {card_line()}",
           flush=True)
     sol = None
     for preset in presets:
+        if "--k1" in args:
+            case, vps, bones, mode = build(preset, dev)
+            maxc = dv.auto_maxc(case.batch, vps[0], bones, width=W,
+                                height=H)
+            r = k1_breakdown(case.scene, vps, bones, maxc, mode=mode)
+            print(f"{preset:8s} tris={len(case.batch.tris)} maxc={maxc} "
+                  + k1_line(r), flush=True)
+            continue
         r = roofline(preset, dev, sol=sol)
         if sol is None:
             sol = r["sol"]
-            print(f"SOL (K1's group body on a resident chunk, no loads or "
-                  f"gates, {r['ctas']} CTAs): {sol!r} ns/pair", flush=True)
+            print(rates_line(sol), flush=True)
         print(summary_line(r), flush=True)
     return 0
 

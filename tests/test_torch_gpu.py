@@ -27,6 +27,7 @@ from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.scene import demo
 from mt_renderer_tpu_torch.scene.model import DrawBatch
+from test_torch_k1_cull import adversarial_cols, heavy_tile_case
 
 W, H = 256, 128
 
@@ -402,6 +403,51 @@ def test_kernel_epilogues_match_plain_version(cuda, mode, lit):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["adversarial", "heavy_tile"])
+@pytest.mark.parametrize("mode,lit", [("tap", False), ("tap", True),
+                                      ("mtap", False), ("mtap", True)])
+def test_kernel_matches_plain_version_on_hard_inputs(cuda, scene, mode, lit):
+    """K1's cull and ring on inputs built to break them, bit for bit in
+    every instantiation: the adversarial setup of
+    ``test_torch_k1_cull.py`` (edges through pixel centers, top-left
+    ties, slivers, REJECT rows that overflow to +inf, clipped
+    coefficients, NaN and inf rows, z = -0.0 ties; every chunk in every
+    tile) and the heavy tile (256 instances framed into four tiles, a
+    long list each). The lit instantiations read 9 more seeded
+    coefficient rows as the normal planes."""
+    if scene == "adversarial":
+        args = (*adversarial_cols(), (0, 0))
+        kw = dict(width=W, height=H)
+    else:
+        args, kw = heavy_tile_case()
+    cols = args[0]
+    if lit:
+        rng = np.random.default_rng(7)
+        normals = torch.from_numpy(rng.uniform(
+            -1, 1, (tr.N_COEF_LIT - tr.N_COEF, cols.shape[1])).astype(
+                np.float32))
+        cols = torch.cat([cols[:tr.N_RAST + tr.N_COEF], normals])
+    args = (cols, *args[1:])
+    kw.update(w_eps=td.W_EPS, mode=mode,
+              light=td._light_unit() if lit else None)
+    want = tr.raster_fwd_reference(*args, **kw)
+    dev_args = [x.to(cuda) if torch.is_tensor(x) else x for x in args]
+    before = tr.raster_fwd.launches
+    got = tr.raster_fwd(*dev_args, **kw)
+    torch.cuda.synchronize()
+    assert tr.raster_fwd.launches == before + 1
+    assert 0.05 < float((want[1] >= 0).float().mean())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w)
+        else:
+            assert int(ulp_dist(g, w).max()) == 0
+
+
+@pytest.mark.gpu
 def test_micro_kernel_matches_plain_version(cuda):
     """K3 on chunk 0 of the demo scene's setup at 128x16: every CTA's row
     equal to the others and to the plain probe, bit for bit."""
@@ -415,9 +461,9 @@ def test_micro_kernel_matches_plain_version(cuda):
     got = tr.raster_micro(chunk, 3, tr.N_COEF)
     torch.cuda.synchronize()
     assert tr.raster_micro.launches == before + 1
-    ctas = got[0].shape[0]
     props = torch.cuda.get_device_properties(cuda)
-    assert ctas == props.multi_processor_count * tr.blocks_per_sm(cuda)
+    assert got[0].shape[0] == tr.card_rows(cuda) == (
+        props.multi_processor_count * tr.blocks_per_sm(cuda) // tr.PARTS)
     want = tr.raster_micro_reference(chunk, 3, tr.N_COEF)
     assert float((want[1] >= 0).float().mean()) > 0.02
     for g, w in zip(got, want):

@@ -116,8 +116,8 @@ def test_micro_cpu_tensor_runs_the_plain_probe():
         1, tr.N_COEF, tr.P)
     # zero planes: z = 0 everywhere, but no edge test passes (0 > 0)
     assert (ids == -1).all() and torch.isinf(z).all() and (coef == 0).all()
-    with pytest.raises(ValueError, match="one CTA"):
-        tr.raster_micro(chunk, 3, tr.N_COEF, ctas=4)
+    with pytest.raises(ValueError, match="one row"):
+        tr.raster_micro(chunk, 3, tr.N_COEF, rows=4)
     with pytest.raises(ValueError, match="chunk_cols"):
         tr.raster_micro(chunk[:20], 3, tr.N_COEF)
 
@@ -260,4 +260,4 @@ def test_tools_refuse_to_run_without_a_card():
                       device="cpu")
     vp = np.eye(4, dtype=np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        raster_roofline.sol_ns_per_pair(scene, vp, None)
+        raster_roofline.rates(scene, vp, None)
