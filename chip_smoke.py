@@ -28,7 +28,9 @@ on failure:
 3. K1 against its plain PyTorch version on the card at the headline
    shapes: winner ids, tap addresses and coverage equal, z and the tap
    planes within 2 ulp (bit-equal is expected: both are built without
-   FMA contraction); both timed with CUDA events; and K1's breakdown
+   FMA contraction); both timed (the kernels of K1 and K2, here and
+   below, by CUDA-graph replay, their device time alone; the plain
+   versions, which synchronise, by CUDA events); and K1's breakdown
    line (its time with every chunk count zeroed and with no winner, so
    no coefficient gathers, CTAs per SM, the per-tile pair tail against a
    CTA's share, the surviving (triangle, warp) pairs of its cull's plain
@@ -45,7 +47,12 @@ on failure:
    set's binning, no opaque cull, K1's opaque z-buffer as ``zhi``,
    L = 4) and, with the opaque cull, on the opaque headline scene: in
    every layer ids and coverage equal, tap addresses equal, z and the
-   tap planes within 2 ulp; the glass case timed with CUDA events;
+   tap planes within 2 ulp; both timed with CUDA events, each with K2's
+   breakdown line (its time with every chunk count zeroed beside a
+   plain ``zero_`` of its output bytes, CTAs per SM, the per-tile pair
+   tail against a CTA's share, the surviving (triangle, warp) pairs of
+   its cull's plain twin, and a check that every id kept in any layer
+   survived its warp's cull), printed again at phase 10;
 7. the split peel equals the ml peel bit for bit, color and depth, on
    opaque scenes: at the reference's verify-leg size (256x256, 9
    instances, subdiv 2, L = 3, caps from ``measure_live_tap_tiles``)
@@ -64,7 +71,8 @@ on failure:
     the ml peel (full, the opaque cull), L = 4: ids, coverage and every
     plane equal (0 ulp expected); both timed;
 11. the split peel equals the ml peel bit for bit on the opaque
-    mip+light headline, and 20 frames of ``FrameEngine(peel=4,
+    mip+light headline (the ml peel's frame is K2 ``full``'s path, its
+    launches counted from 0), and 20 frames of ``FrameEngine(peel=4,
     peel_mode="split", mipmap=True, lighting=True)`` on the glass scene
     with the tri pool: K1 and K2 in every frame, no overflow, frame 0
     under the golden rule against both plain rasters;
@@ -89,12 +97,14 @@ read just after. Prints the card's name and power limit, then every
 kernel's record (its launches on its main path, its error against the
 plain version, its time, the plain version's time and the bound: the
 larger of its bytes over HBM bandwidth and its f32 operations over the
-f32 peak, both from NVIDIA's H100 SXM data sheet, K1's operations its
-cull tests and its surviving pairs' pixels; K1's records also its
-surviving pairs, the earlier every-binned-pair bound, the zero-count
-and no-winner times and the floor at K3's rates) as one JSON line
-before the last, and as its last line ``{"ok": true, "device":
-{...}}``.
+f32 peak, both from NVIDIA's H100 SXM data sheet, K1's and K2's
+operations their cull tests and their surviving pairs' pixels; their
+records also the surviving pairs, the earlier every-binned-pair bound,
+the zero-count time and the floor at K3's rates, K1's its no-winner
+time, K2's the fill of its output bytes; K2 has three records: tap on
+the glass loop, mtap + lit on the peeled mip+light loop, ``full`` on
+the opaque mip+light headline's ml peel) as one JSON line before the
+last, and as its last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
 """
 
@@ -182,6 +192,18 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 10) -> float:
+    """Median device time of ``fn`` alone in ms: ``calls`` calls
+    replayed from a CUDA graph (``tools.graph_times``), so a wrapper's
+    host time between launches cannot show in it."""
+    import torch
+
+    from mt_renderer_tpu_torch.tools import graph_times, median
+
+    return median(graph_times(lambda _i: fn(), torch.device("cuda"), 5,
+                              calls=calls))
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -207,33 +229,53 @@ def binned_pairs(lists, glists) -> int:
     return sum(int(((g >> k) & 1).sum()) for k in range(rs.G))
 
 
-def raster_bound(args, outs, zhi=None, surviving=None) -> dict:
+def raster_bound(args, outs, zhi, surviving: int) -> dict:
     """A raster kernel's bound on these inputs: each input read once,
-    each output written once, and the f32 operations its work needs. K2
-    evaluates three edge functions and the z plane (PLANE_OPS) at every
-    binned (triangle, pixel) pair. K1 (``surviving`` given: its cull's
-    surviving (triangle, warp) pairs on these inputs) runs one cull test
-    (CULL_OPS) per binned (triangle, warp) pair and evaluates the planes
-    only at the pixels of the surviving pairs; its ``binned_bound_ms``
-    keeps the every-binned-pair figure of the earlier design's
-    records."""
+    each output written once, and the f32 operations its work needs. K1
+    and K2 run one cull test (CULL_OPS) per binned (triangle, warp) pair
+    and evaluate three edge functions and the z plane (PLANE_OPS) only
+    at the pixels of the pairs that survive the cull (``surviving``, from
+    its plain twin on these inputs; K2's list insertions are left out,
+    so its bound is the lower). Their
+    ``binned_bound_ms`` keeps the every-binned-(triangle, pixel)-pair
+    figure of the earlier designs' records."""
     from mt_renderer_tpu_torch.render import raster as rs
 
     cols, lists, glists, counts = args[:4]
     pairs = binned_pairs(lists, glists)
     n_bytes = nbytes(cols, lists, glists, counts, zhi, *outs)
     binned = bound(n_bytes, pairs * rs.KG * rs.P * PLANE_OPS)
-    if surviving is None:
-        return dict(pairs=pairs, **binned)
     return dict(pairs=pairs, binned_bound_ms=binned["bound_ms"], **bound(
         n_bytes, pairs * rs.WARPS * rs.KG * CULL_OPS
         + surviving * rs.WARP_W * rs.WARP_H * PLANE_OPS))
 
 
+def outside_live(live, lists, ids) -> int:
+    """Kept ids (``ids`` (n_tiles, P) i32, -1 where none) whose (triangle,
+    warp) pair the cull twin's ``live`` (n_tiles, maxc, G, WARPS, KG)
+    rejects at the pixel's warp: 0 when the kernel's cull is safe for
+    this output."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    dev = ids.device
+    wp = torch.arange(rs.P, device=dev)
+    row, col = wp // rs.TILE_W, wp % rs.TILE_W
+    warp = ((col // rs.PART_W) * (rs.WARPS // rs.PARTS)
+            + (row // rs.WARP_H) * (rs.PART_W // rs.WARP_W)
+            + (col % rs.PART_W) // rs.WARP_W)
+    win = ids.clamp(min=0).long()
+    slot = (lists[:, :, None] == (win // rs.CT)[:, None, :]).int().argmax(1)
+    ok = live[torch.arange(ids.shape[0], device=dev)[:, None], slot,
+              (win % rs.CT) // rs.KG, warp[None, :], win % rs.KG]
+    return int(((ids >= 0) & ~ok).sum())
+
+
 def k1_breakdown(args, kw, got, what: str) -> dict:
     """K1's breakdown and bound on these inputs, logged as one line: its
-    time with every chunk count set to 0 (launch, epilogue without
-    gathers, output writes) and with no winner (every z plane at -1:
+    device time (``graph_ms``) with every chunk count set to 0 (launch,
+    epilogue without gathers, output writes) and with no winner (every z plane at -1:
     the same cull and evaluation, no coefficient gathers; the difference
     to K1's time prices the gathers), its CTAs per SM, the per-tile live
     pairs' maximum against a CTA's share, and the surviving (triangle,
@@ -249,11 +291,11 @@ def k1_breakdown(args, kw, got, what: str) -> dict:
     cols, lists, glists, counts, origin = args
     dev = cols.device
     empty = torch.zeros_like(counts)
-    empty_ms = cuda_ms(lambda: rs.raster_fwd(cols, lists, glists, empty,
-                                             origin, **kw))
+    empty_ms = graph_ms(lambda: rs.raster_fwd(cols, lists, glists, empty,
+                                              origin, **kw))
     nowin = rr.no_winner(cols)
-    nowin_ms = cuda_ms(lambda: rs.raster_fwd(nowin, lists, glists, counts,
-                                             origin, **kw))
+    nowin_ms = graph_ms(lambda: rs.raster_fwd(nowin, lists, glists, counts,
+                                              origin, **kw))
     del nowin
     bps = rs.blocks_per_sm(dev)
     resident = torch.cuda.get_device_properties(dev).multi_processor_count \
@@ -264,18 +306,7 @@ def k1_breakdown(args, kw, got, what: str) -> dict:
                                   width=kw["width"], height=kw["height"])
     surviving = int(live.sum())
     # every covered pixel's winner survived its warp's cull
-    ib = got[1][:, 0, :]
-    n_tiles = ib.shape[0]
-    wp = torch.arange(rs.P, device=dev)
-    row, col = wp // rs.TILE_W, wp % rs.TILE_W
-    warp = ((col // rs.PART_W) * (rs.WARPS // rs.PARTS)
-            + (row // rs.WARP_H) * (rs.PART_W // rs.WARP_W)
-            + (col % rs.PART_W) // rs.WARP_W)
-    win = ib.clamp(min=0).long()
-    slot = (lists[:, :, None] == (win // rs.CT)[:, None, :]).int().argmax(1)
-    ok = live[torch.arange(n_tiles, device=dev)[:, None], slot,
-              (win % rs.CT) // rs.KG, warp[None, :], win % rs.KG]
-    n_bad = int(((ib >= 0) & ~ok).sum())
+    n_bad = outside_live(live, lists, got[1][:, 0, :])
     log(f"K1 breakdown, {what}: counts=0 {empty_ms!r} ms; no winner "
         f"{nowin_ms!r} ms; {bps} CTAs per "
         f"SM ({resident} resident, {rs.PARTS} per tile); pairs "
@@ -288,7 +319,58 @@ def k1_breakdown(args, kw, got, what: str) -> dict:
     if n_bad:
         raise AssertionError(f"{what}: a winner the cull twin rejects")
     return dict(surviving=surviving, empty_ms=empty_ms, nowin_ms=nowin_ms,
-                **raster_bound(args[:4], got, surviving=surviving))
+                **raster_bound(args[:4], got, None, surviving))
+
+
+def k2_breakdown(args, kw, got, what: str) -> dict:
+    """K2's breakdown and bound on these inputs (``kw`` its keywords),
+    logged as one line: its device time (``graph_ms``) with every chunk
+    count set to 0 (the launch and the L layers' writes) beside a plain
+    ``zero_`` of the same output bytes, its CTAs per SM, the per-tile live pairs' maximum
+    against a CTA's share, and the surviving (triangle, warp) pairs of
+    its cull (``raster.warp_cull_reference``), checked against the
+    kernel: every id kept in any layer lies in a (triangle, warp) pair
+    that survives it. → the surviving count, both times and
+    ``raster_bound``."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import raster as rs
+    from mt_renderer_tpu_torch.tools import raster_roofline as rr
+
+    cols, lists, glists, counts, origin = args
+    dev = cols.device
+    zhi = kw.get("zhi")
+    empty = torch.zeros_like(counts)
+    empty_ms = graph_ms(lambda: rs.raster_fwd_ml(cols, lists, glists, empty,
+                                                 origin, **kw))
+    buf = torch.empty(nbytes(*got) // 4, dtype=torch.float32, device=dev)
+    fill_ms = graph_ms(buf.zero_)
+    del buf
+    bps = rs.ml_blocks_per_sm(dev, kw["layers"], kw["opaque_cull"],
+                              zhi is not None)
+    resident = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * bps
+    hist = rr.pair_histogram(rr.tile_pairs(lists, glists, counts), resident,
+                             rs.PARTS)
+    live = rs.warp_cull_reference(*args, width=kw["width"],
+                                  height=kw["height"])
+    surviving = int(live.sum())
+    il = got[1]
+    n_bad = sum(outside_live(live, lists, il[:, i])
+                for i in range(il.shape[1]))
+    log(f"K2 breakdown, {what}: counts=0 {empty_ms!r} ms, zero_ of its "
+        f"{nbytes(*got) / 1e6!r} MB {fill_ms!r} ms; {bps} CTAs per SM "
+        f"({resident} resident, {rs.PARTS} per tile); pairs "
+        f"{hist['pairs']} over {hist['live_tiles']} tiles, max "
+        f"{hist['max']}, p90 {hist['p90']!r}, mean {hist['mean']!r}, a "
+        f"CTA's share {hist['share']!r}, heaviest/share "
+        f"{hist['heavy_over_share']!r}; surviving (triangle, warp) "
+        f"{surviving} of {hist['pairs'] * rs.WARPS * rs.KG} binned; kept "
+        f"ids outside their warp's live mask: {n_bad}")
+    if n_bad:
+        raise AssertionError(f"{what}: a kept id the cull twin rejects")
+    return dict(surviving=surviving, empty_ms=empty_ms, fill_ms=fill_ms,
+                **raster_bound(args[:4], got, zhi, surviving))
 
 
 def phase_device() -> dict:
@@ -413,7 +495,7 @@ def phase_kernel(case: dict) -> dict:
     if int(n_over):
         raise AssertionError(f"{int(n_over)} tiles over maxc at frame 0")
 
-    kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
+    kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
     plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw))
     log(f"raster_kernel_ms {kernel_ms!r}")
     log(f"raster_plain_ms {plain_ms!r}")
@@ -546,12 +628,13 @@ def phase_ml_kernel(glass: dict, opaque: dict) -> dict:
     err = compare_outputs(
         got, want, f"K2 vs plain, glass headline {pw}x{ph}, translucent "
         f"set, nocull + zhi, L={LAYERS}, maxc={lists.shape[1]}")
-    kernel_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    kernel_ms = graph_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
     plain_ms = cuda_ms(lambda: rs.raster_fwd_ml_reference(*args, **mlkw),
                        warmup=1, reps=5)
     log(f"raster_ml_kernel_ms {kernel_ms!r}")
     log(f"raster_ml_plain_ms {plain_ms!r}")
-    bnd = raster_bound(args, got, zhi)
+    bnd = k2_breakdown(args, mlkw, got, "glass headline, tap, nocull + zhi")
+    del got, want
 
     scene = opaque["scene"]
     cols, bbox = dv.setup_packed_cols(
@@ -560,20 +643,23 @@ def phase_ml_kernel(glass: dict, opaque: dict) -> dict:
                                          height=ph, maxc=opaque["maxc"])
     args = (cols, lists, glists, counts, (0, 0))
     mlkw = dict(kw, layers=LAYERS, opaque_cull=True)
+    got = rs.raster_fwd_ml(*args, **mlkw)
     err = max(err, compare_outputs(
-        rs.raster_fwd_ml(*args, **mlkw),
-        rs.raster_fwd_ml_reference(*args, **mlkw),
+        got, rs.raster_fwd_ml_reference(*args, **mlkw),
         f"K2 vs plain, opaque headline, full (opaque cull), L={LAYERS}"))
-    full_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
-    log(f"raster_ml_kernel_ms, opaque headline, full: {full_ms!r}")
+    full_ms = graph_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    full = k2_breakdown(args, mlkw, got, "opaque headline, tap, full")
+    log(f"raster_ml_kernel_ms, opaque headline, full: {full_ms!r} (bound "
+        f"{full['bound_ms']!r}, {full['bound_by']})")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
 
 
 def split_equals_ml(case: dict, layers: int, what: str,
-                    mipmap: bool = False, lighting: bool = False) -> None:
+                    mipmap: bool = False, lighting: bool = False) -> int:
     """The split peel (packed, caps measured for it) against the ml peel
     (unpacked, dense), color and depth bit for bit: the reference's
-    ``peel_split`` verify leg."""
+    ``peel_split`` verify leg. → K2's launches in the ml peel's frame
+    (its ``full`` path), counted from 0."""
     from mt_renderer_tpu_torch.render import device as dv
     from mt_renderer_tpu_torch.render import raster as rs
 
@@ -585,8 +671,10 @@ def split_equals_ml(case: dict, layers: int, what: str,
     sc, sd = dv.render_frame_peeled(case["scene"], case["vp"],
                                     case["bones"], peel_mode="split",
                                     packed=True, tap_tiles=caps, **kw)
+    reset_launches()
     mc, md = dv.render_frame_peeled(case["scene"], case["vp"],
                                     case["bones"], peel_mode="ml", **kw)
+    launches = rs.raster_fwd_ml.launches
     rs.flush_overflow_checks()
     n_color = int((dv.unpack_rgba(sc) != mc.cpu().numpy()).any(-1).sum())
     n_depth = int((sd != md).sum())
@@ -595,6 +683,9 @@ def split_equals_ml(case: dict, layers: int, what: str,
         f"pixels differ in color, {n_depth} in depth; coverage {cover:.4f}")
     if n_color or n_depth or not 0.0 < cover or rs.OVERFLOW_EVENTS:
         raise AssertionError(f"split peel differs from ml peel ({what})")
+    if launches < 1:
+        raise AssertionError(f"the ml peel launched no K2 ({what})")
+    return launches
 
 
 def phase_split_vs_ml(device, opaque: dict) -> None:
@@ -733,7 +824,7 @@ def phase_mip_kernel(case: dict) -> dict:
         if int(n_over):
             raise AssertionError("mip+light frame 0 overflows maxc")
         if scene is case["scene"]:
-            kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
+            kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
             plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw))
             bnd = k1_breakdown(args, kw, got,
                                "mip+light headline, mtap + lit")
@@ -742,12 +833,13 @@ def phase_mip_kernel(case: dict) -> dict:
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
 
 
-def phase_ml_mip_kernel(glass: dict, opaque: dict) -> dict:
+def phase_ml_mip_kernel(glass: dict, opaque: dict) -> tuple:
     """K2's mtap + lit epilogues against their plain version: at the
     glass headline with the tri pool as the split peel calls it (the
     translucent set, no opaque cull, K1's opaque z-buffer as ``zhi``),
     and at the opaque mip+light headline as the ml peel calls it (every
-    triangle, the opaque cull); L = LAYERS, both timed."""
+    triangle, the opaque cull); L = LAYERS, both timed, each with its
+    breakdown → (glass reading, opaque reading)."""
     import torch
 
     from mt_renderer_tpu_torch.render import device as dv
@@ -779,9 +871,10 @@ def phase_ml_mip_kernel(glass: dict, opaque: dict) -> dict:
         got, want, f"K2 mtap+lit vs plain, glass headline (tri pool) "
         f"{pw}x{ph}, translucent set, nocull + zhi, L={LAYERS}, "
         f"{cols_tr.shape[0]}-row lit matrix")
-    bnd = raster_bound(args, got, zhi)
+    bnd = k2_breakdown(args, mlkw, got,
+                       "glass headline (tri pool), mtap + lit, nocull + zhi")
     del got, want
-    kernel_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    kernel_ms = graph_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
     plain_ms = cuda_ms(lambda: rs.raster_fwd_ml_reference(*args, **mlkw),
                        warmup=1, reps=5)
     log(f"raster_ml_mtap_lit_kernel_ms {kernel_ms!r}")
@@ -798,16 +891,21 @@ def phase_ml_mip_kernel(glass: dict, opaque: dict) -> dict:
     got = rs.raster_fwd_ml(*args, **mlkw)
     want = rs.raster_fwd_ml_reference(*args, **mlkw)
     torch.cuda.synchronize()
-    err = max(err, compare_outputs(
+    full_err = compare_outputs(
         got, want, f"K2 mtap+lit vs plain, opaque mip+light headline, full "
-        f"(opaque cull), L={LAYERS}"))
-    del got, want
-    full_ms = cuda_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+        f"(opaque cull), L={LAYERS}")
+    del want
+    full_bnd = k2_breakdown(args, mlkw, got,
+                            "opaque mip+light headline, mtap + lit, full")
+    del got
+    full_ms = graph_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
     full_plain_ms = cuda_ms(
         lambda: rs.raster_fwd_ml_reference(*args, **mlkw), warmup=1, reps=3)
     log(f"raster_ml_mtap_lit_kernel_ms, opaque mip+light headline, full: "
         f"{full_ms!r} (plain {full_plain_ms!r})")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
+    return (dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd),
+            dict(max_abs_err=full_err, ms=full_ms, plain_ms=full_plain_ms,
+                 **full_bnd))
 
 
 def phase_world_legs(device) -> None:
@@ -878,7 +976,7 @@ def phase_world_main(device) -> dict:
                           f"{cols.shape[1]} tris, maxc={lists.shape[1]}")
     bnd = k1_breakdown(args, kw, got, "world frame 0, mtap")
     del got, want
-    kernel_ms = cuda_ms(lambda: rs.raster_fwd(*args, **kw))
+    kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
     plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
                        warmup=1, reps=5)
     log(f"raster_world_mtap_kernel_ms {kernel_ms!r}")
@@ -1085,9 +1183,9 @@ def main() -> int:
     k1_mip = phase_mip_kernel(mip)
     mip_run = phase_main(mip, mipmap=True, lighting=True)
     glass_mip = headline_case(device, **GLASS_MIP)
-    k2_mip = phase_ml_mip_kernel(glass_mip, mip)
-    split_equals_ml(mip, LAYERS, "opaque mip+light headline", mipmap=True,
-                    lighting=True)
+    k2_mip, k2_full = phase_ml_mip_kernel(glass_mip, mip)
+    full_launches = split_equals_ml(mip, LAYERS, "opaque mip+light headline",
+                                    mipmap=True, lighting=True)
     peel_mip_run = phase_peel_main(glass_mip, mipmap=True, lighting=True)
     del glass_mip, mip
     phase_world_legs(device)
@@ -1095,7 +1193,6 @@ def main() -> int:
     k3 = phase_micro(case)
     roof = phase_roofline(device)
     k4 = phase_bilin(device)
-    from mt_renderer_tpu_torch.render import raster as rs
     from mt_renderer_tpu_torch.tools import raster_roofline
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1109,20 +1206,19 @@ def main() -> int:
     sol = roof["sol"]
 
     def raster_record(name, variant, launches, reading):
-        if name == "raster_fwd":     # K1: its cull tests and survivors
-            return record(name, KERNEL_SOURCE, KERNEL_REPLACES, launches,
-                          reading, variant=variant, pairs=reading["pairs"],
-                          surviving=reading["surviving"],
-                          binned_bound_ms=reading["binned_bound_ms"],
-                          empty_ms=reading["empty_ms"],
-                          nowin_ms=reading["nowin_ms"],
-                          floor_ms=raster_roofline.floor_ms(
-                              reading["pairs"], reading["surviving"], sol))
-        # K2 evaluates every binned (triangle, warp) pair
-        return record(name, ML_KERNEL_SOURCE, ML_KERNEL_REPLACES, launches,
-                      reading, variant=variant, pairs=reading["pairs"],
-                      floor_ms=reading["pairs"] * rs.KG * rs.WARPS
-                      * sol["eval_ns"] / 1e6)
+        # K1 and K2: their cull tests and survivors; the floor leaves out
+        # K2's insertions
+        k1 = name == "raster_fwd"
+        extra = (dict(nowin_ms=reading["nowin_ms"]) if k1
+                 else dict(fill_ms=reading["fill_ms"]))
+        return record(name, KERNEL_SOURCE if k1 else ML_KERNEL_SOURCE,
+                      KERNEL_REPLACES if k1 else ML_KERNEL_REPLACES,
+                      launches, reading, variant=variant,
+                      pairs=reading["pairs"], surviving=reading["surviving"],
+                      binned_bound_ms=reading["binned_bound_ms"],
+                      empty_ms=reading["empty_ms"], **extra,
+                      floor_ms=raster_roofline.floor_ms(
+                          reading["pairs"], reading["surviving"], sol))
 
     records = [
         raster_record("raster_fwd", "tap", main_run["launches"], k1),
@@ -1132,6 +1228,9 @@ def main() -> int:
         raster_record("raster_fwd_ml", "tap", peel_run["k2"], k2),
         raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
                       k2_mip),
+        raster_record("raster_fwd_ml",
+                      "full (opaque mip+light headline, ml peel)",
+                      full_launches, k2_full),
         record("raster_micro", MICRO_SOURCE, MICRO_REPLACES,
                roof["launches"], k3, rows=k3["rows"],
                surviving=k3["surviving"], test_ns=sol["test_ns"],

@@ -25,7 +25,8 @@
 // - The tile's live (chunk, group) pairs (bit g of the group mask) form
 //   one stream. Each pair's 15 raster columns (1,920 bytes) are copied
 //   with cp.async into a RING-slot ring in shared memory, RING - 1 pairs
-//   ahead of the pair being rastered; one barrier per pair.
+//   ahead of the pair being rastered; one barrier per pair (pair_ring.cuh,
+//   shared with K2).
 // - Each warp culls the group against its 32x8 rectangle exactly (one
 //   triangle per lane, then a ballot) and evaluates only the survivors.
 // - The epilogue (tap_epilogue.cuh, shared with K2) loads the winner's 18
@@ -37,68 +38,13 @@
 // PyTorch version's separate ops (and the cull's corner evaluation like
 // its plain twin's).
 
-#include "raster_group.cuh"
+#include "pair_ring.cuh"
 
 namespace {
 
 using namespace mtr;
 
 constexpr int RING = 12;                     // staged pairs in flight + 1
-constexpr int STAGE_SEGS = NRAST * KG / 4;   // 16-byte copies per pair
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Walks a tile's live (list slot, group) pairs in list order, ascending
-// groups within a slot. Every thread of the CTA walks the same pairs.
-struct PairCursor {
-  int s = -1;
-  unsigned m = 0;
-
-  __device__ __forceinline__ bool next(int count,
-                                       const int* __restrict__ gmasks,
-                                       int& slot, int& g) {
-    while (m == 0) {
-      if (++s >= count) {
-        s = count;
-        return false;
-      }
-      m = (unsigned)__ldg(gmasks + s) & GROUP_BITS;
-    }
-    g = __ffs(m) - 1;
-    m &= m - 1;
-    slot = s;
-    return true;
-  }
-};
-
-// Starts the copy of the cursor's next pair into `dst`, if there is one.
-__device__ __forceinline__ void stage_next(
-    PairCursor& cur, int count, const int* __restrict__ list,
-    const int* __restrict__ gmasks, const float* __restrict__ cols, int tp,
-    float (*dst)[KG]) {
-  int s, g;
-  if (!cur.next(count, gmasks, s, g)) return;
-  const float* src = cols + (size_t)__ldg(list + s) * CT + g * KG;
-  for (int i = threadIdx.x; i < STAGE_SEGS; i += K1_THREADS) {
-    const int r = i / (KG / 4);
-    const int q = i % (KG / 4);
-    cp_async16(&dst[r][4 * q], src + (size_t)r * tp + 4 * q);
-  }
-}
 
 template <int MODE, bool LIT>
 __global__ void __launch_bounds__(K1_THREADS)
@@ -127,25 +73,11 @@ raster_fwd_kernel(const float* __restrict__ cols, int tp,
   const int count = counts[t];
   const int* list = lists + (size_t)t * maxc;
   const int* gmasks = glists + (size_t)t * maxc;
-  PairCursor prod, cons;
-  for (int i = 0; i < RING - 1; ++i) {
-    stage_next(prod, count, list, gmasks, cols, tp, s_ring[i]);
-    cp_async_commit();
-  }
-  for (int i = 0;; ++i) {
-    int s, g;
-    if (!cons.next(count, gmasks, s, g)) break;     // uniform over the CTA
-    cp_async_wait<RING - 2>();                       // pair i has landed
-    __syncthreads();                                 // ... for every thread,
-                                                     // and pair i - 1's slot
-                                                     // is free
-    stage_next(prod, count, list, gmasks, cols, tp,
-               s_ring[(i + RING - 1) % RING]);
-    cp_async_commit();
-    raster_group(s_ring[i % RING], __ldg(list + s) * CT + g * KG, w, zbest,
-                 wid);
-  }
-  cp_async_wait<0>();
+  for_each_pair<NRAST, RING>(
+      count, list, gmasks, cols, tp, s_ring,
+      [&](const float (*st)[KG], int id0) {
+        raster_group(st, id0, w, zbest, wid);
+      });
 
   constexpr int NPLANES = MODE == TAP ? NTAP : NMTAP;
 #pragma unroll

@@ -41,6 +41,11 @@
 // L candidates with z <= Z, the same as the reference's, whatever the
 // order.
 //
+// The per-warp cull below skips only (triangle, warp) pairs none of
+// whose candidates passes the edge tests, so no skipped candidate would
+// have inserted anything or moved the opaque z: the lists, and the
+// argument above, are those of the full evaluation.
+//
 // The TPU kernel's second pass (a re-sweep of the chunk list that
 // recovers each layer's coefficients through a one-hot bf16x3 matrix
 // select) exists only because the columns have left VMEM once the list
@@ -53,30 +58,74 @@
 // (28 kernels), and the four epilogues are compiled once, not into each
 // of the 28.
 //
-// What bounds it: the same f32 ALU work over binned (triangle, pixel)
-// pairs as K1 (three edge functions and one depth plane per pair),
-// plus one insertion into the pixel's list, L compare-and-swaps in
-// shared memory, per candidate that passes the culls.
+// What bounds it: the output bytes, L times K1's (about 300 MB at the
+// glass headline, L = 4, tap). The arithmetic over binned (triangle,
+// pixel) pairs would, but most of those pairs are provably empty, so
+// the design evaluates fewer of them, as K1 does. What is left is the
+// write phase (with every chunk count 0, about 1.3 times a plain fill
+// of the same bytes on an H100; PERF.md) and the loop over the
+// survivors.
 //
-// Design: one CTA per 16x128 tile, 256 threads, 8 pixels per thread, as
-// in K1. The live groups' 15 raster columns (and, with the opaque cull,
-// one opacity flag per triangle) are staged in shared memory; groups
-// whose mask bit is clear are neither loaded nor evaluated. The (z, id)
-// lists live in dynamic shared memory, layer-major ([l][p], conflict-free
-// across a warp): L * 2048 * 8 bytes, 128 KiB at L = 8. Each thread keeps
-// in registers, per pixel, the cull limit min(list's deepest z, zhi,
-// opaque z), so the common rejected candidate never touches the list.
+// Design (K1's, with the lists added):
+// - K1's CTA layout (raster_group.cuh): PARTS (4) CTAs of two warps per
+//   16x128 tile, each a 16x32 quarter walking the tile's whole list (a
+//   heavy tile spreads over four SMs, no merge); each warp owns a 32x8
+//   block of pixels, each lane one column of it (8 pixels).
+// - The tile's live (chunk, group) pairs stream through a cp.async ring
+//   (pair_ring.cuh, shared with K1), RING - 1 pairs ahead, one barrier
+//   per pair. With the opaque cull each slot also holds the tex column
+//   (16 rows, 2,048 bytes), whose integer test marks opaque triangles.
+//   (On an H100 at 700 W, rings of 2 to 12 slots ran within a few
+//   percent of each other; the smaller the ring, the more CTAs an SM
+//   holds. PERF.md has the sweep.)
+// - Each warp culls each staged group before any pixel test with K1's
+//   exact per-edge corner test (warp_cull: one triangle per lane, one
+//   ballot) and evaluates only the survivors, in ascending k. (A per-warp
+//   depth cull against the pixels' running limits was exact too, but
+//   measured no faster; PERF.md has the readings.)
+// - The (z, id) lists live in dynamic shared memory, layer-major
+//   ([l][q], q = j * 64 + thread: a lane's pixel j, conflict-free across
+//   a warp): L * 4 KiB a CTA. Each lane keeps in registers, per pixel,
+//   the cull limit min(list's deepest z, zhi, opaque z) and min(zhi,
+//   opaque z), so a rejected candidate never touches the list.
+// - The writes go layer by layer, each layer's planes row by row. An
+//   empty layer (id < 0) writes the zero coefficients' epilogue, the
+//   same at every pixel and so computed once per thread; a kept one
+//   calls the epilogue.
 // L, the opaque cull and the presence of zhi are template parameters.
 //
 // Built with -fmad=false, like K1, so every plane evaluation rounds like
-// the plain PyTorch version's separate ops. TMA, cp.async double
-// buffering and warp specialisation are left for later work.
+// the plain PyTorch version's separate ops, and the cull's corners like
+// the pixels.
 
-#include "tap_epilogue.cuh"
+#include "pair_ring.cuh"
 
 namespace {
 
 using namespace mtr;
+
+constexpr int CTA_P = K1_PPT * K1_THREADS;   // a CTA's pixels (512)
+
+constexpr int RING = 4;                      // staged pairs in flight + 1
+
+// The epilogue outputs of triangle id (or of zero coefficients, id < 0)
+// at pixel (px, py): the mtap planes, or the tap planes and the quad-pool
+// row, lit or not.
+__device__ __noinline__ void layer_values(const float* __restrict__ cols,
+                                          int tp, int id, float px, float py,
+                                          float w_eps, int mode, int lit,
+                                          Light light, Planes& o) {
+  if (mode == MTAP) {
+    if (lit)
+      mtap_values<true>(cols, tp, id, px, py, w_eps, light, o);
+    else
+      mtap_values<false>(cols, tp, id, px, py, w_eps, light, o);
+  } else if (lit) {
+    tap_values<true>(cols, tp, id, px, py, w_eps, light, o);
+  } else {
+    tap_values<false>(cols, tp, id, px, py, w_eps, light, o);
+  }
+}
 
 // Writes one kept layer's epilogue at pixel (px, py): the mtap planes, or
 // the tap planes and the quad-pool row, lit or not, as K1 writes them.
@@ -97,7 +146,7 @@ __device__ __noinline__ void layer_epilogue(
 }
 
 template <int L, bool OPAQUE_CULL, bool HAS_ZHI>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(K1_THREADS)
 raster_fwd_ml_kernel(const float* __restrict__ cols, int tp,
                      const int* __restrict__ lists,
                      const int* __restrict__ glists,
@@ -108,116 +157,115 @@ raster_fwd_ml_kernel(const float* __restrict__ cols, int tp,
                      int* __restrict__ il_out,
                      float* __restrict__ attrs_out,
                      int* __restrict__ tapidx_out) {
-  __shared__ float s_cols[NRAST][CT];
-  __shared__ bool s_opq[OPAQUE_CULL ? CT : 1];
-  extern __shared__ float4 s_dyn[];            // L * P (z, id) pairs
+  constexpr int ROWS = OPAQUE_CULL ? NRAST + 1 : NRAST;
+  __shared__ __align__(16) float s_ring[RING][ROWS][KG];
+  extern __shared__ float4 s_dyn[];            // L * CTA_P (z, id) pairs
   float* s_z = reinterpret_cast<float*>(s_dyn);
-  int* s_id = reinterpret_cast<int*>(s_z + L * P);
+  int* s_id = reinterpret_cast<int*>(s_z + L * CTA_P);
 
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float px0 = (float)((t % n_tx) * TILE_W + x0);
-  const float py0 = (float)((t / n_tx) * TILE_H + y0);
-  // pixel p = tid + j * THREADS of the flattened (TILE_H, TILE_W) tile
-  const float px = (float)(tid % TILE_W) + (px0 + 0.5f);
-  float py[PPT];
-  float zhi_r[PPT];     // caller's horizon (inf without zhi)
-  float zop[PPT];       // nearest opaque candidate so far
-  float zlim[PPT];      // min(list's deepest z, zhi, zop)
+  const int t = blockIdx.x / PARTS;
+  const WarpPixels w = warp_pixels(blockIdx.x % PARTS,
+                                   (float)((t % n_tx) * TILE_W + x0),
+                                   (float)((t / n_tx) * TILE_H + y0));
+  float zcap[K1_PPT];   // min(zhi, nearest opaque candidate so far)
+  float zlim[K1_PPT];   // min(list's deepest z, zcap)
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int p = tid + j * THREADS;
-    py[j] = (float)(tid / TILE_W + j * ROWS_PER_PASS) + (py0 + 0.5f);
-    zhi_r[j] = HAS_ZHI ? zhi[(size_t)t * P + p] : INFINITY;
-    zop[j] = INFINITY;
-    zlim[j] = zhi_r[j];
+  for (int j = 0; j < K1_PPT; ++j) {
+    const int q = j * K1_THREADS + threadIdx.x;    // the lane's own entries
+    zcap[j] = HAS_ZHI ? zhi[(size_t)t * P + w.p0 + j * TILE_W] : INFINITY;
+    zlim[j] = zcap[j];
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      s_z[l * P + p] = INFINITY;
-      s_id[l * P + p] = -1;
+      s_z[l * CTA_P + q] = INFINITY;
+      s_id[l * CTA_P + q] = -1;
     }
   }
 
   const int count = counts[t];
-  for (int s = 0; s < count; ++s) {
-    const int cid = lists[t * maxc + s];
-    const int gmask = glists[t * maxc + s];
-    const float* chunk = cols + (size_t)cid * CT;
-    for (int i = tid; i < NRAST * CT; i += THREADS) {
-      const int c = i / CT;
-      const int k = i - c * CT;
-      if ((gmask >> (k / KG)) & 1) s_cols[c][k] = chunk[(size_t)c * tp + k];
-    }
-    if (OPAQUE_CULL) {
-      for (int k = tid; k < CT; k += THREADS) {
-        if ((gmask >> (k / KG)) & 1) {
-          const float tex = chunk[(size_t)TEX_ROW * tp + k];
-          s_opq[k] = tex == floorf(tex);
-        }
-      }
-    }
-    __syncthreads();
-    for (int g = 0; g < G; ++g) {
-      if (!((gmask >> g) & 1)) continue;       // uniform over the CTA
-      for (int kk = 0; kk < KG; ++kk) {
-        const int k = g * KG + kk;
-        const float ea0 = s_cols[0][k], ea1 = s_cols[1][k], ea2 = s_cols[2][k];
-        const float eb0 = s_cols[3][k], eb1 = s_cols[4][k], eb2 = s_cols[5][k];
-        const float ec0 = s_cols[6][k], ec1 = s_cols[7][k], ec2 = s_cols[8][k];
-        const float bi0 = s_cols[9][k], bi1 = s_cols[10][k], bi2 = s_cols[11][k];
-        const float za = s_cols[12][k], zb = s_cols[13][k], zc = s_cols[14][k];
-        const bool opaque = OPAQUE_CULL && s_opq[k];
-        const int id = cid * CT + k;
-#pragma unroll
-        for (int j = 0; j < PPT; ++j) {
-          const float e0 = ea0 * px + eb0 * py[j] + ec0;
-          const float e1 = ea1 * px + eb1 * py[j] + ec1;
-          const float e2 = ea2 * px + eb2 * py[j] + ec2;
-          const float z = za * px + zb * py[j] + zc;
-          if (!((e0 > bi0) && (e1 > bi1) && (e2 > bi2) && (z >= 0.0f) &&
-                (z < INFINITY) && (z <= zlim[j])))
-            continue;
-          if (opaque) zop[j] = z;                // z <= zlim <= zop
-          // insert (z, id): walk down the sorted list, swapping the
-          // carried entry with every entry it precedes
-          const int p = tid + j * THREADS;
-          float zcar = z;
-          int icar = id;
-#pragma unroll
-          for (int l = 0; l < L; ++l) {
-            const float ze = s_z[l * P + p];
-            const int ie = s_id[l * P + p];
-            if (zcar < ze || (zcar == ze && icar > ie)) {
-              s_z[l * P + p] = zcar;
-              s_id[l * P + p] = icar;
-              zcar = ze;
-              icar = ie;
-            }
+  const int* list = lists + (size_t)t * maxc;
+  const int* gmasks = glists + (size_t)t * maxc;
+  for_each_pair<ROWS, RING>(
+      count, list, gmasks, cols, tp, s_ring,
+      [&](const float (*st)[KG], int id0) {
+        unsigned live = warp_cull(st, w);
+        while (live) {
+          const int k = __ffs(live) - 1;
+          live &= live - 1;
+          const float ea0 = st[0][k], ea1 = st[1][k], ea2 = st[2][k];
+          const float eb0 = st[3][k], eb1 = st[4][k], eb2 = st[5][k];
+          const float ec0 = st[6][k], ec1 = st[7][k], ec2 = st[8][k];
+          const float bi0 = st[9][k], bi1 = st[10][k], bi2 = st[11][k];
+          const float za = st[12][k], zb = st[13][k], zc = st[14][k];
+          bool opaque = false;
+          if constexpr (OPAQUE_CULL) {
+            const float tex = st[NRAST][k];
+            opaque = tex == floorf(tex);
           }
-          zlim[j] = fminf(s_z[(L - 1) * P + p], fminf(zhi_r[j], zop[j]));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
+          const int id = id0 + k;
+          const float px = w.px;
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int p = tid + j * THREADS;
+          for (int j = 0; j < K1_PPT; ++j) {
+            const float py = w.py[j];
+            const float e0 = ea0 * px + eb0 * py + ec0;
+            const float e1 = ea1 * px + eb1 * py + ec1;
+            const float e2 = ea2 * px + eb2 * py + ec2;
+            const float z = za * px + zb * py + zc;
+            if (!((e0 > bi0) && (e1 > bi1) && (e2 > bi2) && (z >= 0.0f) &&
+                  (z < INFINITY) && (z <= zlim[j])))
+              continue;
+            if (opaque) zcap[j] = z;               // z <= zlim <= zcap
+            // insert (z, id): walk down the sorted list, swapping the
+            // carried entry with every entry it precedes
+            const int q = j * K1_THREADS + threadIdx.x;
+            float zcar = z;
+            int icar = id;
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+              const float ze = s_z[l * CTA_P + q];
+              const int ie = s_id[l * CTA_P + q];
+              if (zcar < ze || (zcar == ze && icar > ie)) {
+                s_z[l * CTA_P + q] = zcar;
+                s_id[l * CTA_P + q] = icar;
+                zcar = ze;
+                icar = ie;
+              }
+            }
+            zlim[j] = fminf(s_z[(L - 1) * CTA_P + q], zcap[j]);
+          }
+        }
+      });
+
+  // An empty layer (id < 0) writes the zero coefficients' epilogue, which
+  // is the same at every pixel center (each plane of zero coefficients
+  // evaluates to +0 at any finite x, y), so it is computed once.
+  Planes empty;
+  layer_values(cols, tp, -1, w.px, w.py[0], w_eps, mode, lit, light, empty);
+  const int planes = mode == MTAP ? NMTAP : NTAP;
 #pragma unroll 1
-    for (int l = 0; l < L; ++l) {
-      const float z = s_z[l * P + p];
-      int id = s_id[l * P + p];
+  for (int l = 0; l < L; ++l) {         // a layer's planes, row by row
+#pragma unroll
+    for (int j = 0; j < K1_PPT; ++j) {
+      const int p = w.p0 + j * TILE_W;
+      const int q = j * K1_THREADS + threadIdx.x;
+      const float z = s_z[l * CTA_P + q];
+      int id = s_id[l * CTA_P + q];
       // entries strictly behind the nearest opaque fragment are invisible
-      // under src-alpha compositing
-      if (OPAQUE_CULL && z > zop[j]) id = -1;
+      // under src-alpha compositing (every kept z is <= zhi, so z > zcap
+      // is z > the opaque z)
+      if (OPAQUE_CULL && z > zcap[j]) id = -1;
       const size_t o = ((size_t)t * L + l) * P + p;
       zl_out[o] = id >= 0 ? z : 1.0f;
       il_out[o] = id;
-      const int planes = mode == MTAP ? NMTAP : NTAP;
-      layer_epilogue(cols, tp, id, px, py[j], w_eps, mode, lit, light,
-                     attrs_out + ((size_t)t * L + l) * planes * P + p,
-                     mode == MTAP ? nullptr : tapidx_out + o);
+      float* ta = attrs_out + ((size_t)t * L + l) * planes * P + p;
+      if (id >= 0) {
+        layer_epilogue(cols, tp, id, w.px, w.py[j], w_eps, mode, lit, light,
+                       ta, mode == MTAP ? nullptr : tapidx_out + o);
+      } else {
+#pragma unroll
+        for (int c = 0; c < NMTAP; ++c)
+          if (c < planes) ta[c * P] = empty.v[c];
+        if (mode != MTAP) tapidx_out[o] = empty.tapidx;
+      }
     }
   }
 }
@@ -240,45 +288,73 @@ struct Args {
   cudaStream_t stream;
 };
 
+// One instantiation: its dynamic shared memory, launch and occupancy.
 template <int L, bool OPAQUE_CULL, bool HAS_ZHI>
-cudaError_t launch(const Args& a) {
-  constexpr int smem = L * P * (int)(sizeof(float) + sizeof(int));
-  auto kernel = raster_fwd_ml_kernel<L, OPAQUE_CULL, HAS_ZHI>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<a.n_tiles, THREADS, smem, a.stream>>>(
-      a.cols, a.tp, a.lists, a.glists, a.counts, a.maxc, a.n_tx, a.x0,
-      a.y0, a.w_eps, a.zhi, a.mode, a.lit, a.light, a.zl, a.il, a.attrs,
-      a.tapidx);
-  return cudaGetLastError();
-}
+struct Instance {
+  static constexpr int smem = L * CTA_P * (int)(sizeof(float) + sizeof(int));
 
-template <bool OPAQUE_CULL, bool HAS_ZHI>
-cudaError_t launch_layers(int layers, const Args& a) {
+  static cudaError_t prepare() {
+    return cudaFuncSetAttribute(
+        raster_fwd_ml_kernel<L, OPAQUE_CULL, HAS_ZHI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+
+  static cudaError_t launch(const Args& a) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return err;
+    raster_fwd_ml_kernel<L, OPAQUE_CULL, HAS_ZHI>
+        <<<a.n_tiles * PARTS, K1_THREADS, smem, a.stream>>>(
+            a.cols, a.tp, a.lists, a.glists, a.counts, a.maxc, a.n_tx, a.x0,
+            a.y0, a.w_eps, a.zhi, a.mode, a.lit, a.light, a.zl, a.il,
+            a.attrs, a.tapidx);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t blocks_per_sm(int* blocks) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, raster_fwd_ml_kernel<L, OPAQUE_CULL, HAS_ZHI>, K1_THREADS,
+        smem);
+  }
+};
+
+// Calls f(Instance<L, OPAQUE_CULL, HAS_ZHI>{}) for the runtime choice.
+template <bool OPAQUE_CULL, bool HAS_ZHI, class F>
+cudaError_t with_layers(int layers, F&& f) {
   switch (layers) {
-    case 2: return launch<2, OPAQUE_CULL, HAS_ZHI>(a);
-    case 3: return launch<3, OPAQUE_CULL, HAS_ZHI>(a);
-    case 4: return launch<4, OPAQUE_CULL, HAS_ZHI>(a);
-    case 5: return launch<5, OPAQUE_CULL, HAS_ZHI>(a);
-    case 6: return launch<6, OPAQUE_CULL, HAS_ZHI>(a);
-    case 7: return launch<7, OPAQUE_CULL, HAS_ZHI>(a);
-    case 8: return launch<8, OPAQUE_CULL, HAS_ZHI>(a);
+    case 2: return f(Instance<2, OPAQUE_CULL, HAS_ZHI>{});
+    case 3: return f(Instance<3, OPAQUE_CULL, HAS_ZHI>{});
+    case 4: return f(Instance<4, OPAQUE_CULL, HAS_ZHI>{});
+    case 5: return f(Instance<5, OPAQUE_CULL, HAS_ZHI>{});
+    case 6: return f(Instance<6, OPAQUE_CULL, HAS_ZHI>{});
+    case 7: return f(Instance<7, OPAQUE_CULL, HAS_ZHI>{});
+    case 8: return f(Instance<8, OPAQUE_CULL, HAS_ZHI>{});
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <class F>
+cudaError_t with_instance(int layers, int opaque_cull, bool has_zhi,
+                          F&& f) {
+  if (opaque_cull)
+    return has_zhi ? with_layers<true, true>(layers, f)
+                   : with_layers<true, false>(layers, f);
+  return has_zhi ? with_layers<false, true>(layers, f)
+                 : with_layers<false, false>(layers, f);
 }
 
 }  // namespace
 
 // cols (ncol >= 33, or 42 when lit, tp) f32 column-major per-triangle
-// setup; lists and glists (n_tiles, maxc) i32; counts (n_tiles,) i32; zhi
-// (n_tiles, 2048) f32 or null; mode 0 = tap, 1 = mtap; lit != 0 folds the
-// lambert factor of the unit light (lx, ly, lz) into C rgb. Outputs are
-// tile-major: zl f32 and il i32 (n_tiles, L, 2048); attrs f32 (n_tiles,
-// 6L, 2048) in tap mode, (n_tiles, 17L, 2048) in mtap mode; tapidx i32
-// (n_tiles, L, 2048) in tap mode (unused, may be null, in mtap mode).
-// Launches on ``stream`` and returns the launch status; does not
-// synchronise.
+// setup, 16-byte aligned; lists and glists (n_tiles, maxc) i32; counts
+// (n_tiles,) i32; zhi (n_tiles, 2048) f32 or null; mode 0 = tap, 1 =
+// mtap; lit != 0 folds the lambert factor of the unit light (lx, ly, lz)
+// into C rgb. Outputs are tile-major: zl f32 and il i32 (n_tiles, L,
+// 2048); attrs f32 (n_tiles, 6L, 2048) in tap mode, (n_tiles, 17L, 2048)
+// in mtap mode; tapidx i32 (n_tiles, L, 2048) in tap mode (unused, may be
+// null, in mtap mode). Launches on ``stream`` and returns the launch
+// status; does not synchronise.
 extern "C" cudaError_t mtr_raster_fwd_ml(
     const float* cols, int tp, const int* lists, const int* glists,
     const int* counts, int n_tiles, int maxc, int n_tx, int x0, int y0,
@@ -290,9 +366,17 @@ extern "C" cudaError_t mtr_raster_fwd_ml(
   const Args a{cols, tp, lists, glists, counts, n_tiles, maxc, n_tx, x0,
                y0, w_eps, zhi, mode, lit, Light{lx, ly, lz}, zl, il,
                attrs, tapidx, (cudaStream_t)stream};
-  if (opaque_cull)
-    return zhi ? launch_layers<true, true>(layers, a)
-               : launch_layers<true, false>(layers, a);
-  return zhi ? launch_layers<false, true>(layers, a)
-             : launch_layers<false, false>(layers, a);
+  return with_instance(layers, opaque_cull, zhi != nullptr,
+                       [&](auto k) { return decltype(k)::launch(a); });
+}
+
+// CTAs of the (layers, opaque_cull, has_zhi) instantiation that one SM
+// holds at once.
+extern "C" cudaError_t mtr_raster_fwd_ml_blocks_per_sm(int layers,
+                                                       int opaque_cull,
+                                                       int has_zhi,
+                                                       int* blocks) {
+  return with_instance(layers, opaque_cull, has_zhi != 0, [&](auto k) {
+    return decltype(k)::blocks_per_sm(blocks);
+  });
 }

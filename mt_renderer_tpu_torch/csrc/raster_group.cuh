@@ -1,7 +1,8 @@
 // The single-layer raster's CTA layout and group body, shared by the
 // production raster K1 (raster_fwd.cu) and its speed-of-light probe K3
 // (raster_micro.cu), so that the probe prices the exact op mix of the
-// production kernel. The counterpart of _sl_group_body
+// production kernel; the multi-layer raster K2 (raster_fwd_ml.cu) runs
+// the same layout and cull. The counterpart of _sl_group_body
 // (mt_renderer_tpu/render/pallas_raster.py:532), which the TPU kernels
 // share the same way; the one-hot coefficient select of that body is
 // gone: the kernels load the winner's columns by id in their epilogues.
@@ -141,7 +142,7 @@ __device__ __forceinline__ void raster_group(
 }  // namespace mtr
 
 // The CTA layout above, {PARTS, WARP_W, WARP_H, K1_THREADS}, exported by
-// each library built from this header (K1's and K3's): raster.py holds
+// each library built from this header (K1's, K2's and K3's): raster.py holds
 // its own copy, which the pixel-layout twins use, against it.
 extern "C" cudaError_t mtr_raster_layout(int* out) {
   out[0] = mtr::PARTS;

@@ -39,10 +39,6 @@ constexpr int TEX_ROW = NRAST + 9;   // tex column: integer = opaque
 constexpr int NTAP = 6;              // fx, fy, C rgba
 constexpr int NMTAP = 17;            // u, v, tex, off hi/lo, th, tw, C rgba,
                                      // U_x U_y V_x V_y Q_x Q_y over Q
-constexpr int THREADS = 256;         // K2's CTA: one tile (K1's layout is
-                                     // raster_group.cuh's)
-constexpr int PPT = P / THREADS;     // pixels per thread
-constexpr int ROWS_PER_PASS = THREADS / TILE_W;
 
 // The epilogue modes: the bilinear tap, the trilinear mip tap.
 enum Mode { TAP = 0, MTAP = 1 };
@@ -84,13 +80,20 @@ __device__ __forceinline__ float lit_scale(const float* a, float px,
   return 0.3f + 0.7f * ndl;
 }
 
-// Writes plane c of the pixel's tap outputs to ta[c * P] and its quad-pool
-// row (or -1 for an untextured triangle) to *tapidx.
+// A pixel's epilogue outputs: the NTAP or NMTAP planes and, in tap mode,
+// the quad-pool row.
+struct Planes {
+  float v[NMTAP];
+  int tapidx;
+};
+
+// The pixel's tap outputs: planes 0..NTAP-1 and its quad-pool row (or -1
+// for an untextured triangle).
 template <bool LIT>
-__device__ __forceinline__ void tap_epilogue(
-    const float* __restrict__ cols, int tp, int id, float px, float py,
-    float w_eps, Light light, float* __restrict__ ta,
-    int* __restrict__ tapidx) {
+__device__ __forceinline__ void tap_values(const float* __restrict__ cols,
+                                           int tp, int id, float px,
+                                           float py, float w_eps,
+                                           Light light, Planes& o) {
   float a[LIT ? NCOEF_LIT : NCOEF];
   load_coefs(cols, tp, id, a);
   const float inv = persp_inv(a, px, py, w_eps);
@@ -108,15 +111,59 @@ __device__ __forceinline__ void tap_epilogue(
   const int x0c = min(max(__float2int_rz(x0f), 0), max(wwi - 1, 0));
   const int y0c = min(max(__float2int_rz(y0f), 0), max(hhi - 1, 0));
   const int offi = __float2int_rz(a[14]) * 4096 + __float2int_rz(a[15]);
-  *tapidx = a[9] >= 0.0f ? offi + y0c * wwi + x0c : -1;
+  o.tapidx = a[9] >= 0.0f ? offi + y0c * wwi + x0c : -1;
   float s = 1.0f;
   if constexpr (LIT) s = lit_scale(a, px, py, inv, light);
-  ta[0 * P] = x0f < 0.0f ? 0.0f : xs - x0f;
-  ta[1 * P] = y0f < 0.0f ? 0.0f : ys - y0f;
-  ta[2 * P] = LIT ? a[10] * s : a[10];
-  ta[3 * P] = LIT ? a[11] * s : a[11];
-  ta[4 * P] = LIT ? a[12] * s : a[12];
-  ta[5 * P] = a[13];
+  o.v[0] = x0f < 0.0f ? 0.0f : xs - x0f;
+  o.v[1] = y0f < 0.0f ? 0.0f : ys - y0f;
+  o.v[2] = LIT ? a[10] * s : a[10];
+  o.v[3] = LIT ? a[11] * s : a[11];
+  o.v[4] = LIT ? a[12] * s : a[12];
+  o.v[5] = a[13];
+}
+
+// The pixel's mtap outputs: planes 0..NMTAP-1.
+template <bool LIT>
+__device__ __forceinline__ void mtap_values(const float* __restrict__ cols,
+                                            int tp, int id, float px,
+                                            float py, float w_eps,
+                                            Light light, Planes& o) {
+  float a[LIT ? NCOEF_LIT : NCOEF];
+  load_coefs(cols, tp, id, a);
+  const float inv = persp_inv(a, px, py, w_eps);
+  float s = 1.0f;
+  if constexpr (LIT) s = lit_scale(a, px, py, inv, light);
+  o.v[0] = plane(a, 0, px, py) * inv;          // u
+  o.v[1] = plane(a, 3, px, py) * inv;          // v
+  o.v[2] = a[9];                               // tex (< 0: untextured)
+  o.v[3] = a[14];                              // off hi
+  o.v[4] = a[15];                              // off lo
+  o.v[5] = a[16];                              // th
+  o.v[6] = a[17];                              // tw
+  o.v[7] = LIT ? a[10] * s : a[10];            // C rgba, alpha unlit
+  o.v[8] = LIT ? a[11] * s : a[11];
+  o.v[9] = LIT ? a[12] * s : a[12];
+  o.v[10] = a[13];
+  o.v[11] = a[0] * inv;                        // U_x, U_y over Q
+  o.v[12] = a[1] * inv;
+  o.v[13] = a[3] * inv;                        // V_x, V_y over Q
+  o.v[14] = a[4] * inv;
+  o.v[15] = a[6] * inv;                        // Q_x, Q_y over Q
+  o.v[16] = a[7] * inv;
+}
+
+// Writes plane c of the pixel's tap outputs to ta[c * P] and its quad-pool
+// row to *tapidx.
+template <bool LIT>
+__device__ __forceinline__ void tap_epilogue(
+    const float* __restrict__ cols, int tp, int id, float px, float py,
+    float w_eps, Light light, float* __restrict__ ta,
+    int* __restrict__ tapidx) {
+  Planes o;
+  tap_values<LIT>(cols, tp, id, px, py, w_eps, light, o);
+#pragma unroll
+  for (int c = 0; c < NTAP; ++c) ta[c * P] = o.v[c];
+  *tapidx = o.tapidx;
 }
 
 // Writes plane c of the pixel's mtap outputs to ta[c * P].
@@ -124,28 +171,10 @@ template <bool LIT>
 __device__ __forceinline__ void mtap_epilogue(
     const float* __restrict__ cols, int tp, int id, float px, float py,
     float w_eps, Light light, float* __restrict__ ta) {
-  float a[LIT ? NCOEF_LIT : NCOEF];
-  load_coefs(cols, tp, id, a);
-  const float inv = persp_inv(a, px, py, w_eps);
-  float s = 1.0f;
-  if constexpr (LIT) s = lit_scale(a, px, py, inv, light);
-  ta[0 * P] = plane(a, 0, px, py) * inv;       // u
-  ta[1 * P] = plane(a, 3, px, py) * inv;       // v
-  ta[2 * P] = a[9];                            // tex (< 0: untextured)
-  ta[3 * P] = a[14];                           // off hi
-  ta[4 * P] = a[15];                           // off lo
-  ta[5 * P] = a[16];                           // th
-  ta[6 * P] = a[17];                           // tw
-  ta[7 * P] = LIT ? a[10] * s : a[10];         // C rgba, alpha unlit
-  ta[8 * P] = LIT ? a[11] * s : a[11];
-  ta[9 * P] = LIT ? a[12] * s : a[12];
-  ta[10 * P] = a[13];
-  ta[11 * P] = a[0] * inv;                     // U_x, U_y over Q
-  ta[12 * P] = a[1] * inv;
-  ta[13 * P] = a[3] * inv;                     // V_x, V_y over Q
-  ta[14 * P] = a[4] * inv;
-  ta[15 * P] = a[6] * inv;                     // Q_x, Q_y over Q
-  ta[16 * P] = a[7] * inv;
+  Planes o;
+  mtap_values<LIT>(cols, tp, id, px, py, w_eps, light, o);
+#pragma unroll
+  for (int c = 0; c < NMTAP; ++c) ta[c * P] = o.v[c];
 }
 
 }  // namespace mtr

@@ -33,7 +33,7 @@ tensors' device: a CPU tensor runs the plain PyTorch version
 kernel (``csrc/raster_fwd.cu``, ``csrc/raster_fwd_ml.cu``,
 ``csrc/raster_micro.cu``) or raises.
 
-K1 and K3 run ``PARTS`` CTAs per tile, each with ``WARPS // PARTS``
+K1, K2 and K3 run ``PARTS`` CTAs per tile, each with ``WARPS // PARTS``
 warps of ``WARP_W`` x ``WARP_H`` pixels, and every warp culls each
 group's triangles against its rectangle of pixel centers before it
 evaluates them. ``warp_cull_reference`` is that cull's plain twin: the
@@ -80,7 +80,7 @@ PART_W = TILE_W // PARTS
 WARP_W, WARP_H = 32, 8   # a K1 warp's pixel block; a lane owns a column
 WARPS = P // (WARP_W * WARP_H)   # K1 warps per tile, over its parts
 # csrc/raster_group.cuh fixes the same layout; each library built from it
-# is held to this copy at its first use (_check_layout)
+# (K1's, K2's, K3's) is held to this copy at its first use (_check_layout)
 LAYOUT = (PARTS, WARP_W, WARP_H, 32 * WARPS // PARTS)
 _LAYOUT_CHECKED: set = set()
 
@@ -385,7 +385,7 @@ _MICRO_ARGS = [_P, _I, _I, _I, _I, _P, _P, _P, _P]
 
 
 def _check_layout(name: str) -> None:
-    """Raise unless kernel ``name``'s library (K1's or K3's) was built
+    """Raise unless kernel ``name``'s library (K1's, K2's or K3's) was built
     with this module's CTA layout (LAYOUT); checked once per library."""
     if name in _LAYOUT_CHECKED:
         return
@@ -525,6 +525,15 @@ def raster_fwd_reference(cols, lists, glists, counts, origin, *,
 # ------------------------------------------------ K1's cull: the plain twin
 
 
+def _by_warp(x):
+    """Tile-major per-pixel values (n_tiles, P) → (n_tiles, WARPS,
+    WARP_W * WARP_H), grouped by K1's warps (``warp_pixel_centers``)."""
+    return (x.reshape(x.shape[0], TILE_H // WARP_H, WARP_H, PARTS,
+                      PART_W // WARP_W, WARP_W)
+            .permute(0, 3, 1, 4, 2, 5)
+            .reshape(x.shape[0], WARPS, WARP_H * WARP_W))
+
+
 def warp_pixel_centers(width: int, height: int, origin, dev):
     """The pixel centers of K1's warps → (px, py), each (n_tiles, WARPS,
     WARP_W * WARP_H) f32. With n = WARPS // PARTS warps a part and m =
@@ -534,15 +543,7 @@ def warp_pixel_centers(width: int, height: int, origin, dev):
     WARP_H * (i // m) + [0, WARP_H), as ``csrc/raster_group.cuh::
     warp_pixels`` maps them."""
     px, py = _pixel_centers(width, height, origin, dev)
-    n = px.shape[0]
-
-    def by_warp(x):
-        return (x.reshape(n, TILE_H // WARP_H, WARP_H, PARTS,
-                          PART_W // WARP_W, WARP_W)
-                .permute(0, 3, 1, 4, 2, 5)
-                .reshape(n, WARPS, WARP_H * WARP_W))
-
-    return by_warp(px), by_warp(py)
+    return _by_warp(px), _by_warp(py)
 
 
 def _edge_may_pass(a, b, c, bias, x0, x1, y0, y1):
@@ -559,14 +560,17 @@ def _edge_may_pass(a, b, c, bias, x0, x1, y0, y1):
 
 def warp_cull_reference(cols, lists, glists, counts, origin, *, width: int,
                         height: int):
-    """Plain PyTorch twin of K1's per-warp cull on ``raster_fwd``'s
-    inputs → live (n_tiles, maxc, G, WARPS, KG) bool: True where triangle
-    k of group g of the chunk in list slot s survives warp w's test (see
+    """Plain PyTorch twin of the per-warp edge cull of K1 and K2 on
+    ``raster_fwd``'s (or ``raster_fwd_ml``'s) inputs → live (n_tiles,
+    maxc, G, WARPS, KG) bool: True where triangle k of group g of the
+    chunk in list slot s survives warp w's test (see
     ``warp_pixel_centers`` for the warps); False for slots at or past a
-    tile's count and for groups whose mask bit is clear. The kernel
-    evaluates exactly the True entries, so ``live.sum()`` is the
-    surviving (triangle, warp) pairs of a launch. Not on the frame path:
-    the tests and the roofline's counts use it."""
+    tile's count and for groups whose mask bit is clear. K1 evaluates
+    exactly the True entries, so ``live.sum()`` is the surviving
+    (triangle, warp) pairs of a launch, and so does K2. A culled pair
+    has no pixel inside all three edges, so it neither wins in K1 nor
+    enters any layer in K2. Not on the frame path: the tests and the
+    roofline's counts use it."""
     _check_raster_args(cols, lists, glists, counts, width, height, 0)
     dev = cols.device
     n_tiles, maxc = lists.shape
@@ -759,8 +763,11 @@ raster_fwd_ml.launches = 0
 def _raster_fwd_ml_cuda(cols, lists, glists, counts, origin, *, width,
                         height, layers, w_eps, opaque_cull, zhi, mode,
                         light):
+    _check_layout("raster_fwd_ml")
     fn = _build.fn("raster_fwd_ml", "mtr_raster_fwd_ml", _ML_ARGS)
     cols = cols.contiguous()
+    if cols.data_ptr() % 16:          # the kernel stages 16-byte copies
+        cols = cols.clone()
     lists = lists.contiguous()
     glists = glists.contiguous()
     counts = counts.contiguous()
@@ -791,6 +798,21 @@ def _raster_fwd_ml_cuda(cols, lists, glists, counts, origin, *, width,
                            f"{err}")
     raster_fwd_ml.launches += 1
     return (zl, il, attrs, tapidx) if mode == "tap" else (zl, il, attrs)
+
+
+def ml_blocks_per_sm(device, layers: int, opaque_cull: bool,
+                     has_zhi: bool) -> int:
+    """CTAs of K2's (layers, opaque_cull, zhi) instantiation (PARTS of
+    them per tile) that one SM of ``device`` holds at once."""
+    _check_layout("raster_fwd_ml")
+    fn = _build.fn("raster_fwd_ml", "mtr_raster_fwd_ml_blocks_per_sm",
+                   [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(layers, int(opaque_cull), int(has_zhi), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return out.value
 
 
 def raster_fwd_ml_reference(cols, lists, glists, counts, origin, *,

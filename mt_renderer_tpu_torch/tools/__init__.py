@@ -49,6 +49,35 @@ def cuda_times(fn, device, repeats: int, calls: int = 1) -> list[float]:
     return out
 
 
+def graph_times(fn, device, repeats: int, calls: int = 1) -> list[float]:
+    """``repeats`` readings of ``fn``'s device time alone in ms per call:
+    ``fn(i)`` for i < calls captured once into a CUDA graph (after one
+    warm-up round), each reading CUDA events around one replay. Unlike
+    ``cuda_times``, the host's time between launches (a wrapper's
+    checks, allocations and binding) cannot show in it; ``fn`` must not
+    synchronise."""
+    for i in range(calls):
+        fn(i)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize(device)
+    out = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / calls)
+    del graph
+    return out
+
+
 def median(xs):
     """The upper median (the reference tools' ``sorted(x)[len // 2]``)."""
     return sorted(xs)[len(xs) // 2]

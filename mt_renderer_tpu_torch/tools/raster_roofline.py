@@ -3,6 +3,7 @@ how far its binned work sits above what it has to evaluate, and what
 the rest of its time is made of.
 
     python -m mt_renderer_tpu_torch.tools.raster_roofline [default|dense|world ...] [--k1]
+    python -m mt_renderer_tpu_torch.tools.raster_roofline [glass|glass_mip|opaque|opaque_mip ...] --k2 [--layers=4]
 
 The counterpart of ``tools/bench/raster_roofline.py``, for the H100.
 K1's group body (``csrc/raster_group.cuh``) first culls each group
@@ -28,10 +29,12 @@ work has two units and two rates:
    (group, warp) and ``eval_ns`` per surviving (triangle, warp),
    card-wide rates like K1's below.
 2. **K1's breakdown** (``k1_breakdown``), on each view's prebinned
-   inputs, CUDA events around ``raster.raster_fwd`` alone, the median
-   over repeats of the mean over the views: ``k1_ms``; ``empty_ms``,
-   every tile's chunk count 0 (the launch, the epilogue without
-   coefficient gathers, the output writes); ``nowin_ms``, every z plane
+   inputs, ``raster.raster_fwd`` alone replayed from a CUDA graph (so
+   the device's time only: in a loop of calls the wrapper's host time
+   hides a launch shorter than it), the median over repeats of the mean
+   over the views: ``k1_ms``; ``empty_ms``, every tile's chunk count 0
+   (the launch, the epilogue without coefficient gathers, the output
+   writes); ``nowin_ms``, every z plane
    set to -1 (``no_winner``: the same chunk loads, cull and evaluation,
    but no pixel is covered, so the epilogue gathers nothing); so
    ``gather_ms`` = k1 - nowin prices the epilogue's coefficient gathers
@@ -62,6 +65,24 @@ card, the rates line and one summary line per preset; with ``--k1``,
 only K1's breakdown line per preset (no probe, no cull counts: it runs
 on any checkout whose K1 takes ``raster_fwd``'s arguments). Refuses to
 run without a CUDA device.
+
+5. **K2's breakdown** (``--k2``, ``k2_breakdown``): the multi-layer
+   raster K2 (``raster.raster_fwd_ml``) as the frames call it, at
+   1920x1080 over eight views (yaw + 3i degrees): ``glass``, the glass
+   scene's translucent set behind K1's opaque z-buffer (``zhi``, no
+   opaque cull, tap, quad pool: the split peel); ``glass_mip``, the same
+   with the tri pool, mtap + lit; ``opaque``, the headline scene with
+   the opaque cull (``full``, tap: the ml peel on an opaque stack);
+   ``opaque_mip``, the same, tri pool, mtap + lit. L = 4 (the glass
+   preset's peel depth) unless ``--layers=2,4,8`` asks for others.
+   Per case and L, replayed from a CUDA graph as K1's: ``k2_ms``;
+   ``empty_ms`` with every chunk count 0 (the launch and the L layers'
+   writes); ``fill_ms``, a ``zero_`` of the same output bytes; K2's
+   CTAs per SM and per tile; view 0's per-tile pair tail against a
+   CTA's share and its surviving (triangle, warp) pairs of the cull
+   (``raster.warp_cull_reference``). It runs on an older checkout too
+   (one CTA a tile, no occupancy query: where
+   ``raster.ml_blocks_per_sm`` is missing it prints "n/a").
 """
 
 from __future__ import annotations
@@ -76,12 +97,19 @@ from ..entry import demo_case, world_case
 from ..render import device as dv
 from ..render import raster as rs
 from ..scene.model import DrawBatch
-from . import card_line, cuda_times, median, require_cuda
+from . import card_line, cuda_times, graph_times, median, require_cuda
 
 W, H = 1920, 1080
 VIEWS = 8                  # views per preset
 R1, R2 = 32, 160           # the probe's two rep counts
 PRESETS = ("default", "dense", "world")
+# K2's cases: (scene, split peel's translucent set behind zhi?, mode, lit)
+K2_CASES = {"glass": (dict(translucent=True, cam_scale=0.3), True, "tap",
+                      False),
+            "glass_mip": (dict(translucent=True, cam_scale=0.3,
+                               pool_mode="tri"), True, "mtap", True),
+            "opaque": (dict(), False, "tap", False),
+            "opaque_mip": (dict(pool_mode="tri"), False, "mtap", True)}
 WORLD = dict(buildings=280, building_subdivs=(4, 6, 8, 10, 12))
 
 
@@ -293,7 +321,7 @@ def k1_breakdown(scene, vps, bones, maxc: int, *, mode: str = "tap",
     kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode=mode)
 
     def ms(what):
-        return median(cuda_times(
+        return median(graph_times(
             lambda i: rs.raster_fwd(*runs[i][what], (0, 0), **kw), dev,
             repeats, calls=len(runs)))
 
@@ -301,8 +329,8 @@ def k1_breakdown(scene, vps, bones, maxc: int, *, mode: str = "tap",
     out_bytes = sum(o.numel() * o.element_size()
                     for o in rs.raster_fwd(*runs[0]["empty"], (0, 0), **kw))
     buf = torch.empty(out_bytes // 4, dtype=torch.float32, device=dev)
-    out["fill_ms"] = median(cuda_times(lambda _i: buf.zero_(), dev, repeats,
-                                       calls=len(runs)))
+    out["fill_ms"] = median(graph_times(lambda _i: buf.zero_(), dev, repeats,
+                                        calls=len(runs)))
     bps = rs.blocks_per_sm(dev)
     resident = torch.cuda.get_device_properties(dev).multi_processor_count \
         * bps
@@ -312,6 +340,97 @@ def k1_breakdown(scene, vps, bones, maxc: int, *, mode: str = "tap",
                 resident_ctas=resident, parts=parts,
                 **pair_histogram(tile_pairs(*runs[0]["k1"][1:]), resident,
                                  parts))
+
+
+def k2_inputs(case: str, device, *, views: int = VIEWS,
+              instances: int = 1024, subdiv: int = 4) -> tuple:
+    """K2's launches of one case (``K2_CASES``) over the views, as the
+    frames make them, on the demo scene of ``instances`` at ``subdiv``
+    (the headline's by default) → ([(positional args, keywords) per
+    view], the case's mode)."""
+    if case not in K2_CASES:
+        raise ValueError(f"unknown K2 case {case!r}: one of "
+                         f"{tuple(K2_CASES)}")
+    scene_kw, split, mode, lit = K2_CASES[case]
+    demo = demo_case(device, instances=instances, subdiv=subdiv, width=W,
+                     height=H, **scene_kw)
+    bones = demo.bone_mats(0.3)
+    light = dv._light_unit() if lit else None
+    pw, ph = dv._padded(W, H)
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode=mode, light=light)
+    out, maxc = [], None
+    for i in range(views):
+        demo.camera.yaw = 15.0 + 3.0 * i
+        vp = demo.view_proj()
+        if maxc is None:
+            maxc = dv.auto_maxc(demo.batch, vp, bones, width=W, height=H)
+        clip = dv.vertex_stage(demo.scene, vp, bones)
+        setup = dv.setup_packed_cols(demo.scene, clip, W, H,
+                                     opacity_split=split, bone_mats=bones,
+                                     lighting=lit)
+        zhi = None
+        if split:
+            (cols_op, bbox_op), (cols, bbox) = setup
+            pre = rs.prebin(cols_op, bbox_op, 0, 0, width=pw, height=ph,
+                            maxc=maxc)
+            zo, io = rs.raster_fwd(cols_op, *pre[:3], (0, 0), **kw)[:2]
+            zhi = torch.where(io >= 0, zo, float("inf"))
+        else:
+            cols, bbox = setup
+        lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                             height=ph, maxc=maxc)
+        out.append(((cols, lists, glists, counts, (0, 0)),
+                    dict(kw, opaque_cull=not split, zhi=zhi)))
+    rs.flush_overflow_checks()
+    return out, mode
+
+
+def k2_breakdown(runs, layers: int, *, repeats: int = 5) -> dict:
+    """K2 at L = ``layers`` on ``k2_inputs``' launches beside the same
+    launches with every chunk count 0, a fill of its output bytes, its
+    CTAs per SM and view 0's pair tail and surviving (triangle, warp)
+    pairs (see the module docstring)."""
+    args0, kw0 = runs[0]
+    dev = require_cuda(args0[0].device)
+    kws = [dict(kw, layers=layers) for _, kw in runs]
+    empty = [(*a[:3], torch.zeros_like(a[3]), a[4]) for a, _ in runs]
+
+    def ms(argv):
+        return median(graph_times(lambda i: rs.raster_fwd_ml(*argv[i],
+                                                             **kws[i]),
+                                  dev, repeats, calls=len(runs)))
+
+    out = dict(k2_ms=ms([a for a, _ in runs]), empty_ms=ms(empty))
+    out_bytes = sum(o.numel() * o.element_size()
+                    for o in rs.raster_fwd_ml(*empty[0], **kws[0]))
+    buf = torch.empty(out_bytes // 4, dtype=torch.float32, device=dev)
+    out["fill_ms"] = median(graph_times(lambda _i: buf.zero_(), dev, repeats,
+                                        calls=len(runs)))
+    del buf
+    occupancy = getattr(rs, "ml_blocks_per_sm", None)
+    parts = rs.PARTS if occupancy else 1    # 1: a K2 of one CTA per tile
+    bps = occupancy(dev, layers, kw0["opaque_cull"],
+                    kw0["zhi"] is not None) if occupancy else None
+    resident = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * (bps or 1))
+    cols, lists, glists, counts, origin = args0
+    live = rs.warp_cull_reference(cols, lists, glists, counts, origin,
+                                  width=kw0["width"], height=kw0["height"])
+    return dict(out, layers=layers, out_mb=out_bytes / 1e6,
+                blocks_per_sm=bps, parts=parts, surviving=int(live.sum()),
+                **pair_histogram(tile_pairs(lists, glists, counts), resident,
+                                 parts))
+
+
+def k2_line(case: str, r: dict) -> str:
+    bps = "n/a" if r["blocks_per_sm"] is None else r["blocks_per_sm"]
+    return (f"K2 {case} L={r['layers']}: k2={r['k2_ms']!r}ms "
+            f"empty(counts=0)={r['empty_ms']!r}ms "
+            f"fill({r['out_mb']!r}MB)={r['fill_ms']!r}ms; {bps} CTAs per "
+            f"SM, {r['parts']} per tile; view 0: pairs={r['pairs']} "
+            f"surviving={r['surviving']} live_tiles={r['live_tiles']} "
+            f"max={r['max']} p90={r['p90']!r} mean={r['mean']!r} "
+            f"share={r['share']!r} heavy/share={r['heavy_over_share']!r}")
 
 
 def floor_ms(pairs: int, surviving: int, r: dict) -> float:
@@ -381,10 +500,22 @@ def summary_line(r: dict) -> str:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    presets = [a for a in args if not a.startswith("-")] or list(PRESETS)
+    names = [a for a in args if not a.startswith("-")]
     dev = require_cuda()
     print(f"card: {torch.cuda.get_device_name(dev)}; {card_line()}",
           flush=True)
+    if "--k2" in args:
+        layers = [4]
+        for a in args:
+            if a.startswith("--layers="):
+                layers = [int(x) for x in a.split("=", 1)[1].split(",")]
+        for case in names or list(K2_CASES):
+            runs, _ = k2_inputs(case, dev)
+            for n in layers:
+                print(k2_line(case, k2_breakdown(runs, n)), flush=True)
+            del runs
+        return 0
+    presets = names or list(PRESETS)
     sol = None
     for preset in presets:
         if "--k1" in args:

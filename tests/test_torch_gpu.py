@@ -9,9 +9,9 @@ file imports no jax, so it also runs on a machine without it:
 
 Tolerance: none. K1, K2 and K3 are built without FMA contraction, so
 they round every plane evaluation like the plain versions' separate ops:
-their outputs are expected bit-equal (K1's and K2's mtap and lit
-epilogues are held to 2 ulp, with ids, coverage and tap addresses
-exact). K4 is integer arithmetic: bit-equal. The frames on the card are
+their outputs are expected bit-equal (K1's mtap and lit epilogues on the
+demo scene are held to 2 ulp, with ids, coverage and tap addresses
+exact; K2's to 0 ulp). K4 is integer arithmetic: bit-equal. The frames on the card are
 held to the CPU's under the golden rule (coverage exact, at most 0.3% of
 pixels with a channel off by more than 1); the animated palette of the
 world, computed on the card, equals the host's bit for bit.
@@ -208,14 +208,57 @@ def _opaque_horizon(device, lighting=False):
     return torch.where(io >= 0, zo, float("inf"))
 
 
+def _hard_ml_case(variant: str, lit: bool = False):
+    """K2's inputs on the adversarial or heavy-tile scene of
+    ``test_torch_k2_cull.k2_case`` ("<scene>_<variant>", on the CPU), the
+    lit matrix with 9 seeded normal rows → (args, keywords but
+    ``layers``)."""
+    from test_torch_k2_cull import k2_case
+
+    scene, kind = variant.split("_", 1)
+    args, kw = k2_case(scene, kind)
+    cols = args[0][:tr.N_RAST + tr.N_COEF]
+    if lit:
+        rng = np.random.default_rng(7)
+        cols = torch.cat([cols, torch.from_numpy(rng.uniform(
+            -1, 1, (tr.N_COEF_LIT - tr.N_COEF, cols.shape[1])).astype(
+                np.float32))])
+    return (cols, *args[1:]), dict(kw, light=td._light_unit() if lit
+                                   else None)
+
+
+HARD_ML = [f"{scene}_{v}" for scene in ("adversarial", "heavy")
+           for v in ("full", "full_zhi", "nocull", "nocull_zhi")]
+
+
+def _to(x, dev):
+    return x.to(dev) if torch.is_tensor(x) else x
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("layers", [2, 4, 8])
 @pytest.mark.parametrize("variant", ["full", "nocull_zhi", "full_stack",
-                                     "nocull_stack"])
+                                     "nocull_stack", *HARD_ML])
 def test_ml_kernel_matches_plain_version(cuda, layers, variant):
     """K2 on the glass scene ("full" over every triangle, "nocull" over
-    the translucent set behind K1's opaque z-buffer) and on the deep
-    quad stack (both variants, no horizon)."""
+    the translucent set behind K1's opaque z-buffer), on the deep quad
+    stack (both variants, no horizon), and on K1's adversarial and
+    heavy-tile scenes (full and nocull, each with and without a seeded
+    horizon holding -0.0, negative, +inf and NaN pixels): bit for bit."""
+    if variant in HARD_ML:
+        args, kw = _hard_ml_case(variant)
+        kw.update(layers=layers)
+        want = tr.raster_fwd_ml_reference(*args, **kw)
+        before = tr.raster_fwd_ml.launches
+        got = tr.raster_fwd_ml(*(_to(a, cuda) for a in args),
+                               **{k: _to(v, cuda) for k, v in kw.items()})
+        torch.cuda.synchronize()
+        assert tr.raster_fwd_ml.launches == before + 1
+        assert bool((want[1] >= 0).any())
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g.cpu(), w)
+        return
     if variant == "full":
         args, _ = _binned(cuda, glass="all")
         kw = dict(opaque_cull=True, zhi=None)
@@ -239,26 +282,41 @@ def test_ml_kernel_matches_plain_version(cuda, layers, variant):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("layers", [2, 4, 8])
-@pytest.mark.parametrize("variant", ["full", "nocull_zhi"])
+@pytest.mark.parametrize("variant", ["full", "nocull_zhi",
+                                     "adversarial_full",
+                                     "adversarial_nocull_zhi", "heavy_full",
+                                     "heavy_nocull_zhi"])
 @pytest.mark.parametrize("mode,lit", [("mtap", False), ("mtap", True),
                                       ("tap", True)])
 def test_ml_kernel_epilogues_match_plain_version(cuda, layers, variant, mode,
                                                  lit):
-    """K2's mtap and lit epilogues on the glass scene with unit normals:
-    "full" over every triangle, "nocull" over the translucent set behind
-    K1's opaque z-buffer. Ids, coverage and tap addresses exact, every
-    plane within 2 ulp (bit-equal expected)."""
-    glass = "all" if variant == "full" else "translucent"
-    args, _ = _binned(cuda, glass=glass, lighting=lit)
-    kw = dict(opaque_cull=variant == "full",
-              zhi=None if variant == "full" else _opaque_horizon(cuda, lit),
-              width=W, height=H, layers=layers, w_eps=td.W_EPS, mode=mode,
-              light=td._light_unit() if lit else None)
+    """K2's mtap and lit epilogues on the glass scene with unit normals
+    ("full" over every triangle, "nocull" over the translucent set
+    behind K1's opaque z-buffer) and on K1's adversarial and heavy-tile
+    scenes (their seeded horizon with "nocull", seeded normal rows when
+    lit). Ids, coverage and tap addresses exact, z and every plane at
+    0 ulp."""
+    if variant.startswith(("adversarial", "heavy")):
+        args, kw = _hard_ml_case(variant, lit)
+        kw.update(layers=layers, mode=mode)
+        want = tr.raster_fwd_ml_reference(*args, **kw)
+        args = tuple(_to(a, cuda) for a in args)
+        kw = {k: _to(v, cuda) for k, v in kw.items()}
+    else:
+        glass = "all" if variant == "full" else "translucent"
+        args, _ = _binned(cuda, glass=glass, lighting=lit)
+        kw = dict(opaque_cull=variant == "full",
+                  zhi=(None if variant == "full"
+                       else _opaque_horizon(cuda, lit)),
+                  width=W, height=H, layers=layers, w_eps=td.W_EPS,
+                  mode=mode, light=td._light_unit() if lit else None)
+        want = tr.raster_fwd_ml_reference(*args, **kw)
     before = tr.raster_fwd_ml.launches
     got = tr.raster_fwd_ml(*args, **kw)
     torch.cuda.synchronize()
     assert tr.raster_fwd_ml.launches == before + 1
-    want = tr.raster_fwd_ml_reference(*args, **kw)
+    got = tuple(g.cpu() for g in got)
+    want = tuple(w.cpu() for w in want)
     n_planes = tr.ATTRS_MTAP if mode == "mtap" else tr.ATTRS_TAP
     assert len(got) == len(want) == (3 if mode == "mtap" else 4)
     assert tuple(got[2].shape) == (args[3].shape[0], layers * n_planes, tr.P)
@@ -268,7 +326,7 @@ def test_ml_kernel_epilogues_match_plain_version(cuda, layers, variant, mode,
         assert torch.equal(got[3], want[3])
     for g, w in ((got[0], want[0]), (got[2], want[2])):
         assert g.shape == w.shape
-        assert int(ulp_dist(g, w).max()) <= 2
+        assert int(ulp_dist(g, w).max()) == 0
 
 
 @pytest.mark.gpu
