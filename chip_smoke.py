@@ -85,7 +85,26 @@ on failure:
     frame's palette computed on the card by ``bone_mats_device``; frame
     0's palette and frame equal, bit for bit, to the host palette's; K1
     (mtap) against its plain version on frame 0's inputs;
-14. K3 against its plain version on a chunk that covers nothing of its
+14. (a) the world with the bc1 texel pool (``entry.world_case(
+    pool_mode="bc1")``, its textures BC1-encoded through the port's
+    ``native`` binding, whose state it prints): frame 0 equal, bit for
+    bit, to the frame of a tri pool of its BC1-decoded chains; the
+    ``pool_stats`` of the bc1, tri and quad world scenes; K1 (mtap)
+    against its plain version on
+    frame 0's inputs; 20 frames of ``FrameEngine(mipmap=True)`` with the
+    palette on the card: K1 in every frame, no overflow, frame 0, median
+    and max times;
+15. (b) the glass headline with the bc1 pool, split peel L = 4,
+    mipmapped and lit: equal, bit for bit, to the frame of a tri pool of
+    its decoded chains; K2 (mtap + lit) against its plain version as
+    that frame calls it, timed, with its breakdown;
+16. (c) the narrow pool on the mip+light headline: its frame equals the
+    quad pool's bit for bit, and its tap frame raises ``ValueError``;
+17. (d) ``count_covered_textured`` on the headline equals the covered
+    and textured counts of K1's outputs for that view;
+    ``upload("auto", mipmap=True)`` under ``pool_budget_default`` (printed)
+    picks the tri pool;
+18. K3 against its plain version on a chunk that covers nothing of its
     tile and on two that cover it, then timed over the full grid; the
     roofline on ``default`` (2 views), whose rates line gives K3's two
     rates (ns per (group, warp) cull test, ns per surviving (triangle,
@@ -103,8 +122,10 @@ records also the surviving pairs, the earlier every-binned-pair bound,
 the zero-count time and the floor at K3's rates, K1's its no-winner
 time, K2's the fill of its output bytes; K2 has three records: tap on
 the glass loop, mtap + lit on the peeled mip+light loop, ``full`` on
-the opaque mip+light headline's ml peel) as one JSON line before the
-last, and as its last line ``{"ok": true, "device": {...}}``.
+the opaque mip+light headline's ml peel; K1 a fourth, mtap on the bc1
+world's loop, and K2 a fourth, mtap + lit on the bc1 glass headline's
+split peel) as one JSON line before the last, and as its last line
+``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
 """
 
@@ -1025,6 +1046,288 @@ def phase_world_main(device) -> dict:
                 ms=kernel_ms, plain_ms=plain_ms, **bnd)
 
 
+def decoded_chains(batch) -> list:
+    """Each texture's box-filter chain with every level BC1-encoded and
+    decoded (``native``): the content a bc1 pool of ``batch`` holds."""
+    from mt_renderer_tpu_torch import native
+    from mt_renderer_tpu_torch.render import device as dv
+
+    return [[native.decode_bc1(native.encode_bc1(img).tobytes(),
+                               img.shape[1], img.shape[0])
+             for img in dv.mip_chain(t)] for t in batch.textures]
+
+
+def log_pool_stats(what: str, scene) -> dict:
+    from mt_renderer_tpu_torch.render import device as dv
+
+    st = dv.pool_stats(scene)
+    log(f"pool_stats, {what}: {json.dumps(st)}")
+    return st
+
+
+def phase_bc1_world(device) -> dict:
+    """(a) The full world (the bench's ``pallas world`` row) with the
+    bc1 pool, ``entry.world_case(pool_mode="bc1")``: frame 0 equal, bit
+    for bit, to the frame of a tri pool of its BC1-decoded chains
+    (``upload(mip_chains=)``); the pool_stats of the bc1, that tri and
+    a quad scene; K1 (mtap)
+    against its plain version on frame 0's inputs; then FRAMES frames of
+    ``FrameEngine(mipmap=True)`` with each palette computed on the card,
+    launches counted from 0: K1 in every frame, no overflow. → K1's
+    launch count, its record, frame times and the stats."""
+    import torch
+
+    from mt_renderer_tpu_torch import native
+    from mt_renderer_tpu_torch.entry import world_case
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import engine as en
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    log(f"native library for the BC1 encoder: available={native.available()}")
+    t0 = time.perf_counter()
+    case = world_case(device, pool_mode="bc1", **WORLD)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    w, h, cam = case.width, case.height, case.camera
+    base_yaw = cam.yaw
+    vp0, host_pal = case.view_proj(), case.bone_mats(0.0)
+    maxc = dv.auto_maxc(case.batch, vp0, host_pal, width=w, height=h)
+    taps = dv.auto_tap_tiles(case.batch, vp0, host_pal, width=w, height=h)
+    t0 = time.perf_counter()
+    ref = dv.upload(case.batch, "tri", device=device,
+                    mip_chains=decoded_chains(case.batch))
+    torch.cuda.synchronize()
+    log(f"bc1 world: {case.world.info}, {w}x{h}, maxc={maxc}, "
+        f"tap_tiles={taps}, set-up (build, encode, upload) {setup_s:.1f} s; "
+        f"tri pool of the decoded chains {time.perf_counter() - t0:.1f} s")
+    stats = {"bc1": log_pool_stats("bc1 world", case.scene),
+             "tri": log_pool_stats("tri world (decoded chains)", ref)}
+    quad = dv.upload(case.batch, "quad", device=device)
+    stats["quad"] = log_pool_stats("quad world", quad)
+    del quad
+
+    fkw = dict(width=w, height=h, mipmap=True, packed=True, maxc=maxc,
+               tap_tiles=taps)
+    pal = case.bone_mats_device(0.0)
+    a, ad = dv.render_frame(case.scene, vp0, pal, **fkw)
+    b, bd = dv.render_frame(ref, vp0, pal, **fkw)
+    rs.flush_overflow_checks()
+    n_px = int((a != b).sum())
+    coverage = float((ad < 1.0).float().mean())
+    log(f"bc1 world frame 0 vs the tri pool of its decoded chains: {n_px} "
+        f"pixels differ, depth equal {bool(torch.equal(ad, bd))}; coverage "
+        f"{coverage:.4f}")
+    if n_px or not torch.equal(ad, bd) or not 0.0 < coverage <= 1.0 \
+            or rs.OVERFLOW_EVENTS:
+        raise AssertionError("the bc1 world frame differs from its decoded "
+                             "chains' frame")
+
+    del ref
+    pw, ph = dv._padded(w, h)
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap")
+    cols, bbox = dv.setup_packed_cols(
+        case.scene, dv.vertex_stage(case.scene, vp0, pal), w, h)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph, maxc=maxc)
+    args = (cols, lists, glists, counts, (0, 0))
+    got = rs.raster_fwd(*args, **kw)
+    want = rs.raster_fwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare_outputs(got, want, f"K1 mtap vs plain, bc1 world frame "
+                          f"0, {cols.shape[1]} tris, maxc={lists.shape[1]}")
+    bnd = k1_breakdown(args, kw, got, "bc1 world frame 0, mtap")
+    del got, want
+    kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
+                       warmup=1, reps=5)
+    log(f"raster_bc1_world_mtap_kernel_ms {kernel_ms!r}")
+    del args, cols, lists, glists, counts
+
+    eng = en.FrameEngine(case.scene, case.batch, width=w, height=h,
+                         mipmap=True)
+    rs.flush_overflow_checks()
+    dur = max(case.world.timeline.duration, 1)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(FRAMES + 1)]
+    per_frame = []
+    t0 = time.perf_counter()
+    reset_launches()
+    ev[0].record()
+    for t in range(FRAMES):
+        before = rs.raster_fwd.launches
+        cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
+        color, depth = eng.render(case.view_proj(),
+                                  case.bone_mats_device((2.0 * t) % dur))
+        per_frame.append(rs.raster_fwd.launches - before)
+        ev[t + 1].record()
+    ev[-1].synchronize()
+    launches = rs.raster_fwd.launches
+    wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    cam.yaw = base_yaw
+    eng.check()
+    rs.flush_overflow_checks()
+    log(f"bc1 world main path (FrameEngine): {FRAMES} frames, K1 launches "
+        f"{launches}, overflow events {rs.OVERFLOW_EVENTS}, caps "
+        f"maxc={eng.maxc} tap_tiles={eng.tap_tiles}, recoveries "
+        f"{eng.recoveries}")
+    if min(per_frame) < 1 or rs.OVERFLOW_EVENTS:
+        raise AssertionError("a bc1 world frame launched no K1, or "
+                             "overflowed")
+    if (tuple(color.shape) != (h, w) or color.dtype != torch.int32
+            or not bool((depth < 1.0).any())):
+        raise AssertionError("the last bc1 world frame is malformed")
+    per = [x.elapsed_time(y) for x, y in zip(ev[:-1], ev[1:])]
+    frame_ms = ev[0].elapsed_time(ev[-1]) / FRAMES
+    log(f"bc1_world_frame_ms {frame_ms!r} (CUDA events over {FRAMES} "
+        f"frames, host guard included; host clock {wall_ms!r} ms/frame); "
+        f"per frame: median {float(np.median(per))!r}, max {max(per)!r}, "
+        f"frame 0 {per[0]!r}")
+    return dict(launches=launches, frame_ms=frame_ms, max_abs_err=err,
+                ms=kernel_ms, plain_ms=plain_ms, stats=stats, **bnd)
+
+
+def phase_bc1_peel(device) -> dict:
+    """(b) The glass headline with the bc1 pool, peeled mip+light
+    (split, L = LAYERS): equal, bit for bit, to the same frame from a
+    tri pool of its decoded chains, K2's launches in the bc1 frame
+    counted from 0; K2 (mtap + lit) against its plain version as that
+    frame calls it (the translucent set, no opaque cull, K1's opaque z
+    as ``zhi``), timed, with its breakdown. → K2's record."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    glass = headline_case(device, **dict(GLASS, pool_mode="bc1"))
+    batch, scene = glass["demo"].batch, glass["scene"]
+    ref = dv.upload(batch, "tri", device=device,
+                    mip_chains=decoded_chains(batch))
+    log_pool_stats("bc1 glass headline", scene)
+    w, h, vp, bones = glass["width"], glass["height"], glass["vp"], \
+        glass["bones"]
+    kw = dict(width=w, height=h, layers=LAYERS, maxc=glass["maxc"],
+              lighting=True)
+    caps = dv.measure_live_tap_tiles(scene, vp, bones, mode="split", **kw)
+    fkw = dict(kw, peel_mode="split", packed=True, mipmap=True,
+               tap_tiles=caps)
+    reset_launches()
+    a, ad = dv.render_frame_peeled(scene, vp, bones, **fkw)
+    launches = rs.raster_fwd_ml.launches
+    b, bd = dv.render_frame_peeled(ref, vp, bones, **fkw)
+    rs.flush_overflow_checks()
+    n_px = int((a != b).sum())
+    log(f"bc1 glass headline, split peel L={LAYERS} mip+light, caps {caps}: "
+        f"{n_px} pixels differ from the tri pool of its decoded chains, "
+        f"depth equal {bool(torch.equal(ad, bd))}; K2 launches {launches}")
+    if n_px or not torch.equal(ad, bd) or rs.OVERFLOW_EVENTS \
+            or launches < 1:
+        raise AssertionError("the bc1 peeled frame differs from its "
+                             "decoded chains' frame")
+    del ref, a, b
+
+    pw, ph = dv._padded(w, h)
+    mkw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap",
+               light=dv._light_unit())
+    (cols_op, bbox_op), (cols_tr, bbox_tr) = dv.setup_packed_cols(
+        scene, dv.vertex_stage(scene, vp, bones), w, h, opacity_split=True,
+        bone_mats=bones, lighting=True)
+    pre = rs.prebin(cols_op, bbox_op, 0, 0, width=pw, height=ph,
+                    maxc=glass["maxc"])
+    zo, io = rs.raster_fwd(cols_op, *pre[:3], (0, 0), **mkw)[:2]
+    zhi = torch.where(io >= 0, zo, float("inf"))
+    lists, glists, counts, _ = rs.prebin(cols_tr, bbox_tr, 0, 0, width=pw,
+                                         height=ph, maxc=glass["maxc"])
+    args = (cols_tr, lists, glists, counts, (0, 0))
+    mlkw = dict(mkw, layers=LAYERS, opaque_cull=False, zhi=zhi)
+    got = rs.raster_fwd_ml(*args, **mlkw)
+    want = rs.raster_fwd_ml_reference(*args, **mlkw)
+    torch.cuda.synchronize()
+    err = compare_outputs(got, want, f"K2 mtap+lit vs plain, bc1 glass "
+                          f"headline, translucent set, nocull + zhi, "
+                          f"L={LAYERS}")
+    bnd = k2_breakdown(args, mlkw, got, "bc1 glass headline, mtap + lit, "
+                       "nocull + zhi")
+    del got, want
+    kernel_ms = graph_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_ml_reference(*args, **mlkw),
+                       warmup=1, reps=3)
+    log(f"raster_ml_bc1_mtap_lit_kernel_ms {kernel_ms!r}")
+    return dict(launches=launches, max_abs_err=err, ms=kernel_ms,
+                plain_ms=plain_ms, **bnd)
+
+
+def phase_narrow(case: dict) -> None:
+    """(c) The narrow pool on the mip+light headline: its frame equals
+    the quad pool's bit for bit; its tap frame raises ValueError."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    narrow = dv.upload(case["demo"].batch, "narrow",
+                       device=case["scene"].device)
+    log_pool_stats("narrow headline", narrow)
+    fkw = dict(width=case["width"], height=case["height"], packed=True,
+               mipmap=True, lighting=True, maxc=case["maxc"],
+               tap_tiles=case["taps"])
+    a, ad = dv.render_frame(narrow, case["vp"], case["bones"], **fkw)
+    b, bd = dv.render_frame(case["scene"], case["vp"], case["bones"], **fkw)
+    rs.flush_overflow_checks()
+    n_px = int((a != b).sum())
+    try:
+        dv.render_frame(narrow, case["vp"], case["bones"],
+                        width=case["width"], height=case["height"])
+        refused = False
+    except ValueError:
+        refused = True
+    log(f"narrow pool, mip+light headline: {n_px} pixels differ from the "
+        f"quad pool's frame, depth equal {bool(torch.equal(ad, bd))}; the "
+        f"tap frame refused: {refused}")
+    if n_px or not torch.equal(ad, bd) or not refused or rs.OVERFLOW_EVENTS:
+        raise AssertionError("the narrow pool's frame is wrong")
+
+
+def phase_helpers(case: dict) -> None:
+    """(d) ``count_covered_textured`` on the headline against the
+    coverage and textured counts of K1's own outputs for that view
+    (a pixel covered beyond z = 1 keeps its depth, so the frame's
+    ``depth < 1`` is no count of it); ``upload("auto", mipmap=True)`` under
+    ``pool_budget_default`` picks the tri pool."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = case["width"], case["height"]
+    scene, vp, bones = case["scene"], case["vp"], case["bones"]
+    reset_launches()
+    cov, tex = dv.count_covered_textured(scene, vp, bones, width=w,
+                                         height=h, maxc=case["maxc"])
+    launched = rs.raster_fwd.launches
+    pw, ph = dv._padded(w, h)
+    cols, bbox = dv.setup_packed_cols(scene, dv.vertex_stage(scene, vp,
+                                                             bones), w, h)
+    pre = rs.prebin(cols, bbox, 0, 0, width=pw, height=ph, maxc=case["maxc"])
+    _, ib, _, tapidx = rs.raster_fwd(cols, *pre[:3], (0, 0), width=pw,
+                                     height=ph, w_eps=dv.W_EPS)
+    ib = rs.unflatten_tiles(ib[:, 0], ph, pw)[:h, :w]
+    ti = rs.unflatten_tiles(tapidx[:, 0], ph, pw)[:h, :w]
+    want = (int((ib >= 0).sum()), int(((ib >= 0) & (ti >= 0)).sum()))
+    log(f"count_covered_textured, headline: covered {int(cov)}, textured "
+        f"{int(tex)} (K1 launches {launched}); from K1's outputs "
+        f"{want[0]}, {want[1]}")
+    if (int(cov), int(tex)) != want or launched < 1 or not want[0] > 0:
+        raise AssertionError("count_covered_textured disagrees with K1")
+    budget = dv.pool_budget_default(scene.device)
+    auto = dv.upload(case["demo"].batch, "auto", device=scene.device,
+                     mipmap=True)
+    log(f"pool_budget_default on {torch.cuda.get_device_name(0)}: "
+        f"{budget} bytes ({budget / 2**30:.2f} GiB); upload('auto', "
+        f"mipmap=True) picked {auto.pool_mode}")
+    if auto.pool_mode != "tri":
+        raise AssertionError("auto did not pick the tri pool")
+
+
 def micro_check(chunk, what: str) -> tuple:
     """K3 (every row of the card's grid, 4 reps) against its plain
     version on one chunk's columns → (max abs error, coverage); raises
@@ -1190,6 +1493,10 @@ def main() -> int:
     del glass_mip, mip
     phase_world_legs(device)
     world_run = phase_world_main(device)
+    bc1_world = phase_bc1_world(device)
+    bc1_peel = phase_bc1_peel(device)
+    phase_narrow(case)
+    phase_helpers(case)
     k3 = phase_micro(case)
     roof = phase_roofline(device)
     k4 = phase_bilin(device)
@@ -1225,12 +1532,17 @@ def main() -> int:
         raster_record("raster_fwd", "mtap+lit", mip_run["launches"], k1_mip),
         raster_record("raster_fwd", "mtap (world)", world_run["launches"],
                       world_run),
+        raster_record("raster_fwd", "mtap (bc1 world, FrameEngine)",
+                      bc1_world["launches"], bc1_world),
         raster_record("raster_fwd_ml", "tap", peel_run["k2"], k2),
         raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
                       k2_mip),
         raster_record("raster_fwd_ml",
                       "full (opaque mip+light headline, ml peel)",
                       full_launches, k2_full),
+        raster_record("raster_fwd_ml",
+                      "mtap+lit (bc1 glass headline, split peel)",
+                      bc1_peel["launches"], bc1_peel),
         record("raster_micro", MICRO_SOURCE, MICRO_REPLACES,
                roof["launches"], k3, rows=k3["rows"],
                surviving=k3["surviving"], test_ns=sol["test_ns"],

@@ -95,16 +95,19 @@ def world_case(device, *, buildings: int, width: int, height: int,
                characters: int = 12, variants: int = 24,
                terrain_subdiv: int = 12,
                building_subdivs=(2, 3, 4, 5, 6, 8),
+               tex_sizes=(16, 32, 64, 128, 256),
                pool_mode: str = "tri") -> WorldCase:
     """``scene.world.build_world`` (distinct parsed building models over
-    mixed texture sizes, one material slot per instance, ``characters``
-    8-weight skinned characters on a ``.sdl`` timeline) uploaded to
-    ``device`` with the ``pool_mode`` texel pool ("tri" by default: the
-    mipmapped world's pool, as the reference bench picks it), and the
+    mixed texture sizes ``tex_sizes``, one material slot per instance,
+    ``characters`` 8-weight skinned characters on a ``.sdl`` timeline)
+    uploaded to ``device`` with the ``pool_mode`` texel pool ("tri" by
+    default: the mipmapped world's pool, as the reference bench picks it;
+    "bc1" keeps the textures BC1-compressed on the device), and the
     world camera at ``width`` x ``height``."""
     ws = world_mod.build_world(
         buildings=buildings, characters=characters, variants=variants,
-        terrain_subdiv=terrain_subdiv, building_subdivs=building_subdivs)
+        terrain_subdiv=terrain_subdiv, building_subdivs=building_subdivs,
+        tex_sizes=tex_sizes)
     return WorldCase(world=ws, batch=ws.batch,
                      scene=dv.upload(ws.batch, pool_mode, device=device),
                      camera=world_mod.world_camera(width, height,

@@ -24,8 +24,9 @@ image payloads. Formats used by the game data (``rtexture.rs:152-161``):
 7 = RGBA8, 19 = BC1, 42/54 = BC7.
 
 The reference uploads BCn blocks for GPU hardware decode. This package
-decodes RGBA8 only: the BCn decoders come with the compressed-resident
-pools (ROADMAP Queue 1, slice 4).
+decodes BC1 and BC7 on the host through ``native`` (BC7 needs its
+library until the bc7 pool brings the NumPy decoder), and hands a BC1
+asset's own blocks to the bc1 texel pool (``TextureFile.bc1_chain``).
 """
 
 from __future__ import annotations
@@ -126,9 +127,36 @@ class TextureFile:
     def mip_size(self, level: int) -> tuple[int, int]:
         return max(1, self.width >> level), max(1, self.height >> level)
 
+    def bc1_chain(self) -> list:
+        """The stored BC1 mip chain as ``[(blocks (nb, 8) u8, h, w),
+        …]``: the feed of ``device.upload(pool_mode="bc1",
+        bc1_chains=…)``, which stores the asset's own compressed blocks
+        verbatim, as the reference's texture upload does
+        (rtexture.rs:126-130 uploads raw BCn for hardware decode; the
+        trilinear shade decodes them at sample time)."""
+        if self.format != TextureFormat.BC1:
+            raise ValueError(
+                f"bc1_chain needs a BC1 texture (format {self.format})")
+        return self._bcn_chain(8)
+
+    def _bcn_chain(self, block_bytes: int) -> list:
+        chain = []
+        for lv in range(self.level_count):
+            w, h = self.mip_size(lv)
+            nb = ((h + 3) // 4) * ((w + 3) // 4)
+            raw = self.image_bytes(lv)
+            if len(raw) < nb * block_bytes:
+                raise ValueError(
+                    f"BCn mip {lv} truncated: "
+                    f"{len(raw)} < {nb * block_bytes}")
+            blocks = np.frombuffer(raw[: nb * block_bytes],
+                                   dtype=np.uint8).reshape(nb, block_bytes)
+            chain.append((blocks, h, w))
+        return chain
+
     def decode_rgba8(self) -> np.ndarray:
         """Decode the top image to an (H, W, 4) uint8 array on host
-        (RGBA8; BCn formats raise until slice 4 ports their decoders)."""
+        (BC1 and BC7 through ``native``)."""
         w, h, fmt = self.width, self.height, self.format
         if fmt == TextureFormat.RGBA8:
             n = w * h * 4
@@ -137,10 +165,14 @@ class TextureFile:
                 .reshape(h, w, 4)
                 .copy()
             )
-        if fmt in (TextureFormat.BC1, TextureFormat.BC7, TextureFormat.BC7_42):
-            raise NotImplementedError(
-                f"decoding texture format {fmt} is not ported yet: slice 4 "
-                "(ROADMAP Queue 1 items 12-13)")
+        if fmt == TextureFormat.BC1:
+            from .. import native
+
+            return native.decode_bc1(self.data, w, h)
+        if fmt in (TextureFormat.BC7, TextureFormat.BC7_42):
+            from .. import native
+
+            return native.decode_bc7(self.data, w, h)
         raise ValueError(f"unhandled texture format {fmt}")
 
 

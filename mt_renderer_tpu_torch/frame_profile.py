@@ -6,6 +6,7 @@
     python -m mt_renderer_tpu_torch.frame_profile --translucent --peel 4 \\
         --mipmap --lighting
     python -m mt_renderer_tpu_torch.frame_profile --world --mipmap
+    python -m mt_renderer_tpu_torch.frame_profile --world --mipmap --pool bc1
     python -m mt_renderer_tpu_torch.frame_profile --device cpu \\
         --instances 4 --subdiv 1 --width 256 --height 128     # rehearsal
 
@@ -16,13 +17,19 @@ single-layer frame or, with ``--peel L``, the packed split-peel frame
 ``measure_live_tap_tiles``). ``--translucent`` renders the glass scene:
 every 4th instance translucent, the camera position scaled by 0.3.
 ``--mipmap`` renders the trilinear frame from the tri pool (the pool
-``bench.py`` takes for it), ``--lighting`` the lit frame (both: the
+``bench.py`` takes for it; ``--pool`` picks another: quad, narrow, tri or
+bc1, as ``bench.py``'s flag does), ``--lighting`` the lit frame (both: the
 reference bench's ``pallas+mip+light`` row; with ``--peel`` its
 ``peel4+mip+light`` row). ``--world`` renders the archive world instead
 (``--buildings`` buildings of subdivisions (4, 6, 8, 10, 12), the bench's
 ``pallas world`` row with ``--mipmap``), its palette computed on the
-device by ``bone_mats_device``.
+device by ``bone_mats_device``; ``--bigtex`` its big-texture envelope
+(16 variants with 2048x2048 textures and their full chains, buildings of
+subdivisions (4, 6, 8): the bench's ``bigtex`` rows with ``--buildings
+140``).
 
+* the texel pool's ``pool_stats`` and, for the tri and bc1 pools, the
+  device time of their build at upload;
 * the host predictors ``FrameEngine`` runs before each frame
   (``predict_bin_counts`` + ``auto_tap_tiles``), and ``auto_maxc`` and
   ``skin_positions`` they are built on, in ms over ``--views`` views;
@@ -108,6 +115,39 @@ def _device_busy(prof, frames: int) -> tuple[float, float, list]:
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
     return (busy / 1e3 / frames, span / 1e3 / frames,
             [(name[:80], us / 1e3 / frames) for name, us in top])
+
+
+def _pool_build_ms(scene, dev: torch.device, reps: int):
+    """Device ms of the tri or bc1 pool's build at upload
+    (``device._build_tri_pool`` or ``_build_bc1_pool``), run again from
+    the compact rows it was built from, read back out of the pool's own
+    bytes (a logical row starts with its quad row or block) with the
+    level segments from the mip table → (ms, the rebuild equals the
+    pool), or None for a pool built on the host."""
+    mode = scene.pool_mode
+    if mode not in ("tri", "bc1"):
+        return None
+    src = scene.mip_pool.reshape(-1, 64)[:, :16 if mode == "tri" else 8]
+    src = src.contiguous()
+
+    def dims(h, w):
+        return ((h + 3) // 4, (w + 3) // 4) if mode == "bc1" else (h, w)
+
+    segs = []
+    for chain in scene.mip_table.cpu().numpy().tolist():
+        levels = [chain[0]]
+        for e in chain[1:]:
+            if e == levels[-1]:        # the table repeats the last level
+                break
+            levels.append(e)
+        for i, (off, h, w) in enumerate(levels):
+            nxt = ((levels[i + 1][0], *dims(*levels[i + 1][1:]))
+                   if i + 1 < len(levels) else (-1, 1, 1))
+            segs.append((off, *dims(h, w), *nxt))
+    segs = np.asarray(sorted(segs), np.int32)
+    build = dv._build_bc1_pool if mode == "bc1" else dv._build_tri_pool
+    same = bool(torch.equal(build(src, segs), scene.mip_pool))
+    return _timed(lambda: build(src, segs), dev, reps, warmup=1), same
 
 
 def _single_stages(scene, clip, w, h, maxc, taps, *, bones=None,
@@ -255,14 +295,28 @@ def main(argv=None) -> int:
                     help="the archive world instead of the demo scene")
     ap.add_argument("--buildings", type=int, default=280,
                     help="the world's buildings")
+    ap.add_argument("--pool", choices=("quad", "narrow", "tri", "bc1"),
+                    help="the texel pool (default: tri with --mipmap, "
+                         "else quad)")
+    ap.add_argument("--bigtex", action="store_true",
+                    help="the world's big-texture envelope: 16 variants "
+                         "with 2048x2048 textures, building subdivisions "
+                         "(4, 6, 8) (use with --buildings 140)")
     args = ap.parse_args(argv)
+    args.world = args.world or args.bigtex
     if args.world and (args.translucent or args.peel):
         ap.error("--world profiles the single-layer frame")
+    if args.pool in ("narrow", "bc1") and not args.mipmap:
+        ap.error(f"the {args.pool} pool renders only the mipmapped frame")
     dev = torch.device(args.device)
     w, h = args.width, args.height
-    pool = "tri" if args.mipmap else "quad"
+    pool = args.pool or ("tri" if args.mipmap else "quad")
 
-    if args.world:
+    if args.bigtex:
+        case = world_case(dev, buildings=args.buildings, width=w, height=h,
+                          variants=16, tex_sizes=(2048,),
+                          building_subdivs=(4, 6, 8), pool_mode=pool)
+    elif args.world:
         case = world_case(dev, buildings=args.buildings, width=w, height=h,
                           building_subdivs=(4, 6, 8, 10, 12), pool_mode=pool)
     else:
@@ -280,6 +334,11 @@ def main(argv=None) -> int:
                                          mode="split")
     else:
         taps = dv.auto_tap_tiles(batch, vp, bones, width=w, height=h)
+    print(f"pool_stats: {json.dumps(dv.pool_stats(scene))}")
+    built = _pool_build_ms(scene, dev, reps=3)
+    if built:
+        print(f"pool build ({scene.pool_mode}, on the device at upload): "
+              f"{built[0]!r} ms; the rebuild equals the pool: {built[1]}")
     print(f"scene: {'world, ' if args.world else ''}{len(batch.tris)} tris, "
           f"{w}x{h}, translucent="
           f"{args.translucent}, peel={args.peel}, mipmap={args.mipmap}, "

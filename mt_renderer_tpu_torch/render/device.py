@@ -54,14 +54,17 @@ SWAR form of the bilinear contraction that
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import logging
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, native
 from ..scene.model import DEBUG_PALETTE, DrawBatch
+from . import bcn
 from . import cpu_reference as cr
 from . import raster as rs
 
@@ -74,15 +77,12 @@ TRI_PAD = 384          # triangle-count padding quantum: one raster chunk
 _WHY_SCAN = ("the port keeps only the binned tile raster; scan stays a "
              "reference harness")
 
-# modes and options of the reference that later PRs port
-_SLICE_POOL_REST = "slice 3, the rest of upload (ROADMAP Queue 1 item 10a)"
-_SLICE_POOL = {
-    "narrow": _SLICE_POOL_REST,
-    "auto": _SLICE_POOL_REST,
-    "bc1": "slice 4 (ROADMAP Queue 1 item 12)",
-    "bc7": "slice 4 (ROADMAP Queue 1 item 13)",
-}
-POOL_ROW_BYTES = {"quad": 16, "tri": 128}   # ported pools' physical rows
+# the pool mode of the reference that a later PR ports
+_SLICE_BC7 = "slice 4's bc7 pool (ROADMAP Queue 1 item 13)"
+POOL_MODES = ("quad", "narrow", "auto", "tri", "bc1", "bc7")
+# physical row bytes of each stored pool: "tri" and "bc1" pack two 64 B
+# logical rows into each 128 B row
+POOL_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 128, "bc1": 128}
 
 
 def _not_ported(what: str, where: str):
@@ -124,11 +124,17 @@ class DeviceScene:
     tri_parts: torch.Tensor     # (Tp,) i32 parts_no per triangle
     parts_mask: torch.Tensor    # (P,) bool per-part visibility
     tex_size: torch.Tensor      # (L, 2) i32 (h, w) per texture
-    # all mips; "quad": (R, 16) u8, a texel's 2x2 quad per row; "tri":
-    # (ceil(R/2), 128) u8, two 64 B logical rows per physical row, each
-    # the quad plus the 3x3 level-(m+1) parent block (_build_tri_pool)
+    # all mips; "quad": (R, 16) u8, a texel's 2x2 quad per row;
+    # "narrow": (R, 4) u8, one texel per row; "tri": (ceil(R/2), 128)
+    # u8, two 64 B logical rows per physical row, each the quad plus the
+    # 3x3 level-(m+1) parent block (_build_tri_pool); "bc1": (ceil(B/2),
+    # 128) u8, two 64 B logical rows per physical row, one per 4x4 BC1
+    # block: its 2x2 block group and a 2x2 level-(m+1) parent block
+    # group (_build_bc1_pool)
     mip_pool: torch.Tensor
-    mip_table: torch.Tensor     # (L, M, 3) i32 — (offset, h, w) per mip
+    # (L, M, 3) i32 — (offset, h, w) per mip; offsets in texel rows, or
+    # in block rows for "bc1"
+    mip_table: torch.Tensor
     # per-triangle constants, column-major (10, Tp): [tex, cbase rgba
     # (1 for textured, flat/debug color otherwise), off_hi, off_lo, th,
     # tw, texture fully opaque]
@@ -217,45 +223,182 @@ def _tri_chunk_rows(qpool, segs, r0: int, chunk: int):
     return torch.cat(parts, 1)                           # (chunk, 64)
 
 
-def _build_tri_pool(qpool, segs_h: np.ndarray):
-    """(R, 16) u8 quad pool → (ceil(R/2), 128) u8 tri pool, built on the
-    quad pool's device: logical 64 B rows (quad + 3x3 parent block), two
-    per physical row, as the reference packs them (an odd R repeats the
-    last logical row). ``_pool_rows`` reads logical row i as 64 B row i
-    of the same bytes, so a trilinear tap is one 64 B gather."""
-    rows = qpool.shape[0]
+def _bc1_chunk_rows(cpool, segs, r0: int, chunk: int):
+    """One build step of the 64 B bc1 pool: logical rows [r0, r0+chunk)
+    (clamped to the last block) gain their 2x2 child block group (bytes
+    0-31: self, right, down, down-right, clamped to the level's edge)
+    and their 2x2 level-(m+1) parent block group (bytes 32-63, anchored
+    at A = (2·bx − 1) >> 2 per axis: the anchor whose group holds every
+    parent bilinear footprint of this block, see
+    ``_bc1_trilinear_fused``). ``cpool`` (B, 8) u8 compact blocks;
+    ``segs`` (S, 6) i32 [off, bh, bw, poff, pbh, pbw] in block units,
+    sorted by off; poff = -1 for a texture's last real level (parent
+    bytes zero, never read)."""
+    dev = cpool.device
+    rows = cpool.shape[0]
+    rid = (r0 + torch.arange(chunk, dtype=torch.int32, device=dev)).clamp(
+        max=rows - 1)
+    seg = torch.searchsorted(segs[:, 0].contiguous(), rid, right=True) - 1
+    seg = seg.clamp(0, segs.shape[0] - 1)
+    off, bh, bw, poff, pbh, pbw = (segs[:, i][seg] for i in range(6))
+    local = rid - off
+    bx = local % bw.clamp(min=1)
+    by = local // bw.clamp(min=1)
+
+    def clip(x, hi):
+        return torch.minimum(x.clamp(min=0), (hi - 1).clamp(min=0))
+
+    parts = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            parts.append(cpool[(off + clip(by + dy, bh) * bw
+                                + clip(bx + dx, bw)).long()])
+    ax = clip((2 * bx - 1) >> 2, pbw)
+    ay = clip((2 * by - 1) >> 2, pbh)
+    has_p = poff >= 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            pidx = torch.where(has_p, poff + clip(ay + dy, pbh) * pbw
+                               + clip(ax + dx, pbw), 0)
+            parts.append(torch.where(has_p[:, None], cpool[pidx.long()], 0))
+    return torch.cat(parts, 1)                           # (chunk, 64)
+
+
+def _packed_pool_build(src, segs_h: np.ndarray, rowfn):
+    """``src`` (R, k) u8 → (ceil(R/2), 128) u8, built on ``src``'s device
+    in chunks of logical 64 B rows (``rowfn``: ``_tri_chunk_rows`` or
+    ``_bc1_chunk_rows``), two per physical row, as the reference packs
+    them (an odd R repeats the last logical row). Peak memory is
+    ``src``, the output and one chunk's temporaries."""
+    rows = src.shape[0]
     if segs_h.size == 0:
         segs_h = np.array([[0, 1, 1, -1, 1, 1]], np.int32)
-    segs = torch.as_tensor(np.asarray(segs_h, np.int32), device=qpool.device)
+    segs = torch.as_tensor(np.asarray(segs_h, np.int32), device=src.device)
     half = (rows + 1) // 2
     chunk = min(_TRI_BUILD_CHUNK // 2, max(1 << 11, half), half)
-    out = torch.empty((half, 128), dtype=torch.uint8, device=qpool.device)
+    out = torch.empty((half, 128), dtype=torch.uint8, device=src.device)
     for start in range(0, half, chunk):
         s = min(start, half - chunk)
-        out[s:s + chunk] = _tri_chunk_rows(qpool, segs, 2 * s,
-                                           2 * chunk).reshape(chunk, 128)
+        out[s:s + chunk] = rowfn(src, segs, 2 * s, 2 * chunk).reshape(
+            chunk, 128)
     return out
 
 
-def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
-           pool_bias: int = 0) -> DeviceScene:
-    """Pad a host DrawBatch to whole chunks and copy it to ``device``.
-    Called once at load time.
+def _build_tri_pool(qpool, segs_h: np.ndarray):
+    """(R, 16) u8 quad pool → (ceil(R/2), 128) u8 tri pool: logical 64 B
+    rows (quad + 3x3 parent block). ``_pool_rows`` reads logical row i
+    as 64 B row i of the same bytes, so a trilinear tap is one 64 B
+    gather."""
+    return _packed_pool_build(qpool, segs_h, _tri_chunk_rows)
 
-    ``pool_mode="quad"``: each pool row holds a texel's full 2x2
-    bilinear footprint, mip chains included (16 B per texel; one gather
-    per bilinear tap, two per trilinear tap). ``"tri"``: 64 B per texel,
-    the quad plus the 3x3 parent-level block every trilinear footprint
-    needs, so a trilinear tap is one gather (built on the device from
-    the quad rows, ``_build_tri_pool``); bilinear taps read its quad
-    bytes. ``pool_bias`` (the LOD clamp), "narrow" and "auto" are not
-    ported yet."""
-    if pool_bias:
-        raise _not_ported("pool_bias", _SLICE_POOL_REST)
-    if pool_mode in _SLICE_POOL:
-        raise _not_ported(f"pool_mode={pool_mode!r}", _SLICE_POOL[pool_mode])
-    if pool_mode not in POOL_ROW_BYTES:
+
+def _build_bc1_pool(cpool, segs_h: np.ndarray):
+    """(B, 8) u8 compact BC1 blocks → (ceil(B/2), 128) u8 bc1 pool:
+    logical 64 B rows (child 2x2 block group + parent 2x2 block group),
+    packed as the tri pool is. Built on the blocks' device, so the host
+    uploads only the compact blocks (0.5 B per source texel)."""
+    return _packed_pool_build(cpool, segs_h, _bc1_chunk_rows)
+
+
+def pool_budget_default(device) -> int | None:
+    """The texel-pool byte budget for a pool on ``device``:
+    ``MTR_POOL_BUDGET_MB`` when it is set; else 3/4 of the card's total
+    memory (``torch.cuda.get_device_properties``) for a CUDA device;
+    else None (a CPU upload is unbudgeted)."""
+    mb = os.environ.get("MTR_POOL_BUDGET_MB")
+    if mb:
+        return int(float(mb) * 2**20)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory * 3 // 4
+
+
+# bytes the budget charges per logical pool row: the stored pool once.
+# The reference charges twice that (device.py:576-581), for the copy XLA
+# makes of a gathered-from pool inside its program; torch makes none.
+POOL_BUDGET_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 64, "bc1": 64}
+
+
+def _pool_row_count(chains, mode: str) -> int:
+    """Logical pool rows of the mip ``chains`` in ``mode``: one per
+    texel, or one per 4x4 block for "bc1"."""
+    if mode == "bc1":
+        return sum(((img.shape[0] + 3) // 4) * ((img.shape[1] + 3) // 4)
+                   for chain in chains for img in chain)
+    return sum(img.shape[0] * img.shape[1]
+               for chain in chains for img in chain)
+
+
+def _pool_need(rows: int, mode: str) -> int:
+    return rows * POOL_BUDGET_ROW_BYTES[mode]
+
+
+def _block_dims(img) -> tuple[int, int]:
+    return (img.shape[0] + 3) // 4, (img.shape[1] + 3) // 4
+
+
+def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
+           pool_budget_bytes: int | None = None,
+           pool_bias: int | str = 0, mipmap: bool | None = None,
+           mip_chains: list | None = None,
+           bc1_chains: list | None = None,
+           bc7_chains: list | None = None) -> DeviceScene:
+    """Pad a host DrawBatch to whole chunks and copy it to ``device``.
+    Called once at load time. Every texture's mip chain (2x2 box filter
+    down to 1x1) goes into one flat texel pool.
+
+    ``pool_mode``:
+    - ``"quad"``: each row holds a texel's 2x2 bilinear footprint (16 B
+      per texel; one gather per bilinear tap, two per trilinear tap);
+    - ``"narrow"``: bare RGBA rows (4 B per texel); the trilinear shade
+      takes four clamped gathers per level; the bilinear tap paths
+      refuse it;
+    - ``"tri"``: 64 B per texel, the quad plus the 3x3 parent-level
+      block every trilinear footprint needs, so a trilinear tap is one
+      gather (built on the device from the quad rows); bilinear taps
+      read its quad bytes;
+    - ``"bc1"``: the textures BC1-encoded at load (``native.encode_bc1``)
+      and kept compressed: one 64 B row per 4x4 block holds its 2x2
+      block group and its parent level's 2x2 block group (built on the
+      device from the compact blocks), so a trilinear tap is one gather
+      and eight texel decodes; BC1 is lossy, so it is never chosen
+      implicitly; only the mipmapped paths sample it;
+    - ``"auto"``: the first mode that fits the budget: with
+      ``mipmap=True`` tri, then quad, then narrow; without, quad, then
+      narrow. Each fallback is logged.
+    ``"bc7"`` is not ported yet.
+
+    ``pool_budget_bytes`` (default ``pool_budget_default(device)``)
+    bounds the pool; a pool over it raises ``MemoryError``, for an
+    explicit mode as for "auto". The budget charges the stored pool
+    once (``POOL_BUDGET_ROW_BYTES``), where the reference charges it
+    twice.
+
+    ``pool_bias``: drop each texture's top ``pool_bias`` mip levels (a
+    lossy LOD clamp, never applied implicitly); ``"auto"`` raises it
+    only as far as the pool needs to fit the budget, one logged warning
+    per step.
+
+    ``mip_chains``: per texture, its mip levels as (h, w, 4) u8 arrays
+    (each level half the one before; content is free), in place of the
+    box-filter chains. ``bc1_chains`` (``pool_mode="bc1"`` only): per
+    texture, its levels as ``(blocks (nb, 8) u8, h, w)``, already
+    compressed (``formats.tex.TextureFile.bc1_chain``): the blocks go
+    into the pool verbatim, and each level is decoded once on the host
+    for the budget, bias and opacity bookkeeping."""
+    if pool_mode not in POOL_MODES:
         raise ValueError(f"unknown pool_mode {pool_mode!r}")
+    if bc1_chains is not None and bc7_chains is not None:
+        raise ValueError("pass bc1_chains or bc7_chains, not both")
+    if pool_mode == "bc7" or bc7_chains is not None:
+        raise _not_ported("pool_mode='bc7' (and bc7_chains)", _SLICE_BC7)
+    if bc1_chains is not None and pool_mode != "bc1":
+        raise ValueError("bc1_chains requires pool_mode='bc1'")
+    if bc1_chains is not None and mip_chains is not None:
+        raise ValueError("pass mip_chains or bc1_chains, not both")
+    if pool_budget_bytes is None:
+        pool_budget_bytes = pool_budget_default(device)
     t = len(batch.tris)
     tp = max(TRI_PAD, -(-t // TRI_PAD) * TRI_PAD)
     tris = np.zeros((tp, 3), np.int64)
@@ -284,42 +427,137 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
     parts_mask = np.ones(n_parts, bool)
 
     # one flat texel pool for every texture and mip level
-    src_texs = batch.textures or [np.zeros((4, 4, 4), np.uint8)]
-    tables = [mip_chain(img) for img in src_texs]
-    n_mips = max(len(c) for c in tables)
-    if batch.textures:
-        sizes = np.array([(x.shape[0], x.shape[1]) for x in batch.textures],
-                         np.int32)
+    texs = batch.textures or []
+    src_texs = texs or [np.zeros((4, 4, 4), np.uint8)]
+    if texs:
+        sizes = np.array([(x.shape[0], x.shape[1]) for x in texs], np.int32)
     else:
         sizes = np.array([[4, 4]], np.int32)
+    raw_chains = None
+    if bc1_chains is not None:
+        # the asset's blocks go into the pool; its levels, decoded once,
+        # feed the bookkeeping (budget, bias and opacity read them)
+        raw_chains = [[np.ascontiguousarray(b, np.uint8).reshape(-1, 8)
+                       for b, _h, _w in chain] for chain in bc1_chains]
+        mip_chains = [[native.decode_bc1(
+            np.ascontiguousarray(b, np.uint8).tobytes(), w, h)
+            for b, h, w in chain] for chain in bc1_chains]
+    if mip_chains is not None:
+        tables = [list(c) for c in mip_chains]
+        if len(tables) != len(src_texs):
+            raise ValueError(f"{len(tables)} mip chains for "
+                             f"{len(src_texs)} textures")
+        sizes = np.array([(c[0].shape[0], c[0].shape[1]) for c in tables],
+                         np.int32)
+    else:
+        tables = [mip_chain(img) for img in src_texs]
+
+    # the mode "auto" and pool_bias="auto" size against: the one the
+    # caller wants unconstrained (tri for trilinear content, else quad)
+    want = pool_mode
+    if pool_mode == "auto":
+        want = "tri" if mipmap else "quad"
+    max_bias = max(len(c) - 1 for c in tables)
+    if pool_bias == "auto":
+        bias = 0
+        while bias < max_bias and pool_budget_bytes is not None:
+            chains = [c[min(bias, len(c) - 1):] for c in tables]
+            if _pool_need(_pool_row_count(chains, want),
+                          want) <= pool_budget_bytes:
+                break
+            bias += 1
+            logger.warning(
+                "texel pool: bias -> %d (LOD clamp; dropping each "
+                "texture's top mip to fit the %.0f MiB budget)",
+                bias, pool_budget_bytes / 2**20)
+    else:
+        bias = int(pool_bias)
+        if bias < 0:
+            raise ValueError(f"pool_bias must be >= 0, got {pool_bias}")
+    if bias:
+        if raw_chains is not None:
+            raw_chains = [c[min(bias, len(c) - 1):] for c in raw_chains]
+        tables = [c[min(bias, len(c) - 1):] for c in tables]
+        sizes = np.array([(c[0].shape[0], c[0].shape[1]) for c in tables],
+                         np.int32)
+    n_mips = max(len(c) for c in tables)
+
+    total_rows = _pool_row_count(tables, want)
+    if pool_mode == "auto":
+        candidates = (("tri", "quad", "narrow") if want == "tri"
+                      else ("quad", "narrow"))
+        pool_mode = candidates[-1]
+        for cand in candidates:
+            if (pool_budget_bytes is None
+                    or _pool_need(total_rows, cand) <= pool_budget_bytes):
+                pool_mode = cand
+                break
+        if pool_mode != want:
+            logger.warning(
+                "texel pool auto mode: the %s pool (%.0f MiB) exceeds the "
+                "%.0f MiB budget — using %s (%.0f MiB; %s)", want,
+                _pool_need(total_rows, want) / 2**20,
+                pool_budget_bytes / 2**20, pool_mode,
+                _pool_need(total_rows, pool_mode) / 2**20,
+                "a trilinear tap takes two gathers, not one"
+                if want == "tri" and pool_mode == "quad" else
+                "a bilinear tap takes four gathers, not one")
+    need = _pool_need(total_rows, pool_mode)
+    if pool_budget_bytes is not None and need > pool_budget_bytes:
+        raise MemoryError(
+            f"texel pool ({pool_mode}) needs {need / 2**20:.0f} MiB > "
+            f"budget {pool_budget_bytes / 2**20:.0f} MiB (charged once: "
+            f"torch keeps no in-program copy of a gathered-from pool, "
+            f"where the JAX package charges twice) — raise "
+            f"MTR_POOL_BUDGET_MB / pool_budget_bytes, pass pool_bias "
+            f"(LOD clamp at decode), or split the scene")
+
     table = np.zeros((len(src_texs), n_mips, 3), np.int32)
     pool_parts = []
-    segs = []     # (off, h, w, parent off | -1, ph, pw) per stored level
-    offset = 0
+    segs = []     # (off, h, w, parent off | -1, ph, pw) per stored level:
+    offset = 0    # texel units, or 4x4-block units for "bc1"
     for li, chain in enumerate(tables):
         for mi in range(n_mips):
-            if mi < len(chain):
-                img = chain[mi]
-                h, w = img.shape[:2]
-                table[li, mi] = (offset, h, w)
-                pool_parts.append(quad_rows(img))
-                if mi + 1 < len(chain):
-                    nxt = chain[mi + 1]
-                    segs.append((offset, h, w, offset + h * w,
-                                 nxt.shape[0], nxt.shape[1]))
-                else:
-                    segs.append((offset, h, w, -1, 1, 1))
-                offset += h * w
-            else:
+            if mi >= len(chain):
                 table[li, mi] = table[li, len(chain) - 1]
+                continue
+            img = chain[mi]
+            table[li, mi] = (offset, img.shape[0], img.shape[1])
+            if pool_mode == "bc1":
+                bh, bw = _block_dims(img)
+                if raw_chains is not None:
+                    blk = raw_chains[li][mi]
+                    if blk.shape[0] != bh * bw:
+                        raise ValueError(
+                            f"bc1_chains[{li}][{mi}]: {blk.shape[0]} "
+                            f"blocks for a {img.shape[1]}x{img.shape[0]} "
+                            f"level ({bh * bw} needed)")
+                else:
+                    blk = native.encode_bc1(img)
+                pool_parts.append(blk)
+                nxt = (offset + bh * bw, *_block_dims(chain[mi + 1])) \
+                    if mi + 1 < len(chain) else (-1, 1, 1)
+                segs.append((offset, bh, bw, *nxt))
+                offset += bh * bw
+                continue
+            h, w = img.shape[:2]
+            pool_parts.append(img.reshape(-1, 4) if pool_mode == "narrow"
+                              else quad_rows(img))
+            nxt = (offset + h * w, *chain[mi + 1].shape[:2]) \
+                if mi + 1 < len(chain) else (-1, 1, 1)
+            segs.append((offset, h, w, *nxt))
+            offset += h * w
     mip_pool = np.concatenate(pool_parts)
-    logger.info("texel pool (%s): %d rows, %.2f MiB", pool_mode,
-                mip_pool.shape[0],
-                mip_pool.shape[0] * (64 if pool_mode == "tri" else 16)
-                / 2**20)
-    if pool_mode == "tri":
-        mip_pool = _build_tri_pool(torch.from_numpy(mip_pool).to(device),
-                                   np.asarray(segs, np.int32))
+    src_texels = int(sum(x.shape[0] * x.shape[1] for x in texs))
+    pool_bytes = mip_pool.shape[0] * POOL_BUDGET_ROW_BYTES[pool_mode]
+    logger.info("texel pool (%s): %d rows, %.2f MiB (%d source texels, "
+                "%.2f B/src texel incl. mips)", pool_mode,
+                mip_pool.shape[0], pool_bytes / 2**20, src_texels,
+                pool_bytes / max(src_texels, 1))
+    if pool_mode in ("tri", "bc1"):
+        build = _build_tri_pool if pool_mode == "tri" else _build_bc1_pool
+        mip_pool = build(torch.from_numpy(mip_pool).to(device),
+                         np.asarray(segs, np.int32))
 
     nj = (len(batch.inverse_bind_mats)
           if batch.inverse_bind_mats is not None else 1)
@@ -384,10 +622,12 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> DeviceScene:
     ``TENSOR_FIELDS`` to a NumPy array (or a tensor), ``statics`` every
     name in ``STATIC_FIELDS`` to its value. The arrays of another
     package's uploaded scene, converted to NumPy, carry its state across,
-    the quad or tri texel pool included."""
+    the quad, narrow, tri or bc1 texel pool included (a bc1 scene of the
+    JAX package also holds an ``aux_pool``, bc7's hint pool, which this
+    ignores)."""
     pool_mode = statics["pool_mode"]
-    if pool_mode in _SLICE_POOL:
-        raise _not_ported(f"pool_mode={pool_mode!r}", _SLICE_POOL[pool_mode])
+    if pool_mode == "bc7":
+        raise _not_ported("pool_mode='bc7'", _SLICE_BC7)
     if pool_mode not in POOL_ROW_BYTES:
         raise ValueError(f"unknown pool_mode {pool_mode!r}")
     tensors = {f: (leaves[f].to(device) if isinstance(leaves[f], torch.Tensor)
@@ -400,6 +640,46 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> DeviceScene:
                          f"{POOL_ROW_BYTES[pool_mode]} B, got {pool.dtype} "
                          f"{tuple(pool.shape)}")
     return DeviceScene(**tensors, **{k: statics[k] for k in STATIC_FIELDS})
+
+
+# bytes of host upload per logical pool row: the tri and bc1 pools are
+# built on the device from the quad rows and the compact 8 B blocks
+_UPLOAD_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 16, "bc1": 8}
+
+
+def pool_stats(scene: DeviceScene) -> dict:
+    """Texel-pool memory accounting: the pool mode, its logical rows
+    (texels, or 4x4 blocks for bc1), the bytes it holds on the device,
+    the bytes its upload sent from the host, the source texels (mip 0 of
+    every texture) and the bytes per source texel, mips included."""
+    rows, row_bytes = scene.mip_pool.shape
+    if row_bytes == 128:          # tri, bc1: two 64 B logical rows per row
+        rows *= 2
+        row_bytes = 64
+    src = int(scene.tex_size.cpu().to(torch.int64).prod(1).sum())
+    total_b = rows * row_bytes
+    return {
+        "pool_mode": scene.pool_mode,
+        "rows": int(rows),
+        "bytes": int(total_b),
+        "upload_bytes": int(rows * _UPLOAD_ROW_BYTES[scene.pool_mode]),
+        "src_texels": src,
+        "bytes_per_src_texel": round(total_b / max(src, 1), 2),
+    }
+
+
+def set_parts_mask(scene: DeviceScene, parts_disp) -> DeviceScene:
+    """Per-part visibility without a re-upload: a scene sharing every
+    buffer of ``scene`` but ``parts_mask`` (parts past ``parts_disp``
+    stay visible) and ``tri_vis``, the ``tri_valid & parts_mask[
+    tri_parts]`` fold, which runs on the scene's device."""
+    p = scene.parts_mask.shape[0]
+    mask = np.ones(p, bool)
+    pd = np.asarray(parts_disp, bool).reshape(-1)
+    mask[: min(p, len(pd))] = pd[:p]
+    mask_dev = torch.as_tensor(mask, device=scene.device)
+    tri_vis = scene.tri_valid & mask_dev[scene.tri_parts.long()]
+    return dataclasses.replace(scene, parts_mask=mask_dev, tri_vis=tri_vis)
 
 
 # ------------------------------------------------------------------ stages
@@ -619,8 +899,25 @@ def _contract_quad(quad, fx, fy) -> list:
 def _tap_albedo_channels(pool, idx, fx, fy) -> list:
     """One pool gather + the 2x2 bilinear contraction → 4 albedo
     channel tensors shaped like ``idx`` (quad pool, or the quad bytes of
-    a tri pool)."""
+    a tri pool; ``_pool_rows`` refuses a narrow pool's 4 B rows)."""
     return _contract_quad(_pool_rows(pool, idx, 16), fx, fy)
+
+
+def _check_pool_path(scene: DeviceScene, mipmap: bool) -> None:
+    """The bilinear tap paths address texel rows of a quad or tri pool:
+    a bc1 pool (4x4 blocks) renders only through the mipmap path, and a
+    narrow pool too (its tap would need four gathers)."""
+    if mipmap:
+        return
+    if scene.pool_mode == "narrow":
+        raise ValueError(
+            "the bilinear tap paths need the quad (16 B/texel) or tri "
+            "(64 B) pool: a narrow pool renders through the mipmap path "
+            "(upload(..., pool_mode='quad') for this one)")
+    if scene.pool_mode == "bc1":
+        raise ValueError(
+            "bc1 pools render via the mipmap path (mipmap=True): the "
+            "non-mip tap kernel addresses texel rows, not 4x4 blocks")
 
 
 def _blend_channels(src_channels, covered, clear_color) -> list:
@@ -850,9 +1147,26 @@ def _tap_address(u, v, hm, wm):
 
 def _quad_bilinear(pool, off, hm, wm, u, v) -> list:
     """Bilinear tap of the level at pool offset ``off`` with extents
-    (hm, wm): one 16 B gather + the contraction."""
+    (hm, wm): one 16 B gather + the contraction, or from a narrow (R, 4)
+    pool four gathers of the clamped neighbours assembled into the same
+    quad (the same contraction, so the same bits)."""
+    if pool.shape[-1] == 4:
+        x0c, y0c, x1c, y1c, fx, fy = _footprint(wm, hm, u, v)
+        quad = torch.cat([pool[(off + yy * wm + xx).long()]
+                          for yy, xx in ((y0c, x0c), (y0c, x1c), (y1c, x0c),
+                                         (y1c, x1c))], -1)
+        return _contract_quad(quad, fx, fy)
     x0c, y0c, fx, fy = _tap_address(u, v, hm, wm)
     return _contract_quad(_pool_rows(pool, off + y0c * wm + x0c, 16), fx, fy)
+
+
+def _footprint(wm, hm, u, v):
+    """A bilinear tap's four clamped texels at one level, the
+    expressions of ``_tap_address`` → (x0c, y0c, x1c, y1c, fx, fy)."""
+    x0c, y0c, fx, fy = _tap_address(u, v, hm, wm)
+    x1c = torch.minimum(x0c + 1, (wm - 1).clamp(min=0))
+    y1c = torch.minimum(y0c + 1, (hm - 1).clamp(min=0))
+    return x0c, y0c, x1c, y1c, fx, fy
 
 
 _PARENT_TAPS = (0, 1, 3, 4)      # a 2x2 footprint's starts in a 3x3 block
@@ -880,11 +1194,15 @@ def _trilinear_fused(pool, off0, hm0, wm0, hm1, wm1, m0, m1, u, v):
     return s0, [torch.where(deep, a, b) for a, b in zip(s1, s0)]
 
 
-def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int) -> list:
+def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int,
+                     mode: str = "quad") -> list:
     """Trilinear sample with arithmetic mip addressing (``_mip_arith``)
     → 4 channel tensors: lod clipped to [0, num_mips - 1], both levels
-    clamped to the texture's last real level. A tri pool takes both
-    levels from one gather (``_trilinear_fused``), a quad pool from two
+    clamped to the texture's last real level. ``mode`` is the scene's
+    pool mode: a tri pool takes both levels from one gather
+    (``_trilinear_fused``), a bc1 pool from one gather and eight texel
+    decodes (``_bc1_trilinear_fused``; ``off0`` and the offset walk are
+    then in block rows), a quad or narrow pool from two
     ``_quad_bilinear`` taps."""
     big = torch.maximum(th, tw)
     mmax = torch.zeros_like(th)
@@ -895,10 +1213,15 @@ def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int) -> list:
     fm = lod - m0f
     m0 = torch.minimum(rs._trunc_i32(m0f), mmax)
     m1 = torch.minimum(m0 + 1, mmax)
-    off_a, hm0, wm0 = _mip_arith(off0, th, tw, m0, num_mips)
     hm1 = (th >> m1).clamp(min=1)
     wm1 = (tw >> m1).clamp(min=1)
-    if pool.shape[-1] == 128:
+    if mode == "bc1":
+        off_a, hm0, wm0 = _mip_arith_bc1(off0, th, tw, m0, num_mips)
+        s0, s1 = _bc1_trilinear_fused(pool, off_a, hm0, wm0, hm1, wm1, m0,
+                                      m1, u, v)
+        return [a * (1 - fm) + b * fm for a, b in zip(s0, s1)]
+    off_a, hm0, wm0 = _mip_arith(off0, th, tw, m0, num_mips)
+    if mode == "tri":
         s0, s1 = _trilinear_fused(pool, off_a, hm0, wm0, hm1, wm1, m0, m1,
                                   u, v)
     else:
@@ -920,7 +1243,122 @@ def _mip_albedo_channels(scene: DeviceScene, m) -> list:
     lod = _analytic_lod(u, v, *[m[..., 11 + i, :] for i in range(6)],
                         m[..., 5, :], m[..., 6, :])
     return _trilinear_arith(scene.mip_pool, off0, th, tw, lod, u, v,
-                            scene.num_mips)
+                            scene.num_mips, mode=scene.pool_mode)
+
+
+# ------------------------------------------------- bc1-resident sampling
+
+
+def _bc1_words(row, n: int = 8):
+    """(..., 64) u8 bc1 rows → per-block endpoint words (c0, c1) i32 and
+    index words, for the first ``n`` of the 8 baked blocks (0-3 the child
+    group, 4-7 the parent group). Each 32-bit index word is held in int64
+    (torch has no uint32 arithmetic on every device), so it stays
+    non-negative with bit 31 set and its right shifts are logical."""
+    u = row.to(torch.int32)
+    u64 = row.to(torch.int64)
+    c0s, c1s, bits = [], [], []
+    for s in range(n):
+        o = 8 * s
+        c0s.append(u[..., o] | (u[..., o + 1] << 8))
+        c1s.append(u[..., o + 2] | (u[..., o + 3] << 8))
+        bits.append(u64[..., o + 4] | (u64[..., o + 5] << 8)
+                    | (u64[..., o + 6] << 16) | (u64[..., o + 7] << 24))
+    return c0s, c1s, bits
+
+
+def _bc1_texel(c0, c1, bits, xt, yt) -> list:
+    """Decode one BC1 texel at texel coordinates (xt, yt) from its
+    block's words: the integer arithmetic of ``bcn.decode_bc1_numpy``
+    (565 expand, (2a + b + 1) // 3 interpolants, three-color
+    punch-through). Returns [r, g, b, a] i32."""
+    code = ((bits >> (2 * ((yt & 3) * 4 + (xt & 3)))) & 3).to(torch.int32)
+    four = c0 > c1
+    out = []
+    for a, b in zip(bcn._rgb565_to_rgb888(c0), bcn._rgb565_to_rgb888(c1)):
+        p2 = torch.where(four, bcn._div3(2 * a + b + 1), (a + b) >> 1)
+        p3 = torch.where(four, bcn._div3(a + 2 * b + 1), 0)
+        out.append(torch.where(code == 0, a, torch.where(
+            code == 1, b, torch.where(code == 2, p2, p3))))
+    out.append(torch.where((code == 3) & ~four, 0, 255).to(torch.int32))
+    return out
+
+
+def _bc1_quad(c0s, c1s, bits, base: int, taps):
+    """The 2x2 bilinear footprint decoded from a baked 2x2 block group
+    (blocks base..base+3): ``taps`` are 4 tuples (xt, yt, sx, sy) in
+    ``_contract_quad``'s corner order, sx/sy the tap's block within the
+    group ({0, 1} tensors, or None where it is the group's first).
+    Returns (..., 16) i32 texels, corner-major RGBA like a quad row."""
+    def pick(vals, sx, sy):
+        if sx is None and sy is None:
+            return vals[base]
+        if sy is None:
+            return torch.where(sx == 1, vals[base + 1], vals[base])
+        if sx is None:
+            return torch.where(sy == 1, vals[base + 2], vals[base])
+        lo = torch.where(sx == 1, vals[base + 1], vals[base])
+        hi = torch.where(sx == 1, vals[base + 3], vals[base + 2])
+        return torch.where(sy == 1, hi, lo)
+
+    return torch.stack(
+        [ch for xt, yt, sx, sy in taps
+         for ch in _bc1_texel(pick(c0s, sx, sy), pick(c1s, sx, sy),
+                              pick(bits, sx, sy), xt, yt)], -1)
+
+
+def _mip_arith_bc1(off0, th, tw, m, num_mips: int):
+    """Level-m block-row offset and texel extents from the mip-0
+    constants: the bc1 twin of ``_mip_arith`` (level i spans
+    ceil(h_i / 4) · ceil(w_i / 4) block rows, as upload lays it out)."""
+    hm = (th >> m).clamp(min=1)
+    wm = (tw >> m).clamp(min=1)
+    off = off0
+    for i in range(num_mips - 1):
+        bh = ((th >> i).clamp(min=1) + 3) >> 2
+        bw = ((tw >> i).clamp(min=1) + 3) >> 2
+        off = off + torch.where(m > i, bh * bw, 0)
+    return off, hm, wm
+
+
+def _bc1_trilinear_fused(pool, off0, hm0, wm0, hm1, wm1, m0, m1, u, v):
+    """Both levels of a trilinear tap from one 64 B bc1 row and eight
+    BC1 texel decodes → (s0, s1) channel lists. The row holds the child
+    2x2 block group at (x0c >> 2, y0c >> 2), which contains any level-m0
+    footprint that starts in its first block, and the parent 2x2 block
+    group anchored at A = (2·bx − 1) >> 2 per axis: the level-m1
+    footprint spans texels [2·bx − 1, 2·bx + 2] (the tri pool's law), at
+    most two consecutive parent blocks {A, A + 1}. The decoded integers
+    equal a quad pool's of the decoded chains, and the same
+    ``_contract_quad`` runs, so the result equals that pool's bit for
+    bit; where m1 == m0 (the texture's last level) s1 is s0."""
+    x0c, y0c, x1c, y1c, fx, fy = _footprint(wm0, hm0, u, v)
+    bx = x0c >> 2
+    by = y0c >> 2
+    row = _pool_rows(pool, off0 + by * ((wm0 + 3) >> 2) + bx, 64)
+    c0s, c1s, bits = _bc1_words(row)
+    rx = ((x1c >> 2) - bx).clamp(0, 1)
+    ry = ((y1c >> 2) - by).clamp(0, 1)
+    s0 = _contract_quad(_bc1_quad(
+        c0s, c1s, bits, 0, [(x0c, y0c, None, None), (x1c, y0c, rx, None),
+                            (x0c, y1c, None, ry), (x1c, y1c, rx, ry)]),
+        fx, fy)
+    xp0, yp0, xp1, yp1, fx1, fy1 = _footprint(wm1, hm1, u, v)
+    ax = torch.minimum(((2 * bx - 1) >> 2).clamp(min=0),
+                       (((wm1 + 3) >> 2) - 1).clamp(min=0))
+    ay = torch.minimum(((2 * by - 1) >> 2).clamp(min=0),
+                       (((hm1 + 3) >> 2) - 1).clamp(min=0))
+    # every parent tap may land in either column or row of the group
+    sx0 = ((xp0 >> 2) - ax).clamp(0, 1)
+    sx1 = ((xp1 >> 2) - ax).clamp(0, 1)
+    sy0 = ((yp0 >> 2) - ay).clamp(0, 1)
+    sy1 = ((yp1 >> 2) - ay).clamp(0, 1)
+    s1 = _contract_quad(_bc1_quad(
+        c0s, c1s, bits, 4, [(xp0, yp0, sx0, sy0), (xp1, yp0, sx1, sy0),
+                            (xp0, yp1, sx0, sy1), (xp1, yp1, sx1, sy1)]),
+        fx1, fy1)
+    deep = m1 > m0
+    return s0, [torch.where(deep, a, b) for a, b in zip(s1, s0)]
 
 
 def shade_mip_tap_flat_channels(scene: DeviceScene, mattrs, ib,
@@ -1228,6 +1666,29 @@ def _render_frame_core(scene: DeviceScene, view_proj, bone_mats=None, *,
     return color.contiguous(), depth.contiguous(), (n_over, n_over_tap)
 
 
+def count_covered_textured(scene: DeviceScene, view_proj, bone_mats=None,
+                           *, width: int, height: int,
+                           maxc: int | None = None):
+    """Per-frame pixel counts on the scene's device → (covered,
+    textured) i32 scalars: the pixels with a winner, and those whose
+    winner's tap row is textured (``tapidx >= 0``, measured rather than
+    assumed). One run of the production raster, K1 with its tap
+    epilogue (the kernel on a CUDA device), at the binning cap ``maxc``;
+    the counts stay on the device until the caller reads them."""
+    pw, ph = _padded(width, height)
+    clip = vertex_stage(scene, view_proj, bone_mats)
+    cols, bbox = setup_packed_cols(scene, clip, width, height,
+                                   bone_mats=bone_mats)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph,
+                                         maxc=maxc or rs.MAXC_DEFAULT)
+    _, ib, _, tapidx = rs.raster_fwd(cols, lists, glists, counts, (0, 0),
+                                     width=pw, height=ph, w_eps=W_EPS)
+    cov = rs.unflatten_tiles(ib[:, 0, :], ph, pw)[:height, :width] >= 0
+    tex = rs.unflatten_tiles(tapidx[:, 0, :], ph, pw)[:height, :width] >= 0
+    return cov.sum(dtype=torch.int32), (cov & tex).sum(dtype=torch.int32)
+
+
 def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
                  width: int = 512, height: int = 512,
                  clear_color: tuple = (255, 255, 255, 255),
@@ -1256,6 +1717,7 @@ def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
     is the (H, W, 4) uint8 view of the same plane."""
     if backend != "pallas":
         raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
+    _check_pool_path(scene, mipmap)
     color, depth, n_over = _render_frame_core(
         scene, view_proj, bone_mats, width=width, height=height,
         clear_color=clear_color, maxc=maxc, tap_tiles=tap_tiles,
@@ -1521,6 +1983,7 @@ def render_frame_peeled(scene: DeviceScene, view_proj, bone_mats=None, *,
     if isinstance(tap_tiles, tuple) and peel_mode != "split":
         raise ValueError("tuple tap_tiles is the split peel's "
                          "(opaque, translucent) cap pair")
+    _check_pool_path(scene, mipmap)
     color, depth, n_over = _render_frame_peeled_core(
         scene, view_proj, bone_mats, width=width, height=height,
         layers=layers, clear_color=clear_color, maxc=maxc,

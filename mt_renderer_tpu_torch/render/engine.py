@@ -29,6 +29,7 @@ from __future__ import annotations
 import logging
 
 import numpy as np
+import torch
 
 from . import device
 from . import raster as rs
@@ -63,6 +64,10 @@ class FrameEngine:
         self._tap_bound = 0            # host row bound seen at sizing
 
     def _predict(self, fn, view_proj, bone_mats, **kw):
+        """A host predictor at this view; a palette on the device (the
+        world's ``bone_mats_device``) is read back for it."""
+        if isinstance(bone_mats, torch.Tensor):
+            bone_mats = bone_mats.cpu().numpy()
         return fn(self.batch, np.asarray(view_proj), bone_mats,
                   width=self.width, height=self.height, **kw)
 

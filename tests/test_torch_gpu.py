@@ -14,8 +14,13 @@ demo scene are held to 2 ulp, with ids, coverage and tap addresses
 exact; K2's to 0 ulp). K4 is integer arithmetic: bit-equal. The frames on the card are
 held to the CPU's under the golden rule (coverage exact, at most 0.3% of
 pixels with a channel off by more than 1); the animated palette of the
-world, computed on the card, equals the host's bit for bit.
+world, computed on the card, equals the host's bit for bit. The tri and
+bc1 pools built on the card equal the CPU's builds, and the bc1 and
+narrow frames on the card equal their decoded-chains and quad pools'
+frames there bit for bit.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -578,3 +583,108 @@ def test_world_frame_on_card_matches_cpu(cuda):
     diff = np.abs(td.unpack_rgba(gc).astype(np.int32)
                   - td.unpack_rgba(wc).astype(np.int32)).max(-1)
     assert (diff > 1).mean() <= 0.003
+
+
+def _decoded_chains(batch):
+    """Each texture's box-filter chain, every level BC1-encoded and
+    decoded: the content a bc1 pool holds."""
+    from mt_renderer_tpu_torch.render import bcn
+
+    return [[bcn.decode_bc1_blocks_numpy(bcn.encode_bc1_numpy(img),
+                                         img.shape[1], img.shape[0])
+             for img in td.mip_chain(t)] for t in batch.textures]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["tri", "bc1"])
+def test_pool_build_on_card_matches_cpu(cuda, mode):
+    """The tri and bc1 pools built on the card equal the CPU's build,
+    byte for byte, on a small world's mixed texture sizes."""
+    kw = dict(buildings=8, width=W, height=H, characters=2, variants=4,
+              terrain_subdiv=2, building_subdivs=(1,), pool_mode=mode)
+    got = entry.world_case(cuda, **kw).scene
+    want = entry.world_case("cpu", **kw).scene
+    assert got.mip_pool.device.type == "cuda"
+    assert torch.equal(got.mip_pool.cpu(), want.mip_pool)
+    assert td.pool_stats(got) == td.pool_stats(want)
+
+
+@pytest.mark.gpu
+def test_decode_bc1_device_on_card_matches_numpy(cuda):
+    from mt_renderer_tpu_torch.render import bcn
+
+    rng = np.random.default_rng(2)
+    h, w = 37, 23
+    blk = rng.integers(0, 256, (((h + 3) // 4) * ((w + 3) // 4), 8),
+                       dtype=np.uint8)
+    blk[::3, 7] |= 0x80
+    got = bcn.decode_bc1_device(torch.from_numpy(blk.reshape(-1)), w, h,
+                                device=cuda)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  bcn.decode_bc1_numpy(blk.tobytes(), w, h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("peel", [0, 3])
+def test_bc1_frame_on_card_equals_decoded_chains(cuda, peel):
+    """The bc1 mip frame on the card (K1, and with ``peel`` K2 in the
+    split peel, mtap) equals the frame of a quad pool of its decoded
+    chains on the card, bit for bit, and the CPU's under the golden
+    rule with exact coverage."""
+    batch, vp, bones = _glass()
+    out = {}
+    for dev in (cuda, "cpu"):
+        for name, scene in (
+                ("bc1", td.upload(batch, "bc1", device=dev)),
+                ("dec", td.upload(batch, device=dev,
+                                  mip_chains=_decoded_chains(batch)))):
+            kw = dict(width=W, height=H, packed=True, mipmap=True,
+                      lighting=True)
+            if peel:
+                out[str(dev), name] = td.render_frame_peeled(
+                    scene, vp, bones, layers=peel, peel_mode="split", **kw)
+            else:
+                out[str(dev), name] = td.render_frame(scene, vp, bones, **kw)
+    tr.flush_overflow_checks()
+    (gc, gd), (dc, dd) = out["cuda", "bc1"], out["cuda", "dec"]
+    assert torch.equal(gc, dc) and torch.equal(gd, dd)
+    wc, wd = out["cpu", "bc1"]
+    assert torch.equal(gd.cpu() < 1.0, wd < 1.0)
+    assert 0.05 < float((wd < 1.0).float().mean())
+    diff = np.abs(td.unpack_rgba(gc).astype(np.int32)
+                  - td.unpack_rgba(wc).astype(np.int32)).max(-1)
+    assert (diff > 1).mean() <= 0.003
+
+
+@pytest.mark.gpu
+def test_narrow_frame_on_card_equals_quad(cuda):
+    batch, vp, bones = _glass()
+    kw = dict(width=W, height=H, packed=True, mipmap=True, lighting=True)
+    quad = td.render_frame(td.upload(batch, device=cuda), vp, bones, **kw)
+    narrow = td.render_frame(td.upload(batch, "narrow", device=cuda), vp,
+                             bones, **kw)
+    tr.flush_overflow_checks()
+    assert torch.equal(quad[0], narrow[0]) and torch.equal(quad[1],
+                                                           narrow[1])
+
+
+@pytest.mark.gpu
+def test_helpers_on_card(cuda):
+    """``count_covered_textured`` launches K1 and equals the CPU's
+    counts; ``pool_budget_default`` is 3/4 of the card's memory, and
+    ``upload("auto", mipmap=True)`` picks the tri pool under it."""
+    batch, vp, bones = _glass()
+    before = tr.raster_fwd.launches
+    got = td.count_covered_textured(td.upload(batch, device=cuda), vp,
+                                    bones, width=W, height=H)
+    assert tr.raster_fwd.launches == before + 1
+    assert got[0].device.type == "cuda"
+    want = td.count_covered_textured(td.upload(batch, device="cpu"), vp,
+                                     bones, width=W, height=H)
+    assert [int(x) for x in got] == [int(x) for x in want]
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    if not os.environ.get("MTR_POOL_BUDGET_MB"):
+        assert td.pool_budget_default(cuda) == total * 3 // 4
+    assert td.upload(batch, "auto", device=cuda,
+                     mipmap=True).pool_mode == "tri"

@@ -149,9 +149,12 @@ def test_scene_from_numpy_carries_the_tri_pool():
 
 
 def test_unported_parts_of_upload_raise():
+    """What upload still refuses: the bc7 pool and its asset chains."""
     batch = TRI_SCENES["untextured"]()
-    with pytest.raises(NotImplementedError, match="pool_bias.*item 10a"):
-        td.upload(batch, "tri", device="cpu", pool_bias=1)
+    with pytest.raises(NotImplementedError, match="bc7.*item 13"):
+        td.upload(batch, "bc7", device="cpu")
+    with pytest.raises(NotImplementedError, match="bc7.*item 13"):
+        td.upload(batch, "tri", device="cpu", bc7_chains=[[]])
 
 
 # ---------------------------------------------------------------- setup

@@ -5,9 +5,11 @@ A fresh interpreter makes ``import jax`` and ``import mt_renderer_tpu``
 imports the port and its two card tools, renders on the CPU its
 ``entry()`` frame, a small split-peel frame of the glass scene, a small
 mipmapped, lit frame from the tri pool, the same scene's peeled
-mipmapped, lit frame, and a small archive-world frame whose palette
-``bone_mats_device`` computes, and checks that no module of jax or of
-the JAX package was loaded on the way."""
+mipmapped, lit frame, a small archive-world frame whose palette
+``bone_mats_device`` computes, and the same world's frame from the bc1
+texel pool (its textures BC1-encoded through the port's own native
+binding), and checks that no module of jax or of the JAX package was
+loaded on the way."""
 
 import subprocess
 import sys
@@ -74,6 +76,15 @@ palette = world.bone_mats_device(12.0)
 color, depth = device.render_frame(world.scene, world.view_proj(), palette,
                                    width=128, height=96, mipmap=True,
                                    packed=True)
+assert (depth < 1.0).any() and (color != -1).any()
+
+bc1 = entry.world_case("cpu", buildings=8, width=128, height=96,
+                       characters=2, variants=3, terrain_subdiv=2,
+                       building_subdivs=(1,), pool_mode="bc1")
+assert bc1.scene.pool_mode == "bc1"
+color, depth = device.render_frame(bc1.scene, bc1.view_proj(),
+                                   bc1.bone_mats_device(12.0), width=128,
+                                   height=96, mipmap=True, packed=True)
 assert (depth < 1.0).any() and (color != -1).any()
 raster.flush_overflow_checks()
 

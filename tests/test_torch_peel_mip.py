@@ -37,6 +37,17 @@ W, H = 256, 128
 GOLDEN_SHARE = 0.003
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests run many small tensor ops, which
+    slow down by an order of magnitude when the parallel test workers'
+    threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def golden_share(got_u8, want_u8) -> float:
     """Share of pixels with a channel off by more than 1."""
     diff = np.abs(got_u8.astype(np.int32) - want_u8.astype(np.int32))
