@@ -89,11 +89,11 @@ on failure:
     pool_mode="bc1")``, its textures BC1-encoded through the port's
     ``native`` binding, whose state it prints): frame 0 equal, bit for
     bit, to the frame of a tri pool of its BC1-decoded chains; the
-    ``pool_stats`` of the bc1, tri and quad world scenes; K1 (mtap)
-    against its plain version on
-    frame 0's inputs; 20 frames of ``FrameEngine(mipmap=True)`` with the
-    palette on the card: K1 in every frame, no overflow, frame 0, median
-    and max times;
+    ``pool_stats`` of the bc1, tri and quad world scenes; the device
+    frame and trilinear shade times of the bc1 and that tri pool with the
+    caps fixed; K1 (mtap) against its plain version on frame 0's inputs;
+    20 frames of ``FrameEngine(mipmap=True)`` with the palette on the
+    card: K1 in every frame, no overflow, frame 0, median and max times;
 15. (b) the glass headline with the bc1 pool, split peel L = 4,
     mipmapped and lit: equal, bit for bit, to the frame of a tri pool of
     its decoded chains; K2 (mtap + lit) against its plain version as
@@ -109,7 +109,22 @@ on failure:
     roofline on ``default`` (2 views), whose rates line gives K3's two
     rates (ns per (group, warp) cull test, ns per surviving (triangle,
     warp)), and on ``world`` (8 views) at those rates; K4 against its
-    plain version and the bilinear A/B.
+    plain version and the bilinear A/B;
+19. (e) the world with the bc7 texel pool (``entry.world_case(
+    pool_mode="bc7")``, mode-6 content): as (a), against a tri pool of
+    its BC7-decoded chains, its ``pool_stats`` beside the bc1, tri and
+    quad scenes' of (a), K1 (mtap) against its plain version, 20 frames
+    of ``FrameEngine(mipmap=True)``;
+20. (f) the same world's textures as seeded random BC7 blocks of all
+    eight modes (``upload(pool_mode="bc7", bc7_chains=)``): every mode
+    present and the hint pool built; frame 0 equal, bit for bit, to a tri
+    pool of the decoded chains; the device frame and shade times of both;
+21. (g) the glass headline with the bc7 pool as (b): its split peel
+    L = 4, mip+light, equal to its decoded chains' frame, K2 (mtap + lit)
+    against its plain version;
+22. (h) the reference bench's verify legs on the card
+    (``verify.bench_legs``: 256x256, 9 instances at subdiv 2): every leg
+    passes, and each leg's readings are printed.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Prints the card's name and power limit, then every
@@ -122,9 +137,10 @@ records also the surviving pairs, the earlier every-binned-pair bound,
 the zero-count time and the floor at K3's rates, K1's its no-winner
 time, K2's the fill of its output bytes; K2 has three records: tap on
 the glass loop, mtap + lit on the peeled mip+light loop, ``full`` on
-the opaque mip+light headline's ml peel; K1 a fourth, mtap on the bc1
-world's loop, and K2 a fourth, mtap + lit on the bc1 glass headline's
-split peel) as one JSON line before the last, and as its last line
+the opaque mip+light headline's ml peel; K1 a fourth and a fifth, mtap
+on the bc1 and the bc7 world's loops, and K2 a fourth and a fifth, mtap
++ lit on the bc1 and the bc7 glass headline's split peel) as one JSON
+line before the last, and as its last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
 """
@@ -1046,15 +1062,48 @@ def phase_world_main(device) -> dict:
                 ms=kernel_ms, plain_ms=plain_ms, **bnd)
 
 
-def decoded_chains(batch) -> list:
-    """Each texture's box-filter chain with every level BC1-encoded and
-    decoded (``native``): the content a bc1 pool of ``batch`` holds."""
+def decoded_chains(batch, mode: str = "bc1") -> list:
+    """Each texture's box-filter chain with every level encoded and
+    decoded: BC1 through ``native``, or BC7 mode 6 (the bc7 pool's
+    synthetic content) decoded through ``native``; the content a bc1 or
+    bc7 pool of ``batch`` holds."""
+    from mt_renderer_tpu_torch import native
+    from mt_renderer_tpu_torch.render import bcn
+    from mt_renderer_tpu_torch.render import device as dv
+
+    def level(img):
+        h, w = img.shape[:2]
+        if mode == "bc1":
+            return native.decode_bc1(native.encode_bc1(img).tobytes(), w, h)
+        return native.decode_bc7(bcn.encode_bc7_mode6_numpy(img).tobytes(),
+                                 w, h)
+
+    return [[level(img) for img in dv.mip_chain(t)] for t in batch.textures]
+
+
+def all_mode_chains(batch, seed: int = 0) -> tuple:
+    """Per texture, its box-filter chain's level sizes filled with seeded
+    random BC7 blocks of all eight modes (random bytes under a valid mode
+    prefix) → (``bc7_chains`` for ``upload``, their decoded chains)."""
     from mt_renderer_tpu_torch import native
     from mt_renderer_tpu_torch.render import device as dv
 
-    return [[native.decode_bc1(native.encode_bc1(img).tobytes(),
-                               img.shape[1], img.shape[0])
-             for img in dv.mip_chain(t)] for t in batch.textures]
+    rng = np.random.default_rng(seed)
+    chains, dec = [], []
+    for t in batch.textures:
+        ch, dch = [], []
+        for img in dv.mip_chain(t):
+            h, w = img.shape[:2]
+            n = ((h + 3) // 4) * ((w + 3) // 4)
+            blk = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+            m = rng.integers(0, 8, n)
+            blk[:, 0] = ((1 << m) | ((blk[:, 0].astype(np.int64) << (m + 1))
+                                     & 0xFF)).astype(np.uint8)
+            ch.append((blk, h, w))
+            dch.append(native.decode_bc7(blk.tobytes(), w, h))
+        chains.append(ch)
+        dec.append(dch)
+    return chains, dec
 
 
 def log_pool_stats(what: str, scene) -> dict:
@@ -1065,16 +1114,68 @@ def log_pool_stats(what: str, scene) -> dict:
     return st
 
 
-def phase_bc1_world(device) -> dict:
-    """(a) The full world (the bench's ``pallas world`` row) with the
-    bc1 pool, ``entry.world_case(pool_mode="bc1")``: frame 0 equal, bit
-    for bit, to the frame of a tri pool of its BC1-decoded chains
-    (``upload(mip_chains=)``); the pool_stats of the bc1, that tri and
-    a quad scene; K1 (mtap)
-    against its plain version on frame 0's inputs; then FRAMES frames of
-    ``FrameEngine(mipmap=True)`` with each palette computed on the card,
-    launches counted from 0: K1 in every frame, no overflow. → K1's
-    launch count, its record, frame times and the stats."""
+def frame_and_shade_ms(scene, vp, pal, fkw) -> tuple:
+    """Device ms of the mipmapped frame with the caps fixed (``fkw``;
+    view and palette on the card; CUDA events around 5 frames), of its
+    trilinear shade stage alone (``shade_mip_tap_flat_channels`` on that
+    view's K1 outputs), and, from ``torch.profiler`` over one shade
+    call, its device kernels and their busy ms (the union of their
+    intervals): busy near the shade's time means the device's work
+    bounds it, far below it the launches do."""
+    import torch
+
+    from mt_renderer_tpu_torch.frame_profile import _device_busy
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = fkw["width"], fkw["height"]
+    vp_d = dv._f32(vp, scene.device)
+    frame = cuda_ms(lambda: dv.render_frame(scene, vp_d, pal, **fkw),
+                    warmup=2, reps=5)
+    rs.flush_overflow_checks()
+    pw, ph = dv._padded(w, h)
+    cols, bbox = dv.setup_packed_cols(
+        scene, dv.vertex_stage(scene, vp_d, pal), w, h)
+    pre = rs.prebin(cols, bbox, 0, 0, width=pw, height=ph, maxc=fkw["maxc"])
+    _, ib, mattrs = rs.raster_fwd(cols, *pre[:3], (0, 0), width=pw,
+                                  height=ph, w_eps=dv.W_EPS, mode="mtap")
+    def shade():
+        return dv.shade_mip_tap_flat_channels(scene, mattrs, ib,
+                                              tap_tiles=fkw["tap_tiles"])
+
+    shade_ms = cuda_ms(shade, warmup=2, reps=5)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        shade()
+        torch.cuda.synchronize()
+    kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                  for e in prof.events())
+    busy = _device_busy(prof, 1)[0]
+    return frame, shade_ms, kernels, busy
+
+
+def log_times(what: str, times: dict) -> None:
+    log(f"{what}, device path with the caps fixed (CUDA events): "
+        + "; ".join(f"{k} pool frame {f!r} ms, trilinear shade {s!r} ms "
+                    f"({n} device events, busy {b!r} ms)"
+                    for k, (f, s, n, b) in times.items()))
+
+
+def phase_bcn_world(device, mode: str, earlier: dict | None = None) -> dict:
+    """(a) and (e): the full world (the bench's ``pallas world`` row)
+    with the ``mode`` ("bc1" or "bc7", mode-6 content) texel pool,
+    ``entry.world_case(pool_mode=mode)``: frame 0 equal, bit for bit, to
+    the frame of a tri pool of its decoded chains (``upload(
+    mip_chains=)``); the pool_stats of the pool, that tri pool, (bc1) a
+    quad scene and the ``earlier`` stats again, by name; the device
+    frame and shade times of both pools with the caps fixed
+    (``frame_and_shade_ms``); K1 (mtap) against its plain version on
+    frame 0's inputs; then FRAMES frames of ``FrameEngine(mipmap=True)``
+    with each palette computed on the card, launches counted from 0: K1
+    in every frame, no overflow. → K1's launch count, its record, frame
+    times and the stats."""
     import torch
 
     from mt_renderer_tpu_torch import native
@@ -1083,9 +1184,10 @@ def phase_bc1_world(device) -> dict:
     from mt_renderer_tpu_torch.render import engine as en
     from mt_renderer_tpu_torch.render import raster as rs
 
-    log(f"native library for the BC1 encoder: available={native.available()}")
+    log(f"native library for the {mode.upper()} codec: "
+        f"available={native.available()}")
     t0 = time.perf_counter()
-    case = world_case(device, pool_mode="bc1", **WORLD)
+    case = world_case(device, pool_mode=mode, **WORLD)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     w, h, cam = case.width, case.height, case.camera
@@ -1095,16 +1197,24 @@ def phase_bc1_world(device) -> dict:
     taps = dv.auto_tap_tiles(case.batch, vp0, host_pal, width=w, height=h)
     t0 = time.perf_counter()
     ref = dv.upload(case.batch, "tri", device=device,
-                    mip_chains=decoded_chains(case.batch))
+                    mip_chains=decoded_chains(case.batch, mode))
     torch.cuda.synchronize()
-    log(f"bc1 world: {case.world.info}, {w}x{h}, maxc={maxc}, "
-        f"tap_tiles={taps}, set-up (build, encode, upload) {setup_s:.1f} s; "
-        f"tri pool of the decoded chains {time.perf_counter() - t0:.1f} s")
-    stats = {"bc1": log_pool_stats("bc1 world", case.scene),
+    log(f"{mode} world: {case.world.info}, {w}x{h}, maxc={maxc}, "
+        f"tap_tiles={taps}, bc7_modes={case.scene.bc7_modes}, set-up "
+        f"(build, encode, upload) {setup_s:.1f} s; tri pool of the decoded "
+        f"chains {time.perf_counter() - t0:.1f} s")
+    stats = {mode: log_pool_stats(f"{mode} world", case.scene),
              "tri": log_pool_stats("tri world (decoded chains)", ref)}
-    quad = dv.upload(case.batch, "quad", device=device)
-    stats["quad"] = log_pool_stats("quad world", quad)
-    del quad
+    if mode == "bc1":
+        quad = dv.upload(case.batch, "quad", device=device)
+        stats["quad"] = log_pool_stats("quad world", quad)
+        del quad
+    for name, st in (earlier or {}).items():
+        log(f"pool_stats, {name} world (an earlier phase): {json.dumps(st)}")
+    if stats[mode]["bytes"] != stats[mode]["rows"] * (
+            64 if mode == "bc1" else 128) or stats["tri"]["rows"] < \
+            stats[mode]["rows"]:
+        raise AssertionError(f"the {mode} world's pool_stats are wrong")
 
     fkw = dict(width=w, height=h, mipmap=True, packed=True, maxc=maxc,
                tap_tiles=taps)
@@ -1114,15 +1224,19 @@ def phase_bc1_world(device) -> dict:
     rs.flush_overflow_checks()
     n_px = int((a != b).sum())
     coverage = float((ad < 1.0).float().mean())
-    log(f"bc1 world frame 0 vs the tri pool of its decoded chains: {n_px} "
-        f"pixels differ, depth equal {bool(torch.equal(ad, bd))}; coverage "
-        f"{coverage:.4f}")
+    log(f"{mode} world frame 0 vs the tri pool of its decoded chains: "
+        f"{n_px} pixels differ, depth equal {bool(torch.equal(ad, bd))}; "
+        f"coverage {coverage:.4f}")
     if n_px or not torch.equal(ad, bd) or not 0.0 < coverage <= 1.0 \
             or rs.OVERFLOW_EVENTS:
-        raise AssertionError("the bc1 world frame differs from its decoded "
-                             "chains' frame")
-
+        raise AssertionError(f"the {mode} world frame differs from its "
+                             "decoded chains' frame")
+    del a, b
+    times = {mode: frame_and_shade_ms(case.scene, vp0, pal, fkw),
+             "tri": frame_and_shade_ms(ref, vp0, pal, fkw)}
+    log_times(f"{mode} world", times)
     del ref
+
     pw, ph = dv._padded(w, h)
     kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap")
     cols, bbox = dv.setup_packed_cols(
@@ -1133,14 +1247,14 @@ def phase_bc1_world(device) -> dict:
     got = rs.raster_fwd(*args, **kw)
     want = rs.raster_fwd_reference(*args, **kw)
     torch.cuda.synchronize()
-    err = compare_outputs(got, want, f"K1 mtap vs plain, bc1 world frame "
+    err = compare_outputs(got, want, f"K1 mtap vs plain, {mode} world frame "
                           f"0, {cols.shape[1]} tris, maxc={lists.shape[1]}")
-    bnd = k1_breakdown(args, kw, got, "bc1 world frame 0, mtap")
+    bnd = k1_breakdown(args, kw, got, f"{mode} world frame 0, mtap")
     del got, want
     kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
     plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
                        warmup=1, reps=5)
-    log(f"raster_bc1_world_mtap_kernel_ms {kernel_ms!r}")
+    log(f"raster_{mode}_world_mtap_kernel_ms {kernel_ms!r}")
     del args, cols, lists, glists, counts
 
     eng = en.FrameEngine(case.scene, case.batch, width=w, height=h,
@@ -1166,43 +1280,123 @@ def phase_bc1_world(device) -> dict:
     cam.yaw = base_yaw
     eng.check()
     rs.flush_overflow_checks()
-    log(f"bc1 world main path (FrameEngine): {FRAMES} frames, K1 launches "
-        f"{launches}, overflow events {rs.OVERFLOW_EVENTS}, caps "
+    log(f"{mode} world main path (FrameEngine): {FRAMES} frames, K1 "
+        f"launches {launches}, overflow events {rs.OVERFLOW_EVENTS}, caps "
         f"maxc={eng.maxc} tap_tiles={eng.tap_tiles}, recoveries "
         f"{eng.recoveries}")
     if min(per_frame) < 1 or rs.OVERFLOW_EVENTS:
-        raise AssertionError("a bc1 world frame launched no K1, or "
+        raise AssertionError(f"a {mode} world frame launched no K1, or "
                              "overflowed")
     if (tuple(color.shape) != (h, w) or color.dtype != torch.int32
             or not bool((depth < 1.0).any())):
-        raise AssertionError("the last bc1 world frame is malformed")
+        raise AssertionError(f"the last {mode} world frame is malformed")
     per = [x.elapsed_time(y) for x, y in zip(ev[:-1], ev[1:])]
     frame_ms = ev[0].elapsed_time(ev[-1]) / FRAMES
-    log(f"bc1_world_frame_ms {frame_ms!r} (CUDA events over {FRAMES} "
+    log(f"{mode}_world_frame_ms {frame_ms!r} (CUDA events over {FRAMES} "
         f"frames, host guard included; host clock {wall_ms!r} ms/frame); "
         f"per frame: median {float(np.median(per))!r}, max {max(per)!r}, "
         f"frame 0 {per[0]!r}")
     return dict(launches=launches, frame_ms=frame_ms, max_abs_err=err,
-                ms=kernel_ms, plain_ms=plain_ms, stats=stats, **bnd)
+                ms=kernel_ms, plain_ms=plain_ms, stats=stats, times=times,
+                **bnd)
 
 
-def phase_bc1_peel(device) -> dict:
-    """(b) The glass headline with the bc1 pool, peeled mip+light
-    (split, L = LAYERS): equal, bit for bit, to the same frame from a
-    tri pool of its decoded chains, K2's launches in the bc1 frame
-    counted from 0; K2 (mtap + lit) against its plain version as that
-    frame calls it (the translucent set, no opaque cull, K1's opaque z
-    as ``zhi``), timed, with its breakdown. → K2's record."""
+def phase_bc7_multimode(device) -> None:
+    """(f) The world's textures as seeded random BC7 blocks of all eight
+    modes through ``upload(pool_mode="bc7", bc7_chains=)``: every mode
+    present and the hint pool built; frame 0 (K1 launches counted from 0)
+    equal, bit for bit, to the frame of a tri pool of the decoded chains;
+    the device frame and shade times of both pools with the caps fixed;
+    its pool_stats."""
+    import torch
+
+    from mt_renderer_tpu_torch.entry import world_case
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    case = world_case(device, pool_mode="quad", **WORLD)
+    chains, dec = all_mode_chains(case.batch)
+    scene = dv.upload(case.batch, "bc7", device=device, bc7_chains=chains)
+    ref = dv.upload(case.batch, "tri", device=device, mip_chains=dec)
+    torch.cuda.synchronize()
+    st = log_pool_stats("bc7 world, all eight modes", scene)
+    log(f"bc7 all-mode world: bc7_modes {scene.bc7_modes}, hint pool "
+        f"{tuple(scene.aux_pool.shape)}, set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    blocks = st["rows"]
+    if scene.bc7_modes != tuple(range(8)) or st["bytes"] != \
+            blocks * 128 + (blocks + 1) // 2 * 128:
+        raise AssertionError("the all-mode bc7 pool lacks a mode or its "
+                             "hint pool")
+    w, h = case.width, case.height
+    vp0 = case.view_proj()
+    host_pal = case.bone_mats(0.0)
+    fkw = dict(width=w, height=h, mipmap=True, packed=True,
+               maxc=dv.auto_maxc(case.batch, vp0, host_pal, width=w,
+                                 height=h),
+               tap_tiles=dv.auto_tap_tiles(case.batch, vp0, host_pal,
+                                           width=w, height=h))
+    pal = case.bone_mats_device(0.0)
+    reset_launches()
+    a, ad = dv.render_frame(scene, vp0, pal, **fkw)
+    launches = rs.raster_fwd.launches
+    b, bd = dv.render_frame(ref, vp0, pal, **fkw)
+    rs.flush_overflow_checks()
+    n_px = int((a != b).sum())
+    log(f"bc7 all-mode world frame 0 vs the tri pool of its decoded "
+        f"chains: {n_px} pixels differ, depth equal "
+        f"{bool(torch.equal(ad, bd))}, K1 launches {launches}")
+    if n_px or not torch.equal(ad, bd) or launches < 1 \
+            or rs.OVERFLOW_EVENTS or not bool((ad < 1.0).any()):
+        raise AssertionError("the all-mode bc7 world frame differs from its "
+                             "decoded chains' frame")
+    del a, b
+    times = {"bc7 all-mode": frame_and_shade_ms(scene, vp0, pal, fkw),
+             "tri": frame_and_shade_ms(ref, vp0, pal, fkw)}
+    log_times("bc7 all-mode world", times)
+
+
+def with_opacity_flags(ref, scene, what: str):
+    """``ref`` (a pool of ``scene``'s decoded chains) with ``scene``'s
+    per-triangle texture-opacity flags (``cols_const`` row 9), logging
+    how many differ. Upload flags a synthetic bc1 or bc7 pool's textures
+    by their source alpha, as the reference does, and BC7 mode 6 may
+    round an alpha of 255 to 254, which flags the decoded chains'
+    texture translucent; the split peel partitions by the flag, so the
+    frames are held with one set of flags: the comparison is of the
+    texels."""
+    import dataclasses
+
+    import torch
+
+    n = int((ref.cols_const[9] != scene.cols_const[9]).sum())
+    log(f"{what}: {n} triangles' opacity flags differ between the pool and "
+        f"its decoded chains'; the decoded chains' pool takes the pool's")
+    return dataclasses.replace(ref, cols_const=torch.cat(
+        [ref.cols_const[:9], scene.cols_const[9:]]))
+
+
+def phase_bcn_peel(device, mode: str) -> dict:
+    """(b) and (g): the glass headline with the ``mode`` ("bc1" or "bc7",
+    mode-6 content) pool, peeled mip+light (split, L = LAYERS): equal,
+    bit for bit, to the same frame from a tri pool of its decoded chains
+    (with the pool's opacity flags: ``with_opacity_flags``), K2's
+    launches in the ``mode`` frame counted from 0; K2 (mtap + lit)
+    against its plain version as that frame calls it (the translucent
+    set, no opaque cull, K1's opaque z as ``zhi``), timed, with its
+    breakdown. → K2's record."""
     import torch
 
     from mt_renderer_tpu_torch.render import device as dv
     from mt_renderer_tpu_torch.render import raster as rs
 
-    glass = headline_case(device, **dict(GLASS, pool_mode="bc1"))
+    glass = headline_case(device, **dict(GLASS, pool_mode=mode))
     batch, scene = glass["demo"].batch, glass["scene"]
-    ref = dv.upload(batch, "tri", device=device,
-                    mip_chains=decoded_chains(batch))
-    log_pool_stats("bc1 glass headline", scene)
+    ref = with_opacity_flags(dv.upload(
+        batch, "tri", device=device, mip_chains=decoded_chains(batch, mode)),
+        scene, f"{mode} glass headline")
+    log_pool_stats(f"{mode} glass headline", scene)
     w, h, vp, bones = glass["width"], glass["height"], glass["vp"], \
         glass["bones"]
     kw = dict(width=w, height=h, layers=LAYERS, maxc=glass["maxc"],
@@ -1216,12 +1410,13 @@ def phase_bc1_peel(device) -> dict:
     b, bd = dv.render_frame_peeled(ref, vp, bones, **fkw)
     rs.flush_overflow_checks()
     n_px = int((a != b).sum())
-    log(f"bc1 glass headline, split peel L={LAYERS} mip+light, caps {caps}: "
-        f"{n_px} pixels differ from the tri pool of its decoded chains, "
-        f"depth equal {bool(torch.equal(ad, bd))}; K2 launches {launches}")
+    log(f"{mode} glass headline, split peel L={LAYERS} mip+light, caps "
+        f"{caps}: {n_px} pixels differ from the tri pool of its decoded "
+        f"chains, depth equal {bool(torch.equal(ad, bd))}; K2 launches "
+        f"{launches}")
     if n_px or not torch.equal(ad, bd) or rs.OVERFLOW_EVENTS \
             or launches < 1:
-        raise AssertionError("the bc1 peeled frame differs from its "
+        raise AssertionError(f"the {mode} peeled frame differs from its "
                              "decoded chains' frame")
     del ref, a, b
 
@@ -1242,18 +1437,39 @@ def phase_bc1_peel(device) -> dict:
     got = rs.raster_fwd_ml(*args, **mlkw)
     want = rs.raster_fwd_ml_reference(*args, **mlkw)
     torch.cuda.synchronize()
-    err = compare_outputs(got, want, f"K2 mtap+lit vs plain, bc1 glass "
+    err = compare_outputs(got, want, f"K2 mtap+lit vs plain, {mode} glass "
                           f"headline, translucent set, nocull + zhi, "
                           f"L={LAYERS}")
-    bnd = k2_breakdown(args, mlkw, got, "bc1 glass headline, mtap + lit, "
+    bnd = k2_breakdown(args, mlkw, got, f"{mode} glass headline, mtap + lit, "
                        "nocull + zhi")
     del got, want
     kernel_ms = graph_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
     plain_ms = cuda_ms(lambda: rs.raster_fwd_ml_reference(*args, **mlkw),
                        warmup=1, reps=3)
-    log(f"raster_ml_bc1_mtap_lit_kernel_ms {kernel_ms!r}")
+    log(f"raster_ml_{mode}_mtap_lit_kernel_ms {kernel_ms!r}")
     return dict(launches=launches, max_abs_err=err, ms=kernel_ms,
                 plain_ms=plain_ms, **bnd)
+
+
+def phase_bench_legs(device) -> None:
+    """(h) The reference bench's verify legs (``verify.bench_legs``:
+    256x256, 9 instances at subdiv 2) on the card, each leg's readings
+    printed."""
+    from mt_renderer_tpu_torch import verify
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    reset_launches()
+    r = verify.bench_legs(device, **verify.BENCH_LEGS)
+    log(f"bench verify legs, {json.dumps(verify.BENCH_LEGS)} "
+        f"({time.perf_counter() - t0:.1f} s; K1 launches "
+        f"{rs.raster_fwd.launches}, K2 {rs.raster_fwd_ml.launches}):")
+    for leg, v in r.items():
+        if isinstance(v, dict):
+            log(f"  {leg}: {json.dumps(v)}")
+    if not r["passed"] or rs.OVERFLOW_EVENTS or rs.raster_fwd.launches < 1 \
+            or rs.raster_fwd_ml.launches < 1:
+        raise AssertionError("a bench verify leg failed")
 
 
 def phase_narrow(case: dict) -> None:
@@ -1493,13 +1709,17 @@ def main() -> int:
     del glass_mip, mip
     phase_world_legs(device)
     world_run = phase_world_main(device)
-    bc1_world = phase_bc1_world(device)
-    bc1_peel = phase_bc1_peel(device)
+    bc1_world = phase_bcn_world(device, "bc1")
+    bc1_peel = phase_bcn_peel(device, "bc1")
     phase_narrow(case)
     phase_helpers(case)
     k3 = phase_micro(case)
     roof = phase_roofline(device)
     k4 = phase_bilin(device)
+    bc7_world = phase_bcn_world(device, "bc7", earlier=bc1_world["stats"])
+    phase_bc7_multimode(device)
+    bc7_peel = phase_bcn_peel(device, "bc7")
+    phase_bench_legs(device)
     from mt_renderer_tpu_torch.tools import raster_roofline
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1534,6 +1754,8 @@ def main() -> int:
                       world_run),
         raster_record("raster_fwd", "mtap (bc1 world, FrameEngine)",
                       bc1_world["launches"], bc1_world),
+        raster_record("raster_fwd", "mtap (bc7 world, FrameEngine)",
+                      bc7_world["launches"], bc7_world),
         raster_record("raster_fwd_ml", "tap", peel_run["k2"], k2),
         raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
                       k2_mip),
@@ -1543,6 +1765,9 @@ def main() -> int:
         raster_record("raster_fwd_ml",
                       "mtap+lit (bc1 glass headline, split peel)",
                       bc1_peel["launches"], bc1_peel),
+        raster_record("raster_fwd_ml",
+                      "mtap+lit (bc7 glass headline, split peel)",
+                      bc7_peel["launches"], bc7_peel),
         record("raster_micro", MICRO_SOURCE, MICRO_REPLACES,
                roof["launches"], k3, rows=k3["rows"],
                surviving=k3["surviving"], test_ns=sol["test_ns"],

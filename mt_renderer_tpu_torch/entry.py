@@ -102,8 +102,9 @@ def world_case(device, *, buildings: int, width: int, height: int,
     ``characters`` 8-weight skinned characters on a ``.sdl`` timeline)
     uploaded to ``device`` with the ``pool_mode`` texel pool ("tri" by
     default: the mipmapped world's pool, as the reference bench picks it;
-    "bc1" keeps the textures BC1-compressed on the device), and the
-    world camera at ``width`` x ``height``."""
+    "bc1" keeps the textures BC1-compressed on the device, "bc7"
+    BC7-compressed as mode-6 content, as ``bench.py --pool bc7`` makes
+    it), and the world camera at ``width`` x ``height``."""
     ws = world_mod.build_world(
         buildings=buildings, characters=characters, variants=variants,
         terrain_subdiv=terrain_subdiv, building_subdivs=building_subdivs,

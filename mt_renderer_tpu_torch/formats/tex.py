@@ -24,9 +24,9 @@ image payloads. Formats used by the game data (``rtexture.rs:152-161``):
 7 = RGBA8, 19 = BC1, 42/54 = BC7.
 
 The reference uploads BCn blocks for GPU hardware decode. This package
-decodes BC1 and BC7 on the host through ``native`` (BC7 needs its
-library until the bc7 pool brings the NumPy decoder), and hands a BC1
-asset's own blocks to the bc1 texel pool (``TextureFile.bc1_chain``).
+decodes BC1 and BC7 on the host through ``native`` (its NumPy decoders
+without the library), and hands a BC1 or BC7 asset's own blocks to the
+bc1 or bc7 texel pool (``TextureFile.bc1_chain``, ``bc7_chain``).
 """
 
 from __future__ import annotations
@@ -138,6 +138,15 @@ class TextureFile:
             raise ValueError(
                 f"bc1_chain needs a BC1 texture (format {self.format})")
         return self._bcn_chain(8)
+
+    def bc7_chain(self) -> list:
+        """The stored BC7 mip chain as ``[(blocks (nb, 16) u8, h, w),
+        …]``: the feed of ``device.upload(pool_mode="bc7",
+        bc7_chains=…)`` (see ``bc1_chain``)."""
+        if self.format not in (TextureFormat.BC7, TextureFormat.BC7_42):
+            raise ValueError(
+                f"bc7_chain needs a BC7 texture (format {self.format})")
+        return self._bcn_chain(16)
 
     def _bcn_chain(self, block_bytes: int) -> list:
         chain = []

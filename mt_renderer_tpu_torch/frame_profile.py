@@ -7,6 +7,9 @@
         --mipmap --lighting
     python -m mt_renderer_tpu_torch.frame_profile --world --mipmap
     python -m mt_renderer_tpu_torch.frame_profile --world --mipmap --pool bc1
+    python -m mt_renderer_tpu_torch.frame_profile --world --mipmap --pool bc7
+    python -m mt_renderer_tpu_torch.frame_profile --bigtex --buildings 140 \\
+        --mipmap --pool bc7
     python -m mt_renderer_tpu_torch.frame_profile --device cpu \\
         --instances 4 --subdiv 1 --width 256 --height 128     # rehearsal
 
@@ -17,9 +20,10 @@ single-layer frame or, with ``--peel L``, the packed split-peel frame
 ``measure_live_tap_tiles``). ``--translucent`` renders the glass scene:
 every 4th instance translucent, the camera position scaled by 0.3.
 ``--mipmap`` renders the trilinear frame from the tri pool (the pool
-``bench.py`` takes for it; ``--pool`` picks another: quad, narrow, tri or
-bc1, as ``bench.py``'s flag does), ``--lighting`` the lit frame (both: the
-reference bench's ``pallas+mip+light`` row; with ``--peel`` its
+``bench.py`` takes for it; ``--pool`` picks another: quad, narrow, tri,
+bc1 or bc7 (mode-6 content), as ``bench.py``'s flag does),
+``--lighting`` the lit frame (both: the reference bench's
+``pallas+mip+light`` row; with ``--peel`` its
 ``peel4+mip+light`` row). ``--world`` renders the archive world instead
 (``--buildings`` buildings of subdivisions (4, 6, 8, 10, 12), the bench's
 ``pallas world`` row with ``--mipmap``), its palette computed on the
@@ -28,8 +32,8 @@ device by ``bone_mats_device``; ``--bigtex`` its big-texture envelope
 subdivisions (4, 6, 8): the bench's ``bigtex`` rows with ``--buildings
 140``).
 
-* the texel pool's ``pool_stats`` and, for the tri and bc1 pools, the
-  device time of their build at upload;
+* the texel pool's ``pool_stats`` and, for the tri, bc1 and bc7 pools,
+  the device time of their build at upload;
 * the host predictors ``FrameEngine`` runs before each frame
   (``predict_bin_counts`` + ``auto_tap_tiles``), and ``auto_maxc`` and
   ``skin_positions`` they are built on, in ms over ``--views`` views;
@@ -118,20 +122,21 @@ def _device_busy(prof, frames: int) -> tuple[float, float, list]:
 
 
 def _pool_build_ms(scene, dev: torch.device, reps: int):
-    """Device ms of the tri or bc1 pool's build at upload
-    (``device._build_tri_pool`` or ``_build_bc1_pool``), run again from
+    """Device ms of the tri, bc1 or bc7 pool's build at upload
+    (``device._build_tri_pool``, ``_build_bc1_pool`` or
+    ``_build_bc7_pool``; a bc7 pool's hint pool left out), run again from
     the compact rows it was built from, read back out of the pool's own
     bytes (a logical row starts with its quad row or block) with the
     level segments from the mip table → (ms, the rebuild equals the
     pool), or None for a pool built on the host."""
     mode = scene.pool_mode
-    if mode not in ("tri", "bc1"):
+    if mode not in ("tri", "bc1", "bc7"):
         return None
-    src = scene.mip_pool.reshape(-1, 64)[:, :16 if mode == "tri" else 8]
-    src = src.contiguous()
+    row_b, head = {"tri": (64, 16), "bc1": (64, 8), "bc7": (128, 16)}[mode]
+    src = scene.mip_pool.reshape(-1, row_b)[:, :head].contiguous()
 
     def dims(h, w):
-        return ((h + 3) // 4, (w + 3) // 4) if mode == "bc1" else (h, w)
+        return ((h + 3) // 4, (w + 3) // 4) if mode != "tri" else (h, w)
 
     segs = []
     for chain in scene.mip_table.cpu().numpy().tolist():
@@ -145,7 +150,8 @@ def _pool_build_ms(scene, dev: torch.device, reps: int):
                    if i + 1 < len(levels) else (-1, 1, 1))
             segs.append((off, *dims(h, w), *nxt))
     segs = np.asarray(sorted(segs), np.int32)
-    build = dv._build_bc1_pool if mode == "bc1" else dv._build_tri_pool
+    build = {"tri": dv._build_tri_pool, "bc1": dv._build_bc1_pool,
+             "bc7": dv._build_bc7_pool}[mode]
     same = bool(torch.equal(build(src, segs), scene.mip_pool))
     return _timed(lambda: build(src, segs), dev, reps, warmup=1), same
 
@@ -295,7 +301,8 @@ def main(argv=None) -> int:
                     help="the archive world instead of the demo scene")
     ap.add_argument("--buildings", type=int, default=280,
                     help="the world's buildings")
-    ap.add_argument("--pool", choices=("quad", "narrow", "tri", "bc1"),
+    ap.add_argument("--pool", choices=("quad", "narrow", "tri", "bc1",
+                                       "bc7"),
                     help="the texel pool (default: tri with --mipmap, "
                          "else quad)")
     ap.add_argument("--bigtex", action="store_true",
@@ -306,7 +313,7 @@ def main(argv=None) -> int:
     args.world = args.world or args.bigtex
     if args.world and (args.translucent or args.peel):
         ap.error("--world profiles the single-layer frame")
-    if args.pool in ("narrow", "bc1") and not args.mipmap:
+    if args.pool in ("narrow", "bc1", "bc7") and not args.mipmap:
         ap.error(f"the {args.pool} pool renders only the mipmapped frame")
     dev = torch.device(args.device)
     w, h = args.width, args.height

@@ -3,11 +3,12 @@
 The port's own binding of the repository's shared C++ file, for its BC1
 and BC7 entry points: ``decode_bc1`` and ``encode_bc1`` (the bc1 pool's
 content pipeline and asset decoding) and ``decode_bc7`` (``.tex``
-decoding). The library is built with ``g++`` at first use into
-``<repo>/build/native/``, keyed by a hash of the source and the flags;
-a host without a compiler, or where the build fails, takes the NumPy
-path (``render.bcn``) instead. ``available()`` reports which path is
-live. This is host code at load time, no device kernel.
+decoding, and the bc7 pool's bookkeeping of an asset's blocks). The
+library is built with ``g++`` at first use into ``<repo>/build/native/``,
+keyed by a hash of the source and the flags; a host without a compiler,
+or where the build fails, takes the NumPy path (``render.bcn``) instead.
+``available()`` reports which path is live. This is host code at load
+time, no device kernel.
 """
 
 from __future__ import annotations
@@ -127,9 +128,10 @@ def encode_bc1(img) -> np.ndarray:
 
 
 def decode_bc7(data: bytes, width: int, height: int) -> np.ndarray:
-    """BC7 → (H, W, 4) uint8, all 8 modes, threaded over blocks. Needs
-    the library: the NumPy BC7 decoder is ported with the bc7 pool
-    (ROADMAP Queue 1, item 13)."""
+    """BC7 → (H, W, 4) uint8, all 8 modes, threaded over blocks;
+    ``bcn.decode_bc7_numpy`` without the library or where it fails."""
+    from .render import bcn
+
     # bounds check before the native call: the C decoder derives the
     # block count from the dimensions and reads with no length check
     nblocks = ((width + 3) // 4) * ((height + 3) // 4)
@@ -138,12 +140,8 @@ def decode_bc7(data: bytes, width: int, height: int) -> np.ndarray:
                          f"{nblocks * 16} needed for {width}x{height}")
     lib = _load()
     if lib is None:
-        raise NotImplementedError(
-            "BC7 decoding without the native library is not ported yet: "
-            "the NumPy BC7 decoder comes with the bc7 pool (ROADMAP "
-            "Queue 1, item 13)")
+        return bcn.decode_bc7_numpy(data, width, height)
     out = np.empty((height, width, 4), np.uint8)
-    rc = lib.mtr_decode_bc7(bytes(data), width, height, _u8p(out), 0)
-    if rc != 0:
-        raise ValueError(f"BC7 decode of {width}x{height} failed ({rc})")
+    if lib.mtr_decode_bc7(bytes(data), width, height, _u8p(out), 0) != 0:
+        return bcn.decode_bc7_numpy(data, width, height)
     return out

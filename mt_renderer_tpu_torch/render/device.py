@@ -77,12 +77,11 @@ TRI_PAD = 384          # triangle-count padding quantum: one raster chunk
 _WHY_SCAN = ("the port keeps only the binned tile raster; scan stays a "
              "reference harness")
 
-# the pool mode of the reference that a later PR ports
-_SLICE_BC7 = "slice 4's bc7 pool (ROADMAP Queue 1 item 13)"
 POOL_MODES = ("quad", "narrow", "auto", "tri", "bc1", "bc7")
 # physical row bytes of each stored pool: "tri" and "bc1" pack two 64 B
-# logical rows into each 128 B row
-POOL_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 128, "bc1": 128}
+# logical rows into each 128 B row; a "bc7" row is one 128 B logical row
+POOL_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 128, "bc1": 128,
+                  "bc7": 128}
 
 
 def _not_ported(what: str, where: str):
@@ -99,9 +98,10 @@ TENSOR_FIELDS = (
     "positions", "uvs", "normals", "joints", "weights",
     "tri_texture", "tri_debug_id", "tri_flat", "tri_material", "mat_color",
     "tri_valid", "tri_parts", "parts_mask", "tex_size",
-    "mip_pool", "mip_table", "cols_const", "tri_vis",
+    "mip_pool", "mip_table", "cols_const", "tri_vis", "aux_pool",
 )
-STATIC_FIELDS = ("num_joints", "skinned", "num_mips", "pool_mode")
+STATIC_FIELDS = ("num_joints", "skinned", "num_mips", "pool_mode",
+                 "bc7_modes")
 
 
 @dataclass
@@ -130,20 +130,29 @@ class DeviceScene:
     # 3x3 level-(m+1) parent block (_build_tri_pool); "bc1": (ceil(B/2),
     # 128) u8, two 64 B logical rows per physical row, one per 4x4 BC1
     # block: its 2x2 block group and a 2x2 level-(m+1) parent block
-    # group (_build_bc1_pool)
+    # group (_build_bc1_pool); "bc7": (B, 128) u8, one row per 4x4 BC7
+    # block: its 2x2 block group (bytes 0-63) and a 2x2 level-(m+1)
+    # parent block group (bytes 64-127) (_build_bc7_pool)
     mip_pool: torch.Tensor
     # (L, M, 3) i32 — (offset, h, w) per mip; offsets in texel rows, or
-    # in block rows for "bc1"
+    # in block rows for "bc1" and "bc7"
     mip_table: torch.Tensor
     # per-triangle constants, column-major (10, Tp): [tex, cbase rgba
     # (1 for textured, flat/debug color otherwise), off_hi, off_lo, th,
     # tw, texture fully opaque]
     cols_const: torch.Tensor    # (10, Tp) f32
     tri_vis: torch.Tensor       # (Tp,) bool — tri_valid & parts_mask[tri_parts]
+    # the bc7 pool's partition hints (bcn.bc7_block_hints, 8 B a block)
+    # in the bc1 pool's geometry, (ceil(B/2), 128) u8, present only when
+    # a partitioned mode (0-3, 7) is; otherwise a (1, 128) zero row
+    aux_pool: torch.Tensor
     num_joints: int
     skinned: bool
     num_mips: int = 1
     pool_mode: str = "quad"
+    # the BC7 modes present in a bc7 pool's blocks: the sampler decodes
+    # only these
+    bc7_modes: tuple = ()
 
     @property
     def device(self) -> torch.device:
@@ -224,13 +233,14 @@ def _tri_chunk_rows(qpool, segs, r0: int, chunk: int):
 
 
 def _bc1_chunk_rows(cpool, segs, r0: int, chunk: int):
-    """One build step of the 64 B bc1 pool: logical rows [r0, r0+chunk)
-    (clamped to the last block) gain their 2x2 child block group (bytes
-    0-31: self, right, down, down-right, clamped to the level's edge)
-    and their 2x2 level-(m+1) parent block group (bytes 32-63, anchored
-    at A = (2·bx − 1) >> 2 per axis: the anchor whose group holds every
-    parent bilinear footprint of this block, see
-    ``_bc1_trilinear_fused``). ``cpool`` (B, 8) u8 compact blocks;
+    """One build step of the bc1 (or bc7) pool: logical rows [r0,
+    r0+chunk) (clamped to the last block) gain their 2x2 child block
+    group (the first four blocks: self, right, down, down-right, clamped
+    to the level's edge) and their 2x2 level-(m+1) parent block group
+    (the last four, anchored at A = (2·bx − 1) >> 2 per axis: the anchor
+    whose group holds every parent bilinear footprint of this block, see
+    ``_bc1_trilinear_fused``). ``cpool`` (B, k) u8 compact blocks (k = 8
+    for BC1, 16 for BC7, 8 for the bc7 pool's hints), so a row is 8k B;
     ``segs`` (S, 6) i32 [off, bh, bw, poff, pbh, pbw] in block units,
     sorted by off; poff = -1 for a texture's last real level (parent
     bytes zero, never read)."""
@@ -261,26 +271,27 @@ def _bc1_chunk_rows(cpool, segs, r0: int, chunk: int):
             pidx = torch.where(has_p, poff + clip(ay + dy, pbh) * pbw
                                + clip(ax + dx, pbw), 0)
             parts.append(torch.where(has_p[:, None], cpool[pidx.long()], 0))
-    return torch.cat(parts, 1)                           # (chunk, 64)
+    return torch.cat(parts, 1)                           # (chunk, 8k)
 
 
-def _packed_pool_build(src, segs_h: np.ndarray, rowfn):
-    """``src`` (R, k) u8 → (ceil(R/2), 128) u8, built on ``src``'s device
-    in chunks of logical 64 B rows (``rowfn``: ``_tri_chunk_rows`` or
-    ``_bc1_chunk_rows``), two per physical row, as the reference packs
-    them (an odd R repeats the last logical row). Peak memory is
+def _packed_pool_build(src, segs_h: np.ndarray, rowfn, per_row: int = 2):
+    """``src`` (R, k) u8 → (ceil(R/per_row), 128) u8, built on ``src``'s
+    device in chunks of logical rows (``rowfn``: ``_tri_chunk_rows`` or
+    ``_bc1_chunk_rows``), ``per_row`` of them to a physical row: two 64 B
+    rows as the reference packs the tri and bc1 pools (an odd R repeats
+    the last logical row), or one 128 B row (bc7). Peak memory is
     ``src``, the output and one chunk's temporaries."""
     rows = src.shape[0]
     if segs_h.size == 0:
         segs_h = np.array([[0, 1, 1, -1, 1, 1]], np.int32)
     segs = torch.as_tensor(np.asarray(segs_h, np.int32), device=src.device)
-    half = (rows + 1) // 2
-    chunk = min(_TRI_BUILD_CHUNK // 2, max(1 << 11, half), half)
-    out = torch.empty((half, 128), dtype=torch.uint8, device=src.device)
-    for start in range(0, half, chunk):
-        s = min(start, half - chunk)
-        out[s:s + chunk] = rowfn(src, segs, 2 * s, 2 * chunk).reshape(
-            chunk, 128)
+    n = -(-rows // per_row)
+    chunk = min(_TRI_BUILD_CHUNK // per_row, max(1 << 11, n), n)
+    out = torch.empty((n, 128), dtype=torch.uint8, device=src.device)
+    for start in range(0, n, chunk):
+        s = min(start, n - chunk)
+        out[s:s + chunk] = rowfn(src, segs, per_row * s,
+                                 per_row * chunk).reshape(chunk, 128)
     return out
 
 
@@ -300,6 +311,38 @@ def _build_bc1_pool(cpool, segs_h: np.ndarray):
     return _packed_pool_build(cpool, segs_h, _bc1_chunk_rows)
 
 
+def _build_bc7_pool(cpool, segs_h: np.ndarray):
+    """(B, 16) u8 compact BC7 blocks → (B, 128) u8 bc7 pool: each row the
+    2x2 child block group and the 2x2 parent block group of one block
+    (``_bc1_chunk_rows``' geometry at 16 B a block: eight blocks fill the
+    128 B row, one logical row to a physical row). Built on the blocks'
+    device, so the host uploads only the compact blocks (1 B per source
+    texel)."""
+    return _packed_pool_build(cpool, segs_h, _bc1_chunk_rows, per_row=1)
+
+
+def _bc7_modes_of(byte0: np.ndarray) -> tuple:
+    """The BC7 modes present among blocks with first bytes ``byte0``."""
+    byte0 = np.asarray(byte0, np.int64)
+    return tuple(m for m in range(8)
+                 if ((byte0 & ((1 << (m + 1)) - 1)) == (1 << m)).any())
+
+
+def _bc7_needs_hint(modes) -> bool:
+    """Partitioned modes (2 or 3 subsets) read the baked hint pool."""
+    return any(m in bcn._PARTITIONED for m in modes)
+
+
+def _hint_bytes(hints: np.ndarray) -> np.ndarray:
+    """(B, 2) u32 ``bcn.bc7_block_hints`` → (B, 8) u8, each word's bytes
+    little-endian, packed with shifts and masks (so on any host; the
+    reference views the words' memory, which assumes a little-endian
+    host)."""
+    h = np.asarray(hints, np.uint32)
+    return np.stack([(h[:, k // 4] >> np.uint32(8 * (k % 4))) & 0xFF
+                     for k in range(8)], 1).astype(np.uint8)
+
+
 def pool_budget_default(device) -> int | None:
     """The texel-pool byte budget for a pool on ``device``:
     ``MTR_POOL_BUDGET_MB`` when it is set; else 3/4 of the card's total
@@ -317,21 +360,27 @@ def pool_budget_default(device) -> int | None:
 # bytes the budget charges per logical pool row: the stored pool once.
 # The reference charges twice that (device.py:576-581), for the copy XLA
 # makes of a gathered-from pool inside its program; torch makes none.
-POOL_BUDGET_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 64, "bc1": 64}
+POOL_BUDGET_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 64, "bc1": 64,
+                         "bc7": 128}
+# a bc7 pool's hint pool, per block, charged only where it is built (a
+# partitioned mode present); the reference charges it always
+# (device.py:572-574)
+HINT_BUDGET_ROW_BYTES = 64
 
 
 def _pool_row_count(chains, mode: str) -> int:
     """Logical pool rows of the mip ``chains`` in ``mode``: one per
-    texel, or one per 4x4 block for "bc1"."""
-    if mode == "bc1":
+    texel, or one per 4x4 block for "bc1" and "bc7"."""
+    if mode in ("bc1", "bc7"):
         return sum(((img.shape[0] + 3) // 4) * ((img.shape[1] + 3) // 4)
                    for chain in chains for img in chain)
     return sum(img.shape[0] * img.shape[1]
                for chain in chains for img in chain)
 
 
-def _pool_need(rows: int, mode: str) -> int:
-    return rows * POOL_BUDGET_ROW_BYTES[mode]
+def _pool_need(rows: int, mode: str, hint: bool = False) -> int:
+    return rows * (POOL_BUDGET_ROW_BYTES[mode]
+                   + (HINT_BUDGET_ROW_BYTES if hint else 0))
 
 
 def _block_dims(img) -> tuple[int, int]:
@@ -364,16 +413,25 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
       device from the compact blocks), so a trilinear tap is one gather
       and eight texel decodes; BC1 is lossy, so it is never chosen
       implicitly; only the mipmapped paths sample it;
+    - ``"bc7"``: the textures BC7-encoded at load (mode 6,
+      ``bcn.encode_bc7_mode6_numpy``) and kept compressed: one 128 B row
+      per 4x4 block holds its 2x2 block group and its parent level's 2x2
+      block group (built on the device), so a trilinear tap is one
+      gather and eight texel decodes of only the modes present
+      (``bc7_modes``); where a partitioned mode (0-3, 7) is present, a
+      hint pool (``aux_pool``, 64 B per block) holds each block's
+      partition data; like bc1, never chosen implicitly and sampled only
+      by the mipmapped paths;
     - ``"auto"``: the first mode that fits the budget: with
       ``mipmap=True`` tri, then quad, then narrow; without, quad, then
       narrow. Each fallback is logged.
-    ``"bc7"`` is not ported yet.
 
     ``pool_budget_bytes`` (default ``pool_budget_default(device)``)
     bounds the pool; a pool over it raises ``MemoryError``, for an
     explicit mode as for "auto". The budget charges the stored pool
     once (``POOL_BUDGET_ROW_BYTES``), where the reference charges it
-    twice.
+    twice, and a bc7 pool's hint pool only when it is built, where the
+    reference always charges it.
 
     ``pool_bias``: drop each texture's top ``pool_bias`` mip levels (a
     lossy LOD clamp, never applied implicitly); ``"auto"`` raises it
@@ -386,17 +444,19 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
     texture, its levels as ``(blocks (nb, 8) u8, h, w)``, already
     compressed (``formats.tex.TextureFile.bc1_chain``): the blocks go
     into the pool verbatim, and each level is decoded once on the host
-    for the budget, bias and opacity bookkeeping."""
+    for the budget, bias and opacity bookkeeping. ``bc7_chains``
+    (``pool_mode="bc7"`` only): the same with ``(blocks (nb, 16) u8, h,
+    w)`` levels (``formats.tex.TextureFile.bc7_chain``)."""
     if pool_mode not in POOL_MODES:
         raise ValueError(f"unknown pool_mode {pool_mode!r}")
     if bc1_chains is not None and bc7_chains is not None:
         raise ValueError("pass bc1_chains or bc7_chains, not both")
-    if pool_mode == "bc7" or bc7_chains is not None:
-        raise _not_ported("pool_mode='bc7' (and bc7_chains)", _SLICE_BC7)
-    if bc1_chains is not None and pool_mode != "bc1":
-        raise ValueError("bc1_chains requires pool_mode='bc1'")
-    if bc1_chains is not None and mip_chains is not None:
-        raise ValueError("pass mip_chains or bc1_chains, not both")
+    for name, chains, mode in (("bc1_chains", bc1_chains, "bc1"),
+                               ("bc7_chains", bc7_chains, "bc7")):
+        if chains is not None and pool_mode != mode:
+            raise ValueError(f"{name} requires pool_mode={mode!r}")
+        if chains is not None and mip_chains is not None:
+            raise ValueError(f"pass mip_chains or {name}, not both")
     if pool_budget_bytes is None:
         pool_budget_bytes = pool_budget_default(device)
     t = len(batch.tris)
@@ -434,14 +494,17 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
     else:
         sizes = np.array([[4, 4]], np.int32)
     raw_chains = None
-    if bc1_chains is not None:
+    bcn_chains = bc1_chains if bc1_chains is not None else bc7_chains
+    if bcn_chains is not None:
         # the asset's blocks go into the pool; its levels, decoded once,
         # feed the bookkeeping (budget, bias and opacity read them)
-        raw_chains = [[np.ascontiguousarray(b, np.uint8).reshape(-1, 8)
-                       for b, _h, _w in chain] for chain in bc1_chains]
-        mip_chains = [[native.decode_bc1(
-            np.ascontiguousarray(b, np.uint8).tobytes(), w, h)
-            for b, h, w in chain] for chain in bc1_chains]
+        blk_b, decode = ((8, native.decode_bc1) if bc1_chains is not None
+                         else (16, native.decode_bc7))
+        raw_chains = [[np.ascontiguousarray(b, np.uint8).reshape(-1, blk_b)
+                       for b, _h, _w in chain] for chain in bcn_chains]
+        mip_chains = [[decode(np.ascontiguousarray(b, np.uint8).tobytes(),
+                              w, h)
+                       for b, h, w in chain] for chain in bcn_chains]
     if mip_chains is not None:
         tables = [list(c) for c in mip_chains]
         if len(tables) != len(src_texs):
@@ -451,6 +514,15 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
                          np.int32)
     else:
         tables = [mip_chain(img) for img in src_texs]
+
+    def hint_at(bias: int) -> bool:
+        """The bc7 pool at ``bias`` holds a partitioned mode: only an
+        asset's blocks can (the mode-6 encoder makes none)."""
+        if pool_mode != "bc7" or raw_chains is None:
+            return False
+        return _bc7_needs_hint(_bc7_modes_of(np.concatenate(
+            [b[:, 0] for c in raw_chains
+             for b in c[min(bias, len(c) - 1):]])))
 
     # the mode "auto" and pool_bias="auto" size against: the one the
     # caller wants unconstrained (tri for trilinear content, else quad)
@@ -462,8 +534,8 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
         bias = 0
         while bias < max_bias and pool_budget_bytes is not None:
             chains = [c[min(bias, len(c) - 1):] for c in tables]
-            if _pool_need(_pool_row_count(chains, want),
-                          want) <= pool_budget_bytes:
+            if _pool_need(_pool_row_count(chains, want), want,
+                          hint_at(bias)) <= pool_budget_bytes:
                 break
             bias += 1
             logger.warning(
@@ -502,20 +574,26 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
                 "a trilinear tap takes two gathers, not one"
                 if want == "tri" and pool_mode == "quad" else
                 "a bilinear tap takes four gathers, not one")
-    need = _pool_need(total_rows, pool_mode)
+    hint = hint_at(0)                    # the chains are biased already
+    need = _pool_need(total_rows, pool_mode, hint)
     if pool_budget_bytes is not None and need > pool_budget_bytes:
+        bc7_note = (
+            f"; the bc7 hint pool's {HINT_BUDGET_ROW_BYTES} B a block is "
+            f"charged only when a partitioned mode (0-3, 7) is present "
+            f"({'present' if hint else 'absent'} here), where the JAX "
+            f"package always charges it" if pool_mode == "bc7" else "")
         raise MemoryError(
             f"texel pool ({pool_mode}) needs {need / 2**20:.0f} MiB > "
             f"budget {pool_budget_bytes / 2**20:.0f} MiB (charged once: "
             f"torch keeps no in-program copy of a gathered-from pool, "
-            f"where the JAX package charges twice) — raise "
+            f"where the JAX package charges twice{bc7_note}) — raise "
             f"MTR_POOL_BUDGET_MB / pool_budget_bytes, pass pool_bias "
             f"(LOD clamp at decode), or split the scene")
 
     table = np.zeros((len(src_texs), n_mips, 3), np.int32)
     pool_parts = []
     segs = []     # (off, h, w, parent off | -1, ph, pw) per stored level:
-    offset = 0    # texel units, or 4x4-block units for "bc1"
+    offset = 0    # texel units, or 4x4-block units for "bc1" and "bc7"
     for li, chain in enumerate(tables):
         for mi in range(n_mips):
             if mi >= len(chain):
@@ -523,15 +601,18 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
                 continue
             img = chain[mi]
             table[li, mi] = (offset, img.shape[0], img.shape[1])
-            if pool_mode == "bc1":
+            if pool_mode in ("bc1", "bc7"):
                 bh, bw = _block_dims(img)
                 if raw_chains is not None:
                     blk = raw_chains[li][mi]
                     if blk.shape[0] != bh * bw:
                         raise ValueError(
-                            f"bc1_chains[{li}][{mi}]: {blk.shape[0]} "
-                            f"blocks for a {img.shape[1]}x{img.shape[0]} "
-                            f"level ({bh * bw} needed)")
+                            f"{pool_mode}_chains[{li}][{mi}]: "
+                            f"{blk.shape[0]} blocks for a "
+                            f"{img.shape[1]}x{img.shape[0]} level "
+                            f"({bh * bw} needed)")
+                elif pool_mode == "bc7":
+                    blk = bcn.encode_bc7_mode6_numpy(img)
                 else:
                     blk = native.encode_bc1(img)
                 pool_parts.append(blk)
@@ -554,10 +635,20 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
                 "%.2f B/src texel incl. mips)", pool_mode,
                 mip_pool.shape[0], pool_bytes / 2**20, src_texels,
                 pool_bytes / max(src_texels, 1))
-    if pool_mode in ("tri", "bc1"):
-        build = _build_tri_pool if pool_mode == "tri" else _build_bc1_pool
-        mip_pool = build(torch.from_numpy(mip_pool).to(device),
-                         np.asarray(segs, np.int32))
+    segs = np.asarray(segs, np.int32)
+    aux_pool = np.zeros((1, 128), np.uint8)
+    bc7_modes = ()
+    if pool_mode == "bc7":
+        # only the modes present are decoded at sample time; the hint
+        # pool exists only where a partitioned mode does
+        bc7_modes = _bc7_modes_of(mip_pool[:, 0])
+        if _bc7_needs_hint(bc7_modes):
+            aux_pool = _build_bc1_pool(torch.from_numpy(_hint_bytes(
+                bcn.bc7_block_hints(mip_pool))).to(device), segs)
+    if pool_mode in ("tri", "bc1", "bc7"):
+        build = {"tri": _build_tri_pool, "bc1": _build_bc1_pool,
+                 "bc7": _build_bc7_pool}[pool_mode]
+        mip_pool = build(torch.from_numpy(mip_pool).to(device), segs)
 
     nj = (len(batch.inverse_bind_mats)
           if batch.inverse_bind_mats is not None else 1)
@@ -611,9 +702,11 @@ def upload(batch: DrawBatch, pool_mode: str = "quad", *, device,
         tri_valid=valid, tri_parts=tri_parts, parts_mask=parts_mask,
         tex_size=sizes, mip_pool=mip_pool, mip_table=table,
         cols_const=cols_const, tri_vis=valid & parts_mask[tri_parts],
+        aux_pool=aux_pool,
     )
     statics = dict(num_joints=nj, skinned=bool(batch.skinned),
-                   num_mips=n_mips, pool_mode=pool_mode)
+                   num_mips=n_mips, pool_mode=pool_mode,
+                   bc7_modes=bc7_modes)
     return scene_from_numpy(leaves, statics, device)
 
 
@@ -622,47 +715,53 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> DeviceScene:
     ``TENSOR_FIELDS`` to a NumPy array (or a tensor), ``statics`` every
     name in ``STATIC_FIELDS`` to its value. The arrays of another
     package's uploaded scene, converted to NumPy, carry its state across,
-    the quad, narrow, tri or bc1 texel pool included (a bc1 scene of the
-    JAX package also holds an ``aux_pool``, bc7's hint pool, which this
-    ignores)."""
+    any texel pool included (a bc7 scene's hint pool, ``aux_pool``, and
+    its ``bc7_modes`` too)."""
     pool_mode = statics["pool_mode"]
-    if pool_mode == "bc7":
-        raise _not_ported("pool_mode='bc7'", _SLICE_BC7)
     if pool_mode not in POOL_ROW_BYTES:
         raise ValueError(f"unknown pool_mode {pool_mode!r}")
     tensors = {f: (leaves[f].to(device) if isinstance(leaves[f], torch.Tensor)
                    else torch.tensor(np.asarray(leaves[f]), device=device))
                for f in TENSOR_FIELDS}
-    pool = tensors["mip_pool"]
-    if pool.dtype != torch.uint8 or pool.shape[-1] != POOL_ROW_BYTES[
-            pool_mode]:
-        raise ValueError(f"a {pool_mode} pool has u8 rows of "
-                         f"{POOL_ROW_BYTES[pool_mode]} B, got {pool.dtype} "
-                         f"{tuple(pool.shape)}")
+    for name, row_b in (("mip_pool", POOL_ROW_BYTES[pool_mode]),
+                        ("aux_pool", 128)):
+        pool = tensors[name]
+        if pool.dtype != torch.uint8 or pool.shape[-1] != row_b:
+            raise ValueError(f"a {pool_mode} scene's {name} has u8 rows "
+                             f"of {row_b} B, got {pool.dtype} "
+                             f"{tuple(pool.shape)}")
+    statics = dict(statics, bc7_modes=tuple(int(m)
+                                            for m in statics["bc7_modes"]))
     return DeviceScene(**tensors, **{k: statics[k] for k in STATIC_FIELDS})
 
 
-# bytes of host upload per logical pool row: the tri and bc1 pools are
-# built on the device from the quad rows and the compact 8 B blocks
-_UPLOAD_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 16, "bc1": 8}
+# bytes of host upload per logical pool row: the tri, bc1 and bc7 pools
+# are built on the device from the quad rows and the compact blocks
+_UPLOAD_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 16, "bc1": 8, "bc7": 16}
 
 
 def pool_stats(scene: DeviceScene) -> dict:
     """Texel-pool memory accounting: the pool mode, its logical rows
-    (texels, or 4x4 blocks for bc1), the bytes it holds on the device,
-    the bytes its upload sent from the host, the source texels (mip 0 of
-    every texture) and the bytes per source texel, mips included."""
+    (texels, or 4x4 blocks for bc1 and bc7), the bytes it holds on the
+    device (a bc7 pool's hint pool included), the bytes its upload sent
+    from the host (the hints' 8 B a block included), the source texels
+    (mip 0 of every texture) and the bytes per source texel, mips
+    included."""
     rows, row_bytes = scene.mip_pool.shape
-    if row_bytes == 128:          # tri, bc1: two 64 B logical rows per row
+    if scene.pool_mode in ("tri", "bc1"):   # two 64 B logical rows a row
         rows *= 2
         row_bytes = 64
     src = int(scene.tex_size.cpu().to(torch.int64).prod(1).sum())
     total_b = rows * row_bytes
+    upload_b = rows * _UPLOAD_ROW_BYTES[scene.pool_mode]
+    if scene.pool_mode == "bc7" and scene.aux_pool.shape[0] > 1:
+        upload_b += rows * 8
+        total_b += scene.aux_pool.numel()
     return {
         "pool_mode": scene.pool_mode,
         "rows": int(rows),
         "bytes": int(total_b),
-        "upload_bytes": int(rows * _UPLOAD_ROW_BYTES[scene.pool_mode]),
+        "upload_bytes": int(upload_b),
         "src_texels": src,
         "bytes_per_src_texel": round(total_b / max(src, 1), 2),
     }
@@ -868,13 +967,13 @@ def _mat_select(mat_color, tri_material) -> torch.Tensor:
 
 
 def _pool_rows(pool, idx, nbytes: int):
-    """The first ``nbytes`` (16: the quad; 64: quad + parent block) of
-    logical pool rows ``idx`` (clamped below at 0), one gather. A tri
-    pool's physical 128 B row i holds logical rows 2i and 2i+1, so its
-    logical row i is 64 B row i of the same bytes and its quad is 16 B
-    row 4i."""
+    """The first ``nbytes`` (16: the quad; 64: quad + parent block, or a
+    bc1 or hint row; 128: a bc7 row) of logical pool rows ``idx``
+    (clamped below at 0), one gather. A tri pool's physical 128 B row i
+    holds logical rows 2i and 2i+1, so its logical row i is 64 B row i
+    of the same bytes and its quad is 16 B row 4i."""
     idx = idx.clamp(min=0).long()
-    if pool.shape[-1] == 16 and nbytes == 16:
+    if pool.shape[-1] == nbytes and nbytes in (16, 128):
         return pool[idx]
     if pool.shape[-1] != 128:
         raise ValueError(f"a {nbytes} B pool read needs the "
@@ -905,8 +1004,8 @@ def _tap_albedo_channels(pool, idx, fx, fy) -> list:
 
 def _check_pool_path(scene: DeviceScene, mipmap: bool) -> None:
     """The bilinear tap paths address texel rows of a quad or tri pool:
-    a bc1 pool (4x4 blocks) renders only through the mipmap path, and a
-    narrow pool too (its tap would need four gathers)."""
+    a bc1 or bc7 pool (4x4 blocks) renders only through the mipmap path,
+    and a narrow pool too (its tap would need four gathers)."""
     if mipmap:
         return
     if scene.pool_mode == "narrow":
@@ -914,10 +1013,11 @@ def _check_pool_path(scene: DeviceScene, mipmap: bool) -> None:
             "the bilinear tap paths need the quad (16 B/texel) or tri "
             "(64 B) pool: a narrow pool renders through the mipmap path "
             "(upload(..., pool_mode='quad') for this one)")
-    if scene.pool_mode == "bc1":
+    if scene.pool_mode in ("bc1", "bc7"):
         raise ValueError(
-            "bc1 pools render via the mipmap path (mipmap=True): the "
-            "non-mip tap kernel addresses texel rows, not 4x4 blocks")
+            f"{scene.pool_mode} pools render via the mipmap path "
+            f"(mipmap=True): the non-mip tap kernel addresses texel rows, "
+            f"not 4x4 blocks")
 
 
 def _blend_channels(src_channels, covered, clear_color) -> list:
@@ -1195,14 +1295,18 @@ def _trilinear_fused(pool, off0, hm0, wm0, hm1, wm1, m0, m1, u, v):
 
 
 def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int,
-                     mode: str = "quad") -> list:
+                     mode: str = "quad", aux=None,
+                     bc7_modes: tuple = ()) -> list:
     """Trilinear sample with arithmetic mip addressing (``_mip_arith``)
     → 4 channel tensors: lod clipped to [0, num_mips - 1], both levels
     clamped to the texture's last real level. ``mode`` is the scene's
     pool mode: a tri pool takes both levels from one gather
     (``_trilinear_fused``), a bc1 pool from one gather and eight texel
     decodes (``_bc1_trilinear_fused``; ``off0`` and the offset walk are
-    then in block rows), a quad or narrow pool from two
+    then in block rows), a bc7 pool likewise from one 128 B gather (and
+    one 64 B row of the hint pool ``aux`` where ``bc7_modes`` holds a
+    partitioned mode) and eight decodes of the modes ``bc7_modes``
+    (``_bc7_trilinear_fused``), a quad or narrow pool from two
     ``_quad_bilinear`` taps."""
     big = torch.maximum(th, tw)
     mmax = torch.zeros_like(th)
@@ -1215,10 +1319,14 @@ def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int,
     m1 = torch.minimum(m0 + 1, mmax)
     hm1 = (th >> m1).clamp(min=1)
     wm1 = (tw >> m1).clamp(min=1)
-    if mode == "bc1":
+    if mode in ("bc1", "bc7"):
         off_a, hm0, wm0 = _mip_arith_bc1(off0, th, tw, m0, num_mips)
-        s0, s1 = _bc1_trilinear_fused(pool, off_a, hm0, wm0, hm1, wm1, m0,
-                                      m1, u, v)
+        if mode == "bc7":
+            s0, s1 = _bc7_trilinear_fused(pool, aux, bc7_modes, off_a, hm0,
+                                          wm0, hm1, wm1, m0, m1, u, v)
+        else:
+            s0, s1 = _bc1_trilinear_fused(pool, off_a, hm0, wm0, hm1, wm1,
+                                          m0, m1, u, v)
         return [a * (1 - fm) + b * fm for a, b in zip(s0, s1)]
     off_a, hm0, wm0 = _mip_arith(off0, th, tw, m0, num_mips)
     if mode == "tri":
@@ -1243,7 +1351,8 @@ def _mip_albedo_channels(scene: DeviceScene, m) -> list:
     lod = _analytic_lod(u, v, *[m[..., 11 + i, :] for i in range(6)],
                         m[..., 5, :], m[..., 6, :])
     return _trilinear_arith(scene.mip_pool, off0, th, tw, lod, u, v,
-                            scene.num_mips, mode=scene.pool_mode)
+                            scene.num_mips, mode=scene.pool_mode,
+                            aux=scene.aux_pool, bc7_modes=scene.bc7_modes)
 
 
 # ------------------------------------------------- bc1-resident sampling
@@ -1356,6 +1465,96 @@ def _bc1_trilinear_fused(pool, off0, hm0, wm0, hm1, wm1, m0, m1, u, v):
     s1 = _contract_quad(_bc1_quad(
         c0s, c1s, bits, 4, [(xp0, yp0, sx0, sy0), (xp1, yp0, sx1, sy0),
                             (xp0, yp1, sx0, sy1), (xp1, yp1, sx1, sy1)]),
+        fx1, fy1)
+    deep = m1 > m0
+    return s0, [torch.where(deep, a, b) for a, b in zip(s1, s0)]
+
+
+# ------------------------------------------------- bc7-resident sampling
+
+
+def _bc7_row_words(row, n: int = 8) -> list:
+    """(..., 128) u8 bc7 rows → for each of the first ``n`` of the 8
+    baked blocks (0-3 the child group, 4-7 the parent group) its four
+    words, int64 tensors (...,), kept unstacked."""
+    u = row.to(torch.int64)
+    return [bcn.le_words(u, 16 * s, 4) for s in range(n)]
+
+
+def _bc7_row_hints(hrow, n: int = 8) -> list:
+    """(..., 64) u8 hint rows (``bcn.bc7_block_hints`` in the bc1 pool's
+    group geometry) → for each of the first ``n`` baked blocks its
+    (subset_word, anchors) pair of int64 tensors (...,)."""
+    u = hrow.to(torch.int64)
+    return [tuple(bcn.le_words(u, 8 * s, 2)) for s in range(n)]
+
+
+def _bc7_pick(vals, base: int, sx, sy) -> list:
+    """The tap's block's data from a 2x2 group (``vals``: per block a
+    list of tensors, the group at base..base+3; sx/sy {0, 1} tensors or
+    None where statically 0): ``_bc1_quad``'s pick over each tensor."""
+    def sel(cond, a, b):
+        return [torch.where(cond, x, y) for x, y in zip(a, b)]
+
+    if sx is None and sy is None:
+        return list(vals[base])
+    if sy is None:
+        return sel(sx == 1, vals[base + 1], vals[base])
+    if sx is None:
+        return sel(sy == 1, vals[base + 2], vals[base])
+    lo = sel(sx == 1, vals[base + 1], vals[base])
+    hi = sel(sx == 1, vals[base + 3], vals[base + 2])
+    return sel(sy == 1, hi, lo)
+
+
+def _bc7_quad(words, hints, base: int, taps, modes):
+    """The 2x2 bilinear footprint decoded from a baked 2x2 BC7 block
+    group: four single-texel decodes of the modes ``modes``
+    (``bcn.bc7_texel_device``) at ``taps`` (as in ``_bc1_quad``). Returns
+    (..., 16) i32 texels, corner-major RGBA like a quad row."""
+    texels = []
+    for xt, yt, sx, sy in taps:
+        h = _bc7_pick(hints, base, sx, sy) if hints is not None else None
+        texels += bcn.bc7_texel_device(_bc7_pick(words, base, sx, sy),
+                                       (yt & 3) * 4 + (xt & 3), modes=modes,
+                                       hint=h)
+    return torch.stack(texels, -1)
+
+
+def _bc7_trilinear_fused(pool, aux, modes, off0, hm0, wm0, hm1, wm1, m0, m1,
+                         u, v):
+    """Both levels of a trilinear tap from one 128 B bc7 row (and, where
+    ``modes`` holds a partitioned mode, the block's 64 B hint row from
+    ``aux``) and eight BC7 texel decodes → (s0, s1) channel lists:
+    ``_bc1_trilinear_fused``'s group addressing at 16 B blocks. The
+    decoded integers equal ``decode_bc7``'s and the same
+    ``_contract_quad`` runs, so the result equals a pool of the decoded
+    chains bit for bit."""
+    x0c, y0c, x1c, y1c, fx, fy = _footprint(wm0, hm0, u, v)
+    bx = x0c >> 2
+    by = y0c >> 2
+    idx = off0 + by * ((wm0 + 3) >> 2) + bx
+    words = _bc7_row_words(_pool_rows(pool, idx, 128))
+    hints = (_bc7_row_hints(_pool_rows(aux, idx, 64))
+             if _bc7_needs_hint(modes) else None)
+    rx = ((x1c >> 2) - bx).clamp(0, 1)
+    ry = ((y1c >> 2) - by).clamp(0, 1)
+    s0 = _contract_quad(_bc7_quad(
+        words, hints, 0, [(x0c, y0c, None, None), (x1c, y0c, rx, None),
+                          (x0c, y1c, None, ry), (x1c, y1c, rx, ry)], modes),
+        fx, fy)
+    xp0, yp0, xp1, yp1, fx1, fy1 = _footprint(wm1, hm1, u, v)
+    ax = torch.minimum(((2 * bx - 1) >> 2).clamp(min=0),
+                       (((wm1 + 3) >> 2) - 1).clamp(min=0))
+    ay = torch.minimum(((2 * by - 1) >> 2).clamp(min=0),
+                       (((hm1 + 3) >> 2) - 1).clamp(min=0))
+    sx0 = ((xp0 >> 2) - ax).clamp(0, 1)
+    sx1 = ((xp1 >> 2) - ax).clamp(0, 1)
+    sy0 = ((yp0 >> 2) - ay).clamp(0, 1)
+    sy1 = ((yp1 >> 2) - ay).clamp(0, 1)
+    s1 = _contract_quad(_bc7_quad(
+        words, hints, 4, [(xp0, yp0, sx0, sy0), (xp1, yp0, sx1, sy0),
+                          (xp0, yp1, sx0, sy1), (xp1, yp1, sx1, sy1)], modes),
         fx1, fy1)
     deep = m1 > m0
     return s0, [torch.where(deep, a, b) for a, b in zip(s1, s0)]

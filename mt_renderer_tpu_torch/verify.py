@@ -1,9 +1,39 @@
-"""The archive world's verify legs, on the port.
+"""The reference bench's verify legs, on the port.
 
-The counterpart of ``bench.py::verify_world``: the world's heterogeneous
-paths (more than 128 material slots, mixed mip tables in one texel pool,
-per-instance bone palettes) rendered by the port on a device and held to
-an oracle at the reference's sizes:
+``bench_legs`` is the counterpart of ``bench.py::verify`` (``:114-268``):
+the skinned demo batch (256x256, 9 instances at subdiv 2, the demo
+camera, bones at phase 0.6) rendered by the port on a device, each
+production path held to its oracle:
+
+- ``pallas``: the packed single-layer frame (dense taps) against
+  ``render.cpu_reference`` (the NumPy oracle) under the reference's
+  bound (``oracle_bound``);
+- ``peel_pallas``: the ml peel at L = 3 (dense): its nearest layer
+  reproduces the single-layer frame, with no coverage mismatch off the
+  oracle's coverage edge and at most 0.3% of pixels with a channel off
+  by more than 1;
+- ``packed``: the frame with its taps compacted to ``auto_tap_tiles``
+  rows equals the dense frame bit for bit, color and depth;
+- ``peel_packed``: the ml peel compacted to ``measure_live_tap_tiles``
+  rows equals the dense peel bit for bit, color and depth;
+- ``mipmap_packed``: the mipmapped frame (compacted trilinear shade, the
+  quad pool) covers exactly the ``pallas`` frame's pixels, and its color
+  is under the golden rule against the same frame through the plain
+  raster (``raster_fwd_reference``). This is weaker than the
+  reference's leg, which holds the frame against its scan backend's
+  trilinear (a second, independent sampler); the port keeps no scan
+  backend, by decision;
+- ``peel_split``: the split peel, compacted to its measured (opaque,
+  translucent) caps, equals the dense ml peel bit for bit, color and
+  depth (the scene is opaque).
+
+``scan``, ``peel_scan`` (the scan backend) and ``multichip_1dev`` (slice
+6) are not ported.
+
+``world_legs`` is the counterpart of ``bench.py::verify_world``: the
+world's heterogeneous paths (more than 128 material slots, mixed mip
+tables in one texel pool, per-instance bone palettes) rendered by the
+port on a device and held to an oracle at the reference's sizes:
 
 - ``invariants``: more than 128 materials, at least 8 mip levels, at
   least 4 texture sizes, and the per-slot tints (``mat_color``) on the
@@ -32,7 +62,11 @@ from .entry import world_case
 from .render import cpu_reference
 from .render import device as dv
 from .render import raster as rs
+from .scene import demo
 
+# bench.py:114
+BENCH_LEGS = dict(width=256, height=256, instances=9, subdiv=2)
+PEEL_LAYERS = 3
 # bench.py:286-287
 WORLD_LEGS = dict(buildings=130, characters=3, variants=6, terrain_subdiv=3,
                   building_subdivs=(1, 2))
@@ -131,3 +165,99 @@ def world_legs(device, *, width: int = 256, height: int = 144,
                         if isinstance(v, dict))
     return out
 
+
+
+def bench_frames(device, *, width: int = 256, height: int = 256,
+                 instances: int = 9, subdiv: int = 2) -> tuple:
+    """Every frame ``bench_legs`` judges, rendered on ``device`` →
+    (frames {name: (packed color (H, W) i32, depth (H, W) f32)}, with the
+    oracle's (H, W, 4) u8 frame and depth under "oracle"; the tap caps
+    {leg: caps})."""
+    batch = demo.build_demo_batch(instances=instances, skinned=True,
+                                  subdiv=subdiv)
+    vp = np.asarray(demo.demo_camera(instances, width, height).view_proj())
+    bones = demo.demo_bone_mats(0.6)
+    scene = dv.upload(batch, device=device)
+    size = dict(width=width, height=height)
+    kw = dict(size, packed=True)
+    peel = dict(kw, layers=PEEL_LAYERS)
+    stt = dv.auto_tap_tiles(batch, vp, bones, **size)
+    tt = dv.measure_live_tap_tiles(scene, vp, bones, layers=PEEL_LAYERS,
+                                   **size)
+    sps = dv.measure_live_tap_tiles(scene, vp, bones, layers=PEEL_LAYERS,
+                                    mode="split", **size)
+    frames = {
+        "oracle": cpu_reference.render(batch, vp, width, height,
+                                       bone_mats=bones),
+        "pallas": dv.render_frame(scene, vp, bones, **kw),
+        "peel_pallas": dv.render_frame_peeled(scene, vp, bones, **peel),
+        "packed": dv.render_frame(scene, vp, bones, tap_tiles=stt, **kw),
+        "peel_packed": dv.render_frame_peeled(scene, vp, bones,
+                                              tap_tiles=tt, **peel),
+        "mipmap_packed": dv.render_frame(scene, vp, bones, mipmap=True,
+                                         tap_tiles=stt, **kw),
+        "mipmap_plain": dv._render_frame_core(
+            scene, vp, bones, clear_color=(255, 255, 255, 255), maxc=None,
+            tap_tiles=stt, mipmap=True, raster=rs.raster_fwd_reference,
+            **size)[:2],
+        "peel_split": dv.render_frame_peeled(scene, vp, bones,
+                                             peel_mode="split",
+                                             tap_tiles=sps, **peel),
+    }
+    rs.flush_overflow_checks()
+    return frames, dict(packed=stt, peel_packed=tt, peel_split=sps)
+
+
+def _frame_bound(got, got_d, ref, ref_d, edge) -> dict:
+    """A packed frame against another: coverage mismatches off the
+    oracle's coverage ``edge`` and the share of pixels with a channel off
+    by more than 1."""
+    cov_mis = (got_d < 1.0).cpu().numpy() != (ref_d < 1.0).cpu().numpy()
+    diff = np.abs(dv.unpack_rgba(got).astype(np.int32)
+                  - dv.unpack_rgba(ref).astype(np.int32)).max(-1)
+    offedge = int((cov_mis & ~edge).sum())
+    share = float((diff > 1).mean())
+    return dict(coverage_mismatch_px=int(cov_mis.sum()),
+                offedge_mismatch_px=offedge, color_mismatch_share=share,
+                passed=bool(offedge == 0 and share <= SHARE))
+
+
+def _bit_equal(got, got_d, ref, ref_d, caps) -> dict:
+    n_px = int((got != ref).sum())
+    n_z = int((got_d != ref_d).sum())
+    return dict(tap_tiles=caps, color_mismatch_px=n_px,
+                depth_mismatch_px=n_z, passed=n_px == 0 and n_z == 0)
+
+
+def judge_bench_legs(frames: dict, caps: dict) -> dict:
+    """``bench_frames``' frames → {leg: readings with ``passed``}, and
+    ``passed`` over all."""
+    want, want_d = frames["oracle"]
+    edge = coverage_edge(want_d < 1.0)
+    out: dict = {"pallas": oracle_bound(*frames["pallas"], want, want_d)}
+    out["peel_pallas"] = _frame_bound(*frames["peel_pallas"],
+                                      *frames["pallas"], edge)
+    for leg, ref in (("packed", "pallas"), ("peel_packed", "peel_pallas"),
+                     ("peel_split", "peel_pallas")):
+        out[leg] = _bit_equal(*frames[leg], *frames[ref], caps[leg])
+    got, got_d = frames["mipmap_packed"]
+    plain, _ = frames["mipmap_plain"]
+    n_cov = int(((got_d < 1.0) != (frames["pallas"][1] < 1.0)).sum())
+    diff = np.abs(dv.unpack_rgba(got).astype(np.int32)
+                  - dv.unpack_rgba(plain).astype(np.int32)).max(-1)
+    share = float((diff > 1).mean())
+    out["mipmap_packed"] = dict(coverage_mismatch_px=n_cov,
+                                color_mismatch_share=share,
+                                passed=bool(n_cov == 0 and share <= SHARE))
+    out["passed"] = all(v["passed"] for v in out.values())
+    return out
+
+
+def bench_legs(device, *, width: int = 256, height: int = 256,
+               instances: int = 9, subdiv: int = 2) -> dict:
+    """Every leg of ``bench.py::verify`` that the port carries, on
+    ``device`` → {leg: readings with ``passed``}, and ``passed`` over
+    all (the shape ``world_legs`` returns)."""
+    return judge_bench_legs(*bench_frames(
+        device, width=width, height=height, instances=instances,
+        subdiv=subdiv))

@@ -481,8 +481,10 @@ def test_bc1_asset_passthrough_matches_jax():
 
 
 def test_carried_jax_bc1_scene_renders_the_ports_frame(pair):
-    """A JAX bc1 scene (its bc7 hint pool left behind) carried across by
-    ``scene_from_numpy`` renders the port's own bc1 frame."""
+    """A JAX bc1 scene (its (1, 128) zero hint row included) carried
+    across by ``scene_from_numpy`` renders the port's own bc1 frame; a
+    JAX bc7 scene of the same batch carries across too, equal to the
+    port's bc7 upload."""
     js = jd.upload(pair["batch"], pool_mode="bc1")
     leaves = {f: np.asarray(getattr(js, f)) for f in td.TENSOR_FIELDS}
     statics = {f: getattr(js, f) for f in td.STATIC_FIELDS}
@@ -492,9 +494,12 @@ def test_carried_jax_bc1_scene_renders_the_ports_frame(pair):
     want, _ = td.render_frame(pair["bc1"], pair["vp"], pair["bones"], **kw)
     tr.flush_overflow_checks()
     assert carried.pool_mode == "bc1" and torch.equal(got, want)
-    statics["pool_mode"] = "bc7"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        td.scene_from_numpy(leaves, statics, "cpu")
+    js7 = jd.upload(pair["batch"], pool_mode="bc7")
+    carried = td.scene_from_numpy(
+        {f: np.asarray(getattr(js7, f)) for f in td.TENSOR_FIELDS},
+        {f: getattr(js7, f) for f in td.STATIC_FIELDS}, "cpu")
+    assert carried.pool_mode == "bc7" and carried.bc7_modes == (6,)
+    assert_scene_equal(carried, js7)
 
 
 def test_frame_profile_runs_the_bc1_world(capsys):

@@ -14,10 +14,11 @@ demo scene are held to 2 ulp, with ids, coverage and tap addresses
 exact; K2's to 0 ulp). K4 is integer arithmetic: bit-equal. The frames on the card are
 held to the CPU's under the golden rule (coverage exact, at most 0.3% of
 pixels with a channel off by more than 1); the animated palette of the
-world, computed on the card, equals the host's bit for bit. The tri and
-bc1 pools built on the card equal the CPU's builds, and the bc1 and
-narrow frames on the card equal their decoded-chains and quad pools'
-frames there bit for bit.
+world, computed on the card, equals the host's bit for bit. The tri,
+bc1 and bc7 pools built on the card equal the CPU's builds, the BC7
+decodes on the card the NumPy decoder, and the bc1, bc7 and narrow
+frames on the card equal their decoded-chains and quad pools' frames
+there bit for bit; the reference bench's verify legs pass on the card.
 """
 
 import os
@@ -596,16 +597,17 @@ def _decoded_chains(batch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["tri", "bc1"])
+@pytest.mark.parametrize("mode", ["tri", "bc1", "bc7"])
 def test_pool_build_on_card_matches_cpu(cuda, mode):
-    """The tri and bc1 pools built on the card equal the CPU's build,
-    byte for byte, on a small world's mixed texture sizes."""
+    """The tri, bc1 and bc7 pools built on the card equal the CPU's
+    build, byte for byte, on a small world's mixed texture sizes."""
     kw = dict(buildings=8, width=W, height=H, characters=2, variants=4,
               terrain_subdiv=2, building_subdivs=(1,), pool_mode=mode)
     got = entry.world_case(cuda, **kw).scene
     want = entry.world_case("cpu", **kw).scene
     assert got.mip_pool.device.type == "cuda"
     assert torch.equal(got.mip_pool.cpu(), want.mip_pool)
+    assert torch.equal(got.aux_pool.cpu(), want.aux_pool)
     assert td.pool_stats(got) == td.pool_stats(want)
 
 
@@ -688,3 +690,135 @@ def test_helpers_on_card(cuda):
         assert td.pool_budget_default(cuda) == total * 3 // 4
     assert td.upload(batch, "auto", device=cuda,
                      mipmap=True).pool_mode == "tri"
+
+
+def _bc7_blocks(n: int, seed: int) -> np.ndarray:
+    """(n, 16) random BC7 blocks of all eight modes, every third with
+    bit 31 of word 3 set."""
+    rng = np.random.default_rng(seed)
+    blk = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    m = rng.integers(0, 8, n)
+    blk[:, 0] = ((1 << m) | ((blk[:, 0].astype(np.int64) << (m + 1))
+                             & 0xFF)).astype(np.uint8)
+    blk[::3, 15] |= 0x80
+    return blk
+
+
+def _bc7_content(batch, content: str):
+    """(upload kwargs, decoded chains) of mode-6 content (the encoder at
+    upload) or of random all-mode blocks (``bc7_chains``)."""
+    from mt_renderer_tpu_torch.render import bcn
+
+    kw, dec = {}, []
+    chains = []
+    for ti, t in enumerate(batch.textures):
+        ch, dch = [], []
+        for li, img in enumerate(td.mip_chain(t)):
+            h, w = img.shape[:2]
+            blk = (bcn.encode_bc7_mode6_numpy(img) if content == "mode6"
+                   else _bc7_blocks(((h + 3) // 4) * ((w + 3) // 4),
+                                    seed=31 * ti + li))
+            ch.append((blk, h, w))
+            dch.append(bcn.decode_bc7_numpy(blk.tobytes(), w, h))
+        chains.append(ch)
+        dec.append(dch)
+    if content != "mode6":
+        kw["bc7_chains"] = chains
+    return kw, dec
+
+
+@pytest.mark.gpu
+def test_decode_bc7_on_card_matches_numpy(cuda):
+    """The whole-level decode and the per-texel decode (with hints) on
+    the card equal the NumPy decoder on blocks of all modes."""
+    from mt_renderer_tpu_torch.render import bcn
+
+    h, w = 37, 23
+    blk = _bc7_blocks(((h + 3) // 4) * ((w + 3) // 4), seed=2)
+    want = bcn.decode_bc7_numpy(blk.tobytes(), w, h)
+    got = bcn.decode_bc7_device(torch.from_numpy(blk.reshape(-1)), w, h,
+                                device=cuda)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    words = bcn.bc7_words(torch.from_numpy(blk).to(cuda)[:, None])
+    hh = torch.from_numpy(bcn.bc7_block_hints(blk).astype(np.int64)).to(cuda)
+    t = torch.arange(16, device=cuda)[None]
+    tex = torch.stack(bcn.bc7_texel_device(words, t, hint=(hh[:, :1],
+                                                          hh[:, 1:])), -1)
+    n = len(blk)
+    flat = bcn.decode_bc7_numpy(blk.tobytes(), 4 * n, 4)
+    np.testing.assert_array_equal(
+        tex.cpu().numpy(),
+        flat.reshape(4, n, 4, 4).transpose(1, 0, 2, 3).reshape(n, 16, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("content", ["mode6", "all_modes"])
+@pytest.mark.parametrize("peel", [0, 3])
+def test_bc7_frame_on_card_equals_decoded_chains(cuda, content, peel):
+    """The bc7 mip frame on the card (K1, and with ``peel`` K2 in the
+    split peel, mtap + lit) equals the frame of a quad pool of its
+    decoded chains (with the bc7 scene's opacity flags) on the card, bit
+    for bit, and the CPU's under the golden rule with exact coverage."""
+    import dataclasses
+
+    batch, vp, bones = _glass()
+    kw_up, dec = _bc7_content(batch, content)
+    out = {}
+    for dev in (cuda, "cpu"):
+        bc7 = td.upload(batch, "bc7", device=dev, **kw_up)
+        # mode 6 rounds some of the opaque texture's alpha to 254, which
+        # flags the decoded chains translucent; the bc7 pool keeps the
+        # source texture's flag (as the reference does): hold the texels
+        ref = td.upload(batch, device=dev, mip_chains=dec)
+        ref = dataclasses.replace(ref, cols_const=torch.cat(
+            [ref.cols_const[:9], bc7.cols_const[9:]]))
+        for name, scene in (("bc7", bc7), ("dec", ref)):
+            kw = dict(width=W, height=H, packed=True, mipmap=True,
+                      lighting=True)
+            if peel:
+                out[str(dev), name] = td.render_frame_peeled(
+                    scene, vp, bones, layers=peel, peel_mode="split", **kw)
+            else:
+                out[str(dev), name] = td.render_frame(scene, vp, bones, **kw)
+    tr.flush_overflow_checks()
+    (gc, gd), (dc, dd) = out["cuda", "bc7"], out["cuda", "dec"]
+    assert torch.equal(gc, dc) and torch.equal(gd, dd)
+    wc, wd = out["cpu", "bc7"]
+    assert torch.equal(gd.cpu() < 1.0, wd < 1.0)
+    assert 0.05 < float((wd < 1.0).float().mean())
+    diff = np.abs(td.unpack_rgba(gc).astype(np.int32)
+                  - td.unpack_rgba(wc).astype(np.int32)).max(-1)
+    assert (diff > 1).mean() <= 0.003
+
+
+@pytest.mark.gpu
+def test_bc7_world_frame_on_card_equals_decoded_chains(cuda):
+    """A small world from ``entry.world_case(pool_mode="bc7")`` on the
+    card: mode-6 content, its frame equal to a tri pool of its decoded
+    chains bit for bit."""
+    case = entry.world_case(cuda, buildings=8, width=W, height=H,
+                            characters=2, variants=4, terrain_subdiv=2,
+                            building_subdivs=(1,), pool_mode="bc7")
+    _, dec = _bc7_content(case.batch, "mode6")
+    ref = td.upload(case.batch, "tri", device=cuda, mip_chains=dec)
+    pal = case.bone_mats_device(6.0)
+    kw = dict(width=W, height=H, packed=True, mipmap=True)
+    got, gd = td.render_frame(case.scene, case.view_proj(), pal, **kw)
+    want, wd = td.render_frame(ref, case.view_proj(), pal, **kw)
+    tr.flush_overflow_checks()
+    assert case.scene.bc7_modes == (6,)
+    assert torch.equal(got, want) and torch.equal(gd, wd)
+    assert bool((wd < 1.0).any())
+
+
+@pytest.mark.gpu
+def test_bench_legs_on_card(cuda):
+    """Every verify leg of the reference bench passes on the card at its
+    size (256x256, 9 instances at subdiv 2), through K1 and K2."""
+    from mt_renderer_tpu_torch import verify
+
+    k1, k2 = tr.raster_fwd.launches, tr.raster_fwd_ml.launches
+    r = verify.bench_legs(cuda)
+    assert r["passed"], r
+    assert tr.raster_fwd.launches > k1 and tr.raster_fwd_ml.launches > k2

@@ -148,15 +148,6 @@ def test_scene_from_numpy_carries_the_tri_pool():
         td.scene_from_numpy(leaves, statics, "cpu")
 
 
-def test_unported_parts_of_upload_raise():
-    """What upload still refuses: the bc7 pool and its asset chains."""
-    batch = TRI_SCENES["untextured"]()
-    with pytest.raises(NotImplementedError, match="bc7.*item 13"):
-        td.upload(batch, "bc7", device="cpu")
-    with pytest.raises(NotImplementedError, match="bc7.*item 13"):
-        td.upload(batch, "tri", device="cpu", bc7_chains=[[]])
-
-
 # ---------------------------------------------------------------- setup
 
 

@@ -6,10 +6,11 @@ imports the port and its two card tools, renders on the CPU its
 ``entry()`` frame, a small split-peel frame of the glass scene, a small
 mipmapped, lit frame from the tri pool, the same scene's peeled
 mipmapped, lit frame, a small archive-world frame whose palette
-``bone_mats_device`` computes, and the same world's frame from the bc1
+``bone_mats_device`` computes, the same world's frames from the bc1
 texel pool (its textures BC1-encoded through the port's own native
-binding), and checks that no module of jax or of the JAX package was
-loaded on the way."""
+binding) and from the bc7 pool (mode-6 content), runs the reference
+bench's verify legs (``verify.bench_legs``) at a small size, and checks
+that no module of jax or of the JAX package was loaded on the way."""
 
 import subprocess
 import sys
@@ -86,7 +87,21 @@ color, depth = device.render_frame(bc1.scene, bc1.view_proj(),
                                    bc1.bone_mats_device(12.0), width=128,
                                    height=96, mipmap=True, packed=True)
 assert (depth < 1.0).any() and (color != -1).any()
+
+bc7 = entry.world_case("cpu", buildings=8, width=128, height=96,
+                       characters=2, variants=3, terrain_subdiv=2,
+                       building_subdivs=(1,), pool_mode="bc7")
+assert bc7.scene.pool_mode == "bc7" and bc7.scene.bc7_modes == (6,)
+color, depth = device.render_frame(bc7.scene, bc7.view_proj(),
+                                   bc7.bone_mats_device(12.0), width=128,
+                                   height=96, mipmap=True, packed=True)
+assert (depth < 1.0).any() and (color != -1).any()
 raster.flush_overflow_checks()
+
+from mt_renderer_tpu_torch import verify
+
+legs = verify.bench_legs("cpu", width=64, height=64, instances=4, subdiv=1)
+assert legs["passed"], legs
 
 loaded = sorted(m for m in sys.modules if blocked(m))
 assert not loaded, loaded

@@ -84,13 +84,6 @@ def test_scene_from_numpy_matches_own_upload():
     assert carried.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("mode", ["bc7"])
-def test_unported_pool_modes_raise(mode):
-    batch = demo.build_demo_batch(instances=1, skinned=False)
-    with pytest.raises(NotImplementedError, match="slice"):
-        td.upload(batch, pool_mode=mode, device="cpu")
-
-
 def test_unknown_pool_mode_is_a_value_error():
     batch = demo.build_demo_batch(instances=1, skinned=False)
     with pytest.raises(ValueError, match="unknown pool_mode"):
