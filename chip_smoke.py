@@ -124,7 +124,30 @@ on failure:
     against its plain version;
 22. (h) the reference bench's verify legs on the card
     (``verify.bench_legs``: 256x256, 9 instances at subdiv 2): every leg
-    passes, and each leg's readings are printed.
+    passes, and each leg's readings are printed;
+23. the viewers at 1920x1080, each run through the CLI's ``main`` with
+    the launch counts set to 0 just before it, every ``FrameEngine``
+    frame watched (its K1 and K2 launches, the overflow its checks
+    drain): (v1) ``modelviewer --demo 280 --hud --hud-gmd`` (the
+    fixture GMD), 20 frames: K1 in every frame, no overflow, frame 0
+    below the HUD band under the golden rule against the plain K1, the
+    band equal, bit for bit, to the CPU composite of the same band onto
+    the same frame; the viewer's frame times (mean, median, max), the
+    HUD's host raster (as ``bench.py:555-567`` times it), the band
+    composite's device time, ``encode_png`` of a frame, and K1 (mtap)
+    against its plain version on frame 0's inputs; (v2) the bench's
+    ``world+hud`` composite (its world, a joint cube at every character
+    joint, the HUD band) through ``RendererAppManager``, 20 frames, as
+    (v1); (v3) the fixture tree's skinned character with ``--overlay
+    --sdl --mipmap --lighting --peel 4``: K1 and K2 in every frame;
+    (v4) ``--demo 40 --events`` with WASD and mouse: the camera after
+    every frame equals the host-computed trajectory, and the frames
+    change; (v5) ``--demo 40 --serve 0 --serve-frames 10`` with a client
+    thread (``/frame.png`` decodes to 1920x1080, ``/stats``, ``POST
+    /event`` reaches the input state); (v6) ``textureviewer`` on a
+    2048x2048 RGBA ``.tex``, raw and YCbCr: the PNG equal, byte for byte,
+    to the CPU run's, and ``view_texture``'s device time; (v7)
+    ``sceneviewer`` on the fixture archive with the joint overlay.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Prints the card's name and power limit, then every
@@ -138,9 +161,10 @@ the zero-count time and the floor at K3's rates, K1's its no-winner
 time, K2's the fill of its output bytes; K2 has three records: tap on
 the glass loop, mtap + lit on the peeled mip+light loop, ``full`` on
 the opaque mip+light headline's ml peel; K1 a fourth and a fifth, mtap
-on the bc1 and the bc7 world's loops, and K2 a fourth and a fifth, mtap
-+ lit on the bc1 and the bc7 glass headline's split peel) as one JSON
-line before the last, and as its last line
+on the bc1 and the bc7 world's loops, and a sixth, mtap on the viewer's
+(v1), and K2 a fourth and a fifth, mtap + lit on the bc1 and the bc7
+glass headline's split peel) as one JSON line before the last, and as
+its last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
 """
@@ -175,6 +199,9 @@ WORLD = dict(buildings=280, building_subdivs=(4, 6, 8, 10, 12),
              width=1920, height=1080)       # the bench's world row
 MICRO_REPS = 16             # reps of the timed probe against its twin
 VERIFY_LEG = dict(instances=9, subdiv=2, width=256, height=256)
+VIEWER = dict(width=1920, height=1080)
+VIEWER_WORLD = 280          # modelviewer --demo: the bench's world size
+VIEWER_SMALL_WORLD = 40     # the --events and --serve runs
 LAYERS = 4                  # the glass preset's peel depth
 FRAMES = 20
 GOLDEN_SHARE = 0.003        # pixels allowed a channel off by more than 1
@@ -423,7 +450,7 @@ def phase_device() -> dict:
         f"CUDA {torch.version.cuda}")
     for line in smi.strip().splitlines():
         log(line.strip())
-    return dict(kind=name, count=count)
+    return dict(kind=name, count=count, card=smi.strip().splitlines()[0])
 
 
 def phase_build() -> None:
@@ -999,26 +1026,7 @@ def phase_world_main(device) -> dict:
     if pal_err > 1e-5 or n_px or not torch.equal(ad, bd):
         raise AssertionError("the card's palette changes the world frame")
 
-    pw, ph = dv._padded(w, h)
-    cols, bbox = dv.setup_packed_cols(
-        case.scene, dv.vertex_stage(case.scene, vp0, dev_pal), w, h)
-    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
-                                         height=ph, maxc=maxc)
-    args = (cols, lists, glists, counts, (0, 0))
-    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap")
-    got = rs.raster_fwd(*args, **kw)
-    want = rs.raster_fwd_reference(*args, **kw)
-    torch.cuda.synchronize()
-    err = compare_outputs(got, want, f"K1 mtap vs plain, world frame 0, "
-                          f"{cols.shape[1]} tris, maxc={lists.shape[1]}")
-    bnd = k1_breakdown(args, kw, got, "world frame 0, mtap")
-    del got, want
-    kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
-    plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
-                       warmup=1, reps=5)
-    log(f"raster_world_mtap_kernel_ms {kernel_ms!r}")
-    log(f"raster_world_mtap_plain_ms {plain_ms!r}")
-    del args, cols, lists, glists, counts
+    k1 = k1_mtap_at(case.scene, vp0, dev_pal, w, h, maxc, "world")
 
     rs.flush_overflow_checks()
     if rs.OVERFLOW_EVENTS:
@@ -1058,8 +1066,40 @@ def phase_world_main(device) -> dict:
     log(f"world_frame_ms {frame_ms!r} (CUDA events over {FRAMES} frames; "
         f"host clock {wall_ms!r} ms/frame); per frame: median "
         f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
-    return dict(launches=launches, frame_ms=frame_ms, max_abs_err=err,
-                ms=kernel_ms, plain_ms=plain_ms, **bnd)
+    return dict(launches=launches, frame_ms=frame_ms, **k1)
+
+
+def k1_mtap_at(scene, vp, pal, w: int, h: int, maxc: int,
+               what: str) -> dict:
+    """K1 (mtap, unlit) against its plain version on the inputs of one
+    mipmapped frame (``what``'s frame 0), its breakdown and both times →
+    its record's readings."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    pw, ph = dv._padded(w, h)
+    cols, bbox = dv.setup_packed_cols(scene, dv.vertex_stage(scene, vp, pal),
+                                      w, h)
+    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                         height=ph, maxc=maxc)
+    args = (cols, lists, glists, counts, (0, 0))
+    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap")
+    got = rs.raster_fwd(*args, **kw)
+    want = rs.raster_fwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare_outputs(got, want, f"K1 mtap vs plain, {what} frame 0, "
+                          f"{cols.shape[1]} tris, maxc={lists.shape[1]}")
+    bnd = k1_breakdown(args, kw, got, f"{what} frame 0, mtap")
+    del got, want
+    kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
+                       warmup=1, reps=5)
+    tag = what.replace(" ", "_").replace("+", "_")
+    log(f"raster_{tag}_mtap_kernel_ms {kernel_ms!r}")
+    log(f"raster_{tag}_mtap_plain_ms {plain_ms!r}")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
 
 
 def decoded_chains(batch, mode: str = "bc1") -> list:
@@ -1677,6 +1717,569 @@ def phase_bilin(device) -> dict:
     return dict(launches=launches, max_abs_err=err, ms=res["swar-kernel"],
                 plain_ms=res["swar"], forms=res, **bnd)
 
+# --------------------------------------------------------------- viewers
+
+
+def viewer_dir() -> Path:
+    """Where the viewer phases write their fixtures and PNGs (``build/``
+    is not committed)."""
+    d = ROOT / "build" / "smoke_viewers"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+class ViewerWatch:
+    """Around one viewer run: each ``FrameEngine.render`` (its K1 and K2
+    launches, a checksum of its frame, and frame 0's inputs and outputs),
+    the first HUD composite (frame in, frame out, the band), each
+    manager frame (the frame time before and after it, the camera after
+    it) and every overflow count the engines' checks drain. Entering
+    sets every launch count to 0."""
+
+    def __enter__(self):
+        from mt_renderer_tpu_torch.app import hud, manager
+        from mt_renderer_tpu_torch.render import engine
+        from mt_renderer_tpu_torch.render import raster as rs
+
+        self.frames, self.sums, self.overflow = [], [], []
+        self.first = self.hud = None
+        self.dt_before, self.frame_times, self.cameras = [], [], []
+        self._saved = [
+            (engine.FrameEngine, "render", engine.FrameEngine.render),
+            (rs, "flush_overflow_counts", rs.flush_overflow_counts),
+            (hud.Hud, "apply", hud.Hud.apply),
+            (manager.RendererAppManager, "run_frame",
+             manager.RendererAppManager.run_frame)]
+        render, counts, apply, run_frame = (s[2] for s in self._saved)
+        watch = self
+        import torch
+
+        def w_render(eng, vp, bones=None):
+            k1, k2 = rs.raster_fwd.launches, rs.raster_fwd_ml.launches
+            color, depth = render(eng, vp, bones)
+            watch.frames.append((rs.raster_fwd.launches - k1,
+                                 rs.raster_fwd_ml.launches - k2))
+            watch.sums.append(int(color.to(torch.int64).sum()))
+            if watch.first is None:
+                watch.first = dict(engine=eng, vp=np.asarray(vp),
+                                   bones=bones, color=color, depth=depth,
+                                   maxc=eng.maxc, tap_tiles=eng.tap_tiles)
+            return color, depth
+
+        def w_counts():
+            c = counts()
+            watch.overflow += [(w, n) for w, (n, _) in c.items() if n > 0]
+            return c
+
+        def w_apply(h, mgr, frame, extra=""):
+            out = apply(h, mgr, frame, extra=extra)
+            if watch.hud is None:
+                watch.hud = dict(frame=frame, out=out, hud=h,
+                                 band=h.overlay.canvas.packed().copy())
+            return out
+
+        def w_run_frame(mgr):
+            watch.dt_before.append(mgr.frame_time)
+            frame = run_frame(mgr)
+            watch.frame_times.append(mgr.frame_time)
+            c = mgr.camera
+            watch.cameras.append((c.yaw, c.pitch, c.position.copy()))
+            return frame
+
+        for (owner, name, _), fn in zip(self._saved, (w_render, w_counts,
+                                                      w_apply, w_run_frame)):
+            setattr(owner, name, fn)
+        reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def check_viewer_run(watch: ViewerWatch, what: str, frames: int,
+                     k2: bool = False) -> tuple:
+    """Every frame launched K1 (and K2 where asked), no overflow was
+    drained or reported → the run's K1 and K2 launch counts."""
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    rs.flush_overflow_checks()
+    k1n, k2n = rs.raster_fwd.launches, rs.raster_fwd_ml.launches
+    log(f"viewer {what}: {len(watch.frames)} engine frames, K1 launches "
+        f"{k1n}, K2 launches {k2n} (per frame {watch.frames}), overflow "
+        f"{watch.overflow}, overflow events {rs.OVERFLOW_EVENTS}")
+    if len(watch.frames) != frames:
+        raise AssertionError(f"{what}: {len(watch.frames)} frames rendered, "
+                             f"{frames} asked")
+    if any(a < 1 or (k2 and b < 1) for a, b in watch.frames):
+        raise AssertionError(f"a frame of {what} launched no K1"
+                             + (" or no K2" if k2 else ""))
+    if watch.overflow or rs.OVERFLOW_EVENTS:
+        raise AssertionError(f"overflow on {what}")
+    return k1n, k2n
+
+
+def viewer_frame0_vs_plain(watch: ViewerWatch, what: str,
+                           rows: slice = slice(None)) -> float:
+    """The engine's frame 0 (``rows`` of the frame the viewer shows)
+    under the golden rule against the same view through the plain
+    rasters."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    f = watch.first
+    eng = f["engine"]
+    kw = dict(width=eng.width, height=eng.height,
+              clear_color=(255, 255, 255, 255), maxc=f["maxc"],
+              tap_tiles=f["tap_tiles"], mipmap=eng.mipmap,
+              lighting=eng.lighting, raster=rs.raster_fwd_reference)
+    if eng.peel:
+        plain, _, _ = dv._render_frame_peeled_core(
+            eng.scene, f["vp"], f["bones"], layers=eng.peel,
+            peel_mode=eng.peel_mode, raster_ml=rs.raster_fwd_ml_reference,
+            **kw)
+    else:
+        plain, _, _ = dv._render_frame_core(eng.scene, f["vp"], f["bones"],
+                                            **kw)
+    shown = (watch.hud["out"] if watch.hud is not None else f["color"])
+    if (tuple(shown.shape) != (eng.height, eng.width)
+            or shown.dtype != torch.int32
+            or not bool(torch.isfinite(f["depth"]).all())):
+        raise AssertionError(f"{what} frame 0 malformed")
+    coverage = float((f["depth"] < 1.0).float().mean())
+    share, n_diff = golden_share(dv.unpack_rgba(shown)[rows],
+                                 dv.unpack_rgba(plain)[rows])
+    log(f"viewer {what} frame 0 vs plain rasters (rows {rows.start or 0}"
+        f"-{eng.height}): {share:.6f} of pixels off by > 1, {n_diff} "
+        f"pixels differ; coverage {coverage:.4f}")
+    if share > GOLDEN_SHARE or not 0.0 < coverage <= 1.0:
+        raise AssertionError(f"{what} frame 0 is wrong")
+    return coverage
+
+
+def hud_band_check(watch: ViewerWatch, what: str) -> int:
+    """The band of the first HUD frame equals, bit for bit, the CPU
+    composite of the same band onto the same frame → the band's rows."""
+    import torch
+
+    from mt_renderer_tpu_torch.scene import gui
+
+    h = watch.hud
+    band = torch.from_numpy(h["band"].view(np.int32))
+    want = gui._composite_packed(h["frame"].cpu(), band, y0=0)
+    n = int((h["out"].cpu() != want).sum())
+    log(f"viewer {what}: HUD band {tuple(band.shape)} composited on "
+        f"{h['out'].device}, {n} pixels differ from the CPU composite")
+    if n or h["out"].device != watch.first["color"].device:
+        raise AssertionError(f"{what}: the card's HUD composite differs")
+    return band.shape[0]
+
+
+def png_size(data: bytes) -> tuple:
+    """(width, height) of a PNG that ``utils.png`` wrote, after checking
+    that its pixel stream inflates to that size."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", data[pos + 8:pos + 8 + n])
+        elif tag == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, _, color, _, _, _ = hdr
+    if len(zlib.decompress(idat)) != h * (1 + w * {2: 3, 6: 4}[color]):
+        raise AssertionError("PNG pixel stream of the wrong size")
+    return w, h
+
+
+def timing_line(name: str, times_ms: list, card: str) -> None:
+    log(f"{name}: mean {float(np.mean(times_ms))!r} ms, median "
+        f"{float(np.median(times_ms))!r}, max {max(times_ms)!r} over "
+        f"{len(times_ms)} ({card})")
+
+
+def phase_viewer_demo(device, card: str) -> dict:
+    """(v1) ``modelviewer --demo 280 --hud --hud-gmd`` at 1920x1080, 20
+    frames: K1 in every frame, no overflow, frame 0 below the band under
+    the golden rule against the plain K1, the band bit-equal to the CPU
+    composite; the viewer's frame times, the HUD's host raster, the
+    band composite's device time, ``encode_png``; K1 against its plain
+    version on frame 0's inputs → K1's record on this path."""
+    import torch
+
+    from mt_renderer_tpu_torch import fixtures
+    from mt_renderer_tpu_torch.app.manager import _to_rgba
+    from mt_renderer_tpu_torch.cli import modelviewer
+    from mt_renderer_tpu_torch.utils.png import encode_png
+
+    out = viewer_dir()
+    gmd = out / "fixture_messages.gmd"
+    gmd.write_bytes(fixtures.build_gmd())
+    w, h = VIEWER["width"], VIEWER["height"]
+    rs_flush_before("the viewer")
+    with ViewerWatch() as watch:
+        mgr = modelviewer.main([
+            "--demo", str(VIEWER_WORLD), "--width", str(w), "--height",
+            str(h), "--hud", "--hud-gmd", str(gmd), "--frames", str(FRAMES),
+            "--out", str(out / "v1_last.png"), "--device", str(device)])
+    k1n, _ = check_viewer_run(watch, f"(v1) modelviewer --demo "
+                              f"{VIEWER_WORLD} --hud", FRAMES)
+    band_rows = hud_band_check(watch, "(v1)")
+    viewer_frame0_vs_plain(watch, "(v1)", rows=slice(band_rows, None))
+    timing_line(f"viewer_frame_time_ms (v1, modelviewer --demo "
+                f"{VIEWER_WORLD} --hud, {w}x{h}, host clock around "
+                "app.render)", [t * 1e3 for t in watch.frame_times], card)
+
+    hud = watch.hud["hud"]
+    c = hud.overlay.canvas
+    reps = 50
+    t0 = time.perf_counter()
+    for i in range(reps):                 # bench.py:555-567
+        c.clear()
+        c.fill_rect(0, 0, c.width, c.height, (0, 0, 0, 150))
+        c.draw_text(4, 4, f"{59.9:6.1f} fps  frame {i:5d}  {w}x{h}",
+                    (255, 255, 255, 255), scale=2)
+        c.packed()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    frame = watch.hud["frame"]
+    hud.overlay.apply(frame)              # the band on the card once
+    comp_ms = cuda_ms(lambda: hud.overlay.apply(frame), reps=50)
+    band_bytes = 4 * c.width * c.height
+    comp_bound = 3 * band_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"hud_host_raster_ms {host_ms!r} (band {c.width}x{c.height}, "
+        f"NumPy, {reps} reps; {card})")
+    log(f"hud_composite_device_ms {comp_ms!r} (CUDA events, 50 reps, "
+        f"torch ops on the {c.width}x{c.height} band of a {w}x{h} frame, "
+        f"the frame's clone included; bytes bound of the band alone "
+        f"{comp_bound!r} ms; {card})")
+    rgba = _to_rgba(mgr._last)
+    enc = {}
+    for level in (6, 1):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            data = encode_png(rgba, level=level)
+        enc[level] = (time.perf_counter() - t0) / 3 * 1e3
+        if png_size(data) != (w, h):
+            raise AssertionError("encode_png gave the wrong size")
+    log(f"encode_png_ms {enc[6]!r} at level 6 (write_png), {enc[1]!r} at "
+        f"level 1 (the frame server), {w}x{h} RGBA, host clock ({card})")
+    if png_size((out / "v1_last.png").read_bytes()) != (w, h):
+        raise AssertionError("(v1) wrote a PNG of the wrong size")
+    f = watch.first
+    k1 = k1_mtap_at(f["engine"].scene, f["vp"], f["bones"], w, h,
+                    f["maxc"], "viewer")
+    torch.cuda.synchronize()
+    return dict(launches=k1n, **k1)
+
+
+def rs_flush_before(what: str) -> None:
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    rs.flush_overflow_checks()
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events before "
+                             f"{what}")
+
+
+def phase_viewer_world_hud(device, card: str) -> None:
+    """(v2) the bench's ``world+hud`` composite (bench.py:430-447,
+    :550-575): the bench's world, a joint cube at every character joint,
+    mipmapped, and the HUD band composited on the card, 20 frames
+    through ``RendererAppManager``."""
+    from mt_renderer_tpu_torch.app.hud import Hud
+    from mt_renderer_tpu_torch.app.manager import (RendererApp,
+                                                   RendererAppManager)
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render.engine import FrameEngine
+    from mt_renderer_tpu_torch.scene import world
+    from mt_renderer_tpu_torch.scene.model import merge_batches
+    from mt_renderer_tpu_torch.scene.overlay import DebugOverlay
+
+    class WorldHudApp(RendererApp):
+        def setup(self, mgr):
+            ws = world.build_world(
+                buildings=WORLD["buildings"],
+                building_subdivs=WORLD["building_subdivs"])
+            ov = DebugOverlay()
+            jp = ws.skeleton.joint_world_positions()
+            for cm in ws.char_mats:
+                for p in jp:
+                    ov.add_cube_at((cm @ np.array([*p, 1.0], np.float32))[:3],
+                                   scale=0.06)
+            batch = merge_batches(ws.batch, ov.batch())
+            log(f"(v2) world {ws.info}, +{ov.num_instances} joint cubes, "
+                f"{batch.num_triangles} tris")
+            self.ws, self.anim = ws, ws.animator()
+            self.dur = max(ws.timeline.duration, 1)
+            self.scene = dv.upload(batch, "auto", mipmap=True, device=device)
+            self.eng = FrameEngine(self.scene, batch, width=mgr.width,
+                                   height=mgr.height, mipmap=True)
+            self.hud = Hud(mgr.width)
+            mgr.camera = world.world_camera(mgr.width, mgr.height,
+                                            buildings=WORLD["buildings"])
+            self.base_yaw = mgr.camera.yaw
+
+        def render(self, mgr):
+            t = mgr.frame_index
+            mgr.camera.yaw = self.base_yaw + 8.0 * np.sin(0.25 * t)
+            pal = self.ws.bone_palette(self.anim.bone_mats_device(
+                np.float32((2.0 * t) % self.dur), self.scene.device))
+            color, _ = self.eng.render(mgr.camera.view_proj(), pal)
+            return self.hud.apply(mgr, color, extra="world+hud")
+
+    w, h = VIEWER["width"], VIEWER["height"]
+    rs_flush_before("(v2)")
+    app = WorldHudApp()
+    mgr = RendererAppManager(app, width=w, height=h)
+    with ViewerWatch() as watch:
+        last = mgr.run_headless(frames=FRAMES)
+        app.eng.check()
+    check_viewer_run(watch, "(v2) world+hud", FRAMES)
+    band_rows = hud_band_check(watch, "(v2)")
+    viewer_frame0_vs_plain(watch, "(v2)", rows=slice(band_rows, None))
+    if last.shape != (h, w, 4):
+        raise AssertionError(f"(v2) frame of shape {last.shape}")
+    timing_line(f"viewer_frame_time_ms (v2, world+hud through "
+                f"RendererAppManager, {w}x{h}, host clock around "
+                "app.render)", [t * 1e3 for t in watch.frame_times], card)
+
+
+def phase_viewer_fixture(device) -> None:
+    """(v3) the fixture tree's skinned character in ``modelviewer`` at
+    1920x1080 with ``--overlay --sdl --mipmap --lighting --peel 4``: K1
+    and K2 in every frame, no overflow, frame 0 under the golden rule
+    against the plain rasters."""
+    from mt_renderer_tpu_torch import fixtures
+    from mt_renderer_tpu_torch.cli import modelviewer
+
+    root = viewer_dir() / "fixtures"
+    fixtures.write_fixture_tree(root)
+    w, h = VIEWER["width"], VIEWER["height"]
+    frames = 3
+    rs_flush_before("(v3)")
+    with ViewerWatch() as watch:
+        modelviewer.main([
+            str(root), str(root / "chara/fixture_character_skinned.chr"),
+            "--overlay", "--sdl", str(root / "motion/fixture_bones.sdl"),
+            "--mipmap", "--lighting", "--peel", str(LAYERS), "--frames",
+            str(frames), "--width", str(w), "--height", str(h), "--out",
+            str(viewer_dir() / "v3_last.png"), "--device", str(device)])
+    check_viewer_run(watch, "(v3) modelviewer fixture --overlay --sdl "
+                     f"--mipmap --lighting --peel {LAYERS}", frames, k2=True)
+    viewer_frame0_vs_plain(watch, "(v3)")
+
+
+def phase_viewer_events(device) -> None:
+    """(v4) ``modelviewer --demo --events`` with WASD and mouse at
+    1920x1080: the camera after every frame equals, bit for bit, the
+    trajectory computed on the host from the same events and frame
+    times, and every frame whose camera moved differs from the one
+    before it."""
+    from mt_renderer_tpu_torch.app.camera import Camera
+    from mt_renderer_tpu_torch.app.manager import (RendererApp,
+                                                   RendererAppManager)
+    from mt_renderer_tpu_torch.cli import modelviewer
+    from mt_renderer_tpu_torch.scene import world
+
+    events = [[["mouse", 40, -10]], [["key_down", "W"]], [],
+              [["key_down", "D"], ["mouse", -20, 5]],
+              [["key_up", "W"], ["key_up", "D"]], [["key_down", "S"]],
+              [["key_up", "S"], ["key_down", "A"], ["mouse", 7, 3]]]
+    path = viewer_dir() / "v4_events.json"
+    path.write_text(json.dumps(events))
+    w, h = VIEWER["width"], VIEWER["height"]
+    rs_flush_before("(v4)")
+    with ViewerWatch() as watch:
+        modelviewer.main([
+            "--demo", str(VIEWER_SMALL_WORLD), "--events", str(path),
+            "--width", str(w), "--height", str(h), "--out",
+            str(viewer_dir() / "v4_last.png"), "--device", str(device)])
+    check_viewer_run(watch, f"(v4) modelviewer --demo {VIEWER_SMALL_WORLD} "
+                     "--events", len(events))
+    cam = world.world_camera(w, h, buildings=VIEWER_SMALL_WORLD)
+    speed = float(np.linalg.norm(cam.position)) * 0.2
+    host = RendererAppManager(RendererApp(), width=w, height=h,
+                              camera=Camera(cam.position, cam.yaw, cam.pitch,
+                                            cam.fov, cam.near, cam.far))
+    for i, evs in enumerate(events):
+        for ev in evs:
+            host.dispatch_event(tuple(ev))
+        host.camera.update(host.input, host.aspect)
+        host.camera.fly(host.input, dt=max(watch.dt_before[i], 1 / 60),
+                        speed=speed)
+        host.input.next_frame()
+        yaw, pitch, pos = watch.cameras[i]
+        if (yaw, pitch) != (host.camera.yaw, host.camera.pitch) or \
+                not np.array_equal(pos, host.camera.position):
+            raise AssertionError(f"(v4) camera of frame {i} is off the "
+                                 "host trajectory")
+    moved = [i for i in range(1, len(events))
+             if not (watch.cameras[i][0] == watch.cameras[i - 1][0]
+                     and watch.cameras[i][1] == watch.cameras[i - 1][1]
+                     and np.array_equal(watch.cameras[i][2],
+                                        watch.cameras[i - 1][2]))]
+    same = [i for i in moved if watch.sums[i] == watch.sums[i - 1]]
+    log(f"(v4) camera trajectory equals the host's over {len(events)} "
+        f"frames; the camera moved in frames {moved}, frame checksums "
+        f"{watch.sums}")
+    if len(moved) < 5 or same:
+        raise AssertionError(f"(v4) frames {same} did not change")
+
+
+def phase_viewer_serve(device) -> None:
+    """(v5) ``modelviewer --demo --serve 0 --serve-frames 10`` with a
+    client thread: GET /frame.png (a 1920x1080 PNG) and /stats, POST
+    events that reach the input state."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from mt_renderer_tpu_torch.app import serve
+    from mt_renderer_tpu_torch.app.input_state import Key
+    from mt_renderer_tpu_torch.cli import modelviewer
+
+    w, h = VIEWER["width"], VIEWER["height"]
+    got: dict = {}
+    orig = serve.FrameStreamServer.serve
+
+    def client(port: int) -> None:
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.time() + 120
+        while True:
+            try:
+                got["png"] = urllib.request.urlopen(f"{base}/frame.png",
+                                                    timeout=60).read()
+                break
+            except urllib.error.HTTPError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.1)
+        req = urllib.request.Request(
+            f"{base}/event", method="POST",
+            data=json.dumps([["key_down", "W"], ["mouse", 12, -3]]).encode())
+        got["queued"] = json.loads(urllib.request.urlopen(
+            req, timeout=60).read())["queued"]
+        got["stats"] = json.loads(urllib.request.urlopen(
+            f"{base}/stats", timeout=60).read())
+
+    def serve_with_client(srv, **kw):
+        t = threading.Thread(target=lambda: client_safe(srv.port),
+                             daemon=True)
+        got["thread"] = t
+        t.start()
+        return orig(srv, **kw)
+
+    def client_safe(port):
+        try:
+            client(port)
+        except Exception as e:    # reported by the main thread below
+            got["error"] = repr(e)
+
+    serve.FrameStreamServer.serve = serve_with_client
+    rs_flush_before("(v5)")
+    try:
+        with ViewerWatch() as watch:
+            mgr = modelviewer.main([
+                "--demo", str(VIEWER_SMALL_WORLD), "--serve", "0",
+                "--serve-frames", "10", "--width", str(w), "--height",
+                str(h), "--device", str(device)])
+    finally:
+        serve.FrameStreamServer.serve = orig
+    got["thread"].join(timeout=60)
+    check_viewer_run(watch, f"(v5) modelviewer --demo {VIEWER_SMALL_WORLD} "
+                     "--serve", 10)
+    if got["thread"].is_alive() or "error" in got:
+        raise AssertionError(f"(v5) client failed: {got.get('error')}")
+    size = png_size(got["png"])
+    log(f"(v5) served {mgr.frame_index} frames; /frame.png {len(got['png'])}"
+        f" B decodes to {size}; /event queued {got['queued']}; /stats "
+        f"{got['stats']}; W held at the end: {mgr.input.has_key(Key.W)}")
+    if (size != (w, h) or got["queued"] != 2 or got["stats"]["width"] != w
+            or not mgr.input.has_key(Key.W) or mgr.frame_index != 10):
+        raise AssertionError("(v5) the frame server misbehaved")
+
+
+def phase_viewer_texture(device, card: str) -> None:
+    """(v6) ``textureviewer`` at 1920x1080 on a 2048x2048 RGBA ``.tex``
+    built by the port, raw and YCbCr: each PNG equal, byte for byte, to
+    the same run on the CPU; the view's device time."""
+    import torch
+
+    from mt_renderer_tpu_torch.cli import textureviewer
+    from mt_renderer_tpu_torch.formats import tex
+    from mt_renderer_tpu_torch.render.texture_view import view_texture
+
+    size = 2048
+    img = np.random.default_rng(5).integers(0, 256, (size, size, 4),
+                                            dtype=np.uint8)
+    path = viewer_dir() / "v6_2048.tex"
+    path.write_bytes(tex.write_texture(size, size,
+                                       int(tex.TextureFormat.RGBA8),
+                                       [img.tobytes()]))
+    w, h = VIEWER["width"], VIEWER["height"]
+    for raw in (True, False):
+        pngs = {}
+        for dev in (str(device), "cpu"):
+            out = viewer_dir() / (f"v6_{'raw' if raw else 'ycbcr'}_"
+                                  f"{dev.split(':')[0]}.png")
+            textureviewer.main([str(path), "--width", str(w), "--height",
+                                str(h), "--out", str(out), "--device", dev]
+                               + (["--raw"] if raw else []))
+            pngs[dev] = out.read_bytes()
+        same = pngs[str(device)] == pngs["cpu"]
+        log(f"(v6) textureviewer {'--raw' if raw else 'YCbCr'} {size}x{size}"
+            f" -> {w}x{h}: card PNG equals the CPU's: {same}")
+        if not same or png_size(pngs["cpu"]) != (w, h):
+            raise AssertionError("(v6) the card's texture view differs")
+    t = torch.from_numpy(img).to(device)
+    for ycbcr in (False, True):
+        ms = cuda_ms(lambda: view_texture(t, width=w, height=h,
+                                          ycbcr=ycbcr), reps=20)
+        log(f"view_texture_device_ms {ms!r} ({'YCbCr' if ycbcr else 'raw'},"
+            f" {size}x{size} -> {w}x{h}, CUDA events, 20 reps; {card})")
+
+
+def phase_viewer_scene(device) -> None:
+    """(v7) ``sceneviewer`` on the fixture archive at 1920x1080 with the
+    joint overlay: K1 launched, no overflow, the frame under the golden
+    rule against the plain K1, a 1920x1080 PNG."""
+    from mt_renderer_tpu_torch.cli import sceneviewer
+
+    root = viewer_dir() / "fixtures"
+    w, h = VIEWER["width"], VIEWER["height"]
+    out = viewer_dir() / "v7_scene.png"
+    rs_flush_before("(v7)")
+    with ViewerWatch() as watch:
+        sceneviewer.main([str(root), "fixture_scene", "--overlay",
+                          "--width", str(w), "--height", str(h), "--out",
+                          str(out), "--device", str(device)])
+    check_viewer_run(watch, "(v7) sceneviewer fixture_scene --overlay", 1)
+    viewer_frame0_vs_plain(watch, "(v7)")
+    if png_size(out.read_bytes()) != (w, h):
+        raise AssertionError("(v7) wrote a PNG of the wrong size")
+
+
+def phase_viewers(device, card: str) -> dict:
+    """(v1)-(v7) → K1's record on the viewer path (v1)."""
+    t0 = time.perf_counter()
+    k1 = phase_viewer_demo(device, card)
+    phase_viewer_world_hud(device, card)
+    phase_viewer_fixture(device)
+    phase_viewer_events(device)
+    phase_viewer_serve(device)
+    phase_viewer_texture(device, card)
+    phase_viewer_scene(device)
+    log(f"viewer phases (v1)-(v7) in {time.perf_counter() - t0:.1f} s")
+    return k1
+
 
 def main() -> int:
     import torch
@@ -1720,6 +2323,7 @@ def main() -> int:
     phase_bc7_multimode(device)
     bc7_peel = phase_bcn_peel(device, "bc7")
     phase_bench_legs(device)
+    viewer = phase_viewers(device, dev_info["card"])
     from mt_renderer_tpu_torch.tools import raster_roofline
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1756,6 +2360,9 @@ def main() -> int:
                       bc1_world["launches"], bc1_world),
         raster_record("raster_fwd", "mtap (bc7 world, FrameEngine)",
                       bc7_world["launches"], bc7_world),
+        raster_record("raster_fwd",
+                      f"mtap (modelviewer --demo {VIEWER_WORLD} --hud)",
+                      viewer["launches"], viewer),
         raster_record("raster_fwd_ml", "tap", peel_run["k2"], k2),
         raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
                       k2_mip),

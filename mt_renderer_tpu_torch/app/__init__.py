@@ -1,3 +1,4 @@
 from .camera import Camera
+from .input_state import InputState, Key
 
-__all__ = ["Camera"]
+__all__ = ["Camera", "InputState", "Key"]

@@ -2,8 +2,8 @@
 
 ``view = inverse(T · R_yaw · R_pitch)`` (camera.rs:30-38);
 ``proj = perspective_rh(fov°, aspect, 0.01, 50.0)`` with [0,1] depth
-(camera.rs:40-43). Mouse look and WASD flight (``update``, ``fly``)
-come with the viewers (ROADMAP Queue 1, slice 5).
+(camera.rs:40-43); mouse look with sensitivity 0.1 and pitch clamped to
+±89° (camera.rs:49-59), and WASD flight along the camera basis.
 
 Matrices are float32 (4,4) acting on column vectors: ``clip = P @ V @ p``.
 """
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+SENSITIVITY = 0.1
 NEAR = 0.01
 FAR = 50.0
 
@@ -71,3 +72,32 @@ class Camera:
 
     def view_proj(self) -> np.ndarray:
         return (self.proj() @ self.view()).astype(np.float32)
+
+    def update(self, input_state, aspect: float) -> None:
+        dx, dy = input_state.frame_mouse_delta
+        self.yaw = (self.yaw - SENSITIVITY * dx) % 360.0
+        self.pitch = float(np.clip(self.pitch - SENSITIVITY * dy, -89.0, 89.0))
+        self.aspect = float(aspect)
+
+    def fly(self, input_state, dt: float, speed: float = 2.0) -> None:
+        """WASD translation along the camera basis.
+
+        Extension: the reference *tracks* WASD (input_state.rs:3-11,
+        renderer_app_manager.rs:229-255) but no app ever consumes the
+        keys — this makes the fly camera actually fly. W/S move along
+        the view direction, A/D strafe; ``speed`` is units/second."""
+        from .input_state import Key
+
+        r = rotation_y(self.yaw) @ rotation_x(self.pitch)
+        fwd = -r[:3, 2]
+        right = r[:3, 0]
+        d = np.zeros(3, np.float32)
+        if input_state.has_key(Key.W):
+            d += fwd
+        if input_state.has_key(Key.S):
+            d -= fwd
+        if input_state.has_key(Key.D):
+            d += right
+        if input_state.has_key(Key.A):
+            d -= right
+        self.position = (self.position + d * (speed * dt)).astype(np.float32)

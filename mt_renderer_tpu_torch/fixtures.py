@@ -1,11 +1,11 @@
-"""Synthetic asset builders: the ones the demo scene and the archive
-world call.
+"""Synthetic asset builders.
 
-No real game data ships with (or may be added to) this repo, so the
-scenes are built from tiny, valid, deterministically generated assets: a
-textured/skinned model (plain, packed-attribute or 8-weight), its
-material + shader metadata, an RGBA8 texture and a bone-animation
-scheduler. The bytes equal the JAX package's builders'.
+No real game data ships with (or may be added to) this repo, so conformance
+tests and the demo viewers run on tiny, valid, deterministically generated
+assets: a textured/skinned model, its material + shader metadata, textures
+(RGBA8, BC1 and BC7), a character ``.prp``, a GMD table and a scheduler —
+packed loose or into an ``.arc``. The bytes equal the JAX package's
+builders'.
 
 The geometry is a unit cube built from triangle strips (two strips with a
 0xffff restart in one of them, exercising strip semantics), UV-mapped into
@@ -17,14 +17,17 @@ from __future__ import annotations
 import numpy as np
 
 from . import dti as dti_mod
-from .formats import mfx, mrl, sdl, tex
+from .formats import arc, gmd, mfx, mrl, sdl, spkg, tex, xfs
 from .formats.mod import Joint, Primitive, write_model
 
 INPUTLAYOUT_STATIC = "IL_FixtureP3T2"
 INPUTLAYOUT_SKIN = "IL_FixtureSkin"
 INPUTLAYOUT_RICH = "IL_FixtureRich"   # packed normals + u16n uvs
 INPUTLAYOUT_SKIN8 = "IL_FixtureSkin8"  # two Joint/Weight streams (8 influences)
+SHADER_PACKAGE_PATH = "custom_shaders\\CustomShaderPackage"
+MODEL_PATH = "model\\fixture_cube"
 TEXTURE_PATH = "model\\fixture_albedo"
+CHARACTER_PATH = "chara\\fixture_character"
 
 
 def checkerboard_rgba(size: int = 64, cells: int = 8) -> np.ndarray:
@@ -39,10 +42,137 @@ def checkerboard_rgba(size: int = 64, cells: int = 8) -> np.ndarray:
     return img
 
 
+def encode_bc1_simple(img: np.ndarray) -> bytes:
+    """Encode RGBA8 → BC1 using per-block min/max endpoints (fixture grade)."""
+    h, w = img.shape[:2]
+    bh, bw = h // 4, w // 4
+    blocks = img[:bh * 4, :bw * 4, :3].reshape(bh, 4, bw, 4, 3)
+    blocks = blocks.transpose(0, 2, 1, 3, 4).reshape(bh * bw, 16, 3).astype(np.int32)
+
+    lum = blocks @ np.array([54, 183, 19])  # rough luma
+    lo_i = np.argmin(lum, axis=1)
+    hi_i = np.argmax(lum, axis=1)
+    lo = np.take_along_axis(blocks, lo_i[:, None, None].repeat(3, 2), 1)[:, 0]
+    hi = np.take_along_axis(blocks, hi_i[:, None, None].repeat(3, 2), 1)[:, 0]
+
+    def to565(c):
+        return ((c[:, 0] >> 3) << 11) | ((c[:, 1] >> 2) << 5) | (c[:, 2] >> 3)
+
+    c_hi, c_lo = to565(hi), to565(lo)
+    # ensure c0 > c1 (4-color mode); swap when needed
+    swap = c_hi <= c_lo
+    c0 = np.where(swap, c_lo, c_hi)
+    c1 = np.where(swap, c_hi, c_lo)
+    e0 = np.where(swap[:, None], lo, hi)
+    e1 = np.where(swap[:, None], hi, lo)
+    degenerate = c0 == c1
+
+    # choose the nearest of the 4 palette entries per texel
+    pal = np.stack(
+        [e0, e1, (2 * e0 + e1 + 1) // 3, (e0 + 2 * e1 + 1) // 3], axis=1
+    )  # (n, 4, 3)
+    d = ((blocks[:, None, :, :] - pal[:, :, None, :]) ** 2).sum(-1)  # (n,4,16)
+    idx = np.argmin(d, axis=1).astype(np.uint32)  # (n, 16)
+    idx[degenerate] = 0
+
+    bits = np.zeros(len(blocks), dtype=np.uint32)
+    for t in range(16):
+        bits |= idx[:, t] << (2 * t)
+
+    out = np.zeros((len(blocks), 4), dtype="<u2")
+    out[:, 0] = c0
+    out[:, 1] = c1
+    out[:, 2] = bits & 0xFFFF
+    out[:, 3] = bits >> 16
+    return out.tobytes()
+
+
+def encode_bc7_mode5(img: np.ndarray) -> bytes:
+    """Encode RGBA8 → BC7 mode 5 (single subset, 7-bit color + 8-bit
+    alpha endpoints, 2-bit indices, no rotation). Fixture grade."""
+    h, w = img.shape[:2]
+    bh, bw = h // 4, w // 4
+    blocks = (
+        img[: bh * 4, : bw * 4]
+        .reshape(bh, 4, bw, 4, 4)
+        .transpose(0, 2, 1, 3, 4)
+        .reshape(bh * bw, 16, 4)
+        .astype(np.int32)
+    )
+    out = bytearray()
+    for blk in blocks:
+        rgb = blk[:, :3]
+        alpha = blk[:, 3]
+        lum = rgb @ np.array([54, 183, 19])
+        e0 = rgb[np.argmin(lum)] >> 1          # 7-bit endpoints
+        e1 = rgb[np.argmax(lum)] >> 1
+        a0, a1 = int(alpha.min()), int(alpha.max())
+
+        # decoder interpolation: (p0*(64-w) + p1*w + 32) >> 6, w in WEIGHTS[2]
+        def dec(e):
+            return (e << 1) | (e >> 6)
+
+        pal = np.array([
+            ((dec(e0).astype(np.int64)) * (64 - wgt)
+             + dec(e1).astype(np.int64) * wgt + 32) >> 6
+            for wgt in (0, 21, 43, 64)
+        ])
+        cidx = np.argmin(
+            ((rgb[:, None, :] - pal[None, :, :]) ** 2).sum(-1), axis=1
+        )
+        apal = np.array([(a0 * (64 - wgt) + a1 * wgt + 32) >> 6
+                         for wgt in (0, 21, 43, 64)])
+        aidx = np.argmin(np.abs(alpha[:, None] - apal[None, :]), axis=1)
+        # anchor texel 0 stores width-1 bits: its index must have MSB 0
+        if cidx[0] >= 2:
+            e0, e1 = e1, e0
+            cidx = 3 - cidx
+        if aidx[0] >= 2:
+            a0, a1 = a1, a0
+            aidx = 3 - aidx
+
+        bits = 0
+        pos = 0
+
+        def put(v, n):
+            nonlocal bits, pos
+            bits |= (int(v) & ((1 << n) - 1)) << pos
+            pos += n
+
+        put(0b100000, 6)            # mode 5 prefix
+        put(0, 2)                   # rotation
+        for c in range(3):
+            put(e0[c], 7)
+            put(e1[c], 7)
+        put(a0, 8)
+        put(a1, 8)
+        put(cidx[0], 1)
+        for t in range(1, 16):
+            put(cidx[t], 2)
+        put(aidx[0], 1)
+        for t in range(1, 16):
+            put(aidx[t], 2)
+        assert pos == 128
+        out += bits.to_bytes(16, "little")
+    return bytes(out)
+
+
+def build_texture_bc7(size: int = 64) -> bytes:
+    img = checkerboard_rgba(size)
+    return tex.write_texture(size, size, int(tex.TextureFormat.BC7),
+                             [encode_bc7_mode5(img)])
+
+
 def build_texture_rgba(size: int = 64) -> bytes:
     img = checkerboard_rgba(size)
     return tex.write_texture(size, size, int(tex.TextureFormat.RGBA8),
                              [img.tobytes()])
+
+
+def build_texture_bc1(size: int = 64) -> bytes:
+    img = checkerboard_rgba(size)
+    return tex.write_texture(size, size, int(tex.TextureFormat.BC1),
+                             [encode_bc1_simple(img)])
 
 
 def build_shader2() -> bytes:
@@ -86,6 +216,14 @@ def build_shader2() -> bytes:
         ("fAlbedoColor", mfx.ClassType.CT_VECTOR, 4, 0),
     ])
     return w.tobytes()
+
+
+def build_shader_package() -> bytes:
+    return spkg.write_shader_package(
+        inputs=[([mfx.object_handle(INPUTLAYOUT_STATIC), 0, 0, 0], 0x1234)],
+        stage_shaders={"vs": [(b"\xde\xad\xbe\xef", 0x1)],
+                       "ps": [(b"\xca\xfe", 0x2)]},
+    )
 
 
 def _cube_mesh():
@@ -373,6 +511,45 @@ def build_material() -> bytes:
     )
 
 
+def build_character_prp(parts_disp=(True, True), model_path=MODEL_PATH) -> bytes:
+    """Character definition: mpModel resource path + PartsDisp bools."""
+    spec = xfs.ClassSpec("nGO::rCharacter", [
+        xfs.PropSpec("mpModel", xfs.PropType.custom, attr=xfs.PROP_ATTR_DYNAMIC),
+        xfs.PropSpec("PartsDisp", xfs.PropType.bool_, attr=0),
+    ])
+    root = ("nGO::rCharacter", {
+        "mpModel": [["rModel", model_path]],
+        "PartsDisp": list(parts_disp),
+    })
+    return xfs.serialize(root, [spec])
+
+
+def build_gmd() -> bytes:
+    g = gmd.GuiMessageFile(
+        language_id=0, package_name="fixture_pkg", update_time=1466708400,
+        messages=[
+            gmd.GuiMessage("LABEL_HELLO", "Hello, world!"),
+            gmd.GuiMessage("LABEL_BYE", "Goodbye <E100>!"),
+        ],
+    )
+    return g.tobytes()
+
+
+def build_scheduler() -> bytes:
+    tracks = [
+        sdl.Track(sdl.TrackType.TYPE_ROOT, 0, "root", 0),
+        sdl.Track(
+            sdl.TrackType.TYPE_FLOAT, int(dti_mod.PropType.f32), "mAlpha", 0,
+            keys=[sdl.Key(0, 0, 0.0), sdl.Key(30, 0, 1.0)],
+        ),
+        sdl.Track(
+            sdl.TrackType.TYPE_BOOL, int(dti_mod.PropType.bool_), "mVisible", 0,
+            keys=[sdl.Key(0, 0, True), sdl.Key(15, 0, False)],
+        ),
+    ]
+    return sdl.write_scheduler(tracks)
+
+
 def build_scheduler_bones(frames: int = 60) -> bytes:
     """Bone-animation timeline: joint 1 swings (joint1:rx) and slides
     (joint1:tx) over ``frames`` frames with linear keys (mode 1)."""
@@ -393,3 +570,53 @@ def build_scheduler_bones(frames: int = 60) -> bytes:
         (0, 0.0), (frames // 2, 0.6), (frames, 0.0),
     ]))
     return sdl.write_scheduler(tracks)
+
+
+def build_archive() -> bytes:
+    """One .arc holding the whole fixture scene."""
+    w = arc.ArchiveWriter()
+    d = dti_mod.from_name
+    w.add_file(SHADER_PACKAGE_PATH, d("rShader2"), 0, build_shader2())
+    w.add_file(SHADER_PACKAGE_PATH, d("rShaderPackage"), 0, build_shader_package())
+    w.add_file(MODEL_PATH, d("rModel"), 0, build_model())
+    w.add_file(MODEL_PATH, d("rMaterial"), 0, build_material())
+    w.add_file("model\\fixture_cube_skinned", d("rModel"),
+               0, build_model(skinned=True))
+    w.add_file("model\\fixture_cube_skinned", d("rMaterial"),
+               0, build_material())
+    w.add_file(TEXTURE_PATH, d("rTexture"), 0, build_texture_rgba())
+    w.add_file(CHARACTER_PATH, d("nGO::rCharacter"), 0, build_character_prp())
+    return w.tobytes()
+
+
+def write_fixture_tree(root) -> None:
+    """Materialise the fixture set as loose files + the packed archive."""
+    from pathlib import Path
+
+    root = Path(root)
+    d = dti_mod.from_name
+
+    def put(path: str, dti_name: str, data: bytes):
+        ext = d(dti_name).file_ext
+        p = root / (path.replace("\\", "/") + "." + ext)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(data)
+
+    put(SHADER_PACKAGE_PATH, "rShader2", build_shader2())
+    put(SHADER_PACKAGE_PATH, "rShaderPackage", build_shader_package())
+    put(MODEL_PATH, "rModel", build_model())
+    put("model/fixture_cube_skinned", "rModel", build_model(skinned=True))
+    put("model/fixture_cube_skinned", "rMaterial", build_material())
+    put(MODEL_PATH, "rMaterial", build_material())
+    put(TEXTURE_PATH, "rTexture", build_texture_rgba())
+    put("model/fixture_albedo_bc1", "rTexture", build_texture_bc1())
+    put("model/fixture_albedo_bc7", "rTexture", build_texture_bc7())
+    put("motion/fixture_bones", "rScheduler", build_scheduler_bones())
+    put("model/fixture_cube_rich", "rModel", build_model_rich())
+    put("model/fixture_cube_rich", "rMaterial", build_material())
+    put("chara/fixture_character_skinned", "nGO::rCharacter",
+        build_character_prp(model_path="model\\fixture_cube_skinned"))
+    put(CHARACTER_PATH, "nGO::rCharacter", build_character_prp())
+    put("gui/fixture_messages", "rGUIMessage", build_gmd())
+    put("motion/fixture_timeline", "rScheduler", build_scheduler())
+    (root / "fixture_scene.arc").write_bytes(build_archive())

@@ -18,7 +18,8 @@ trilinear, lit or not. ``FrameEngine`` owns the frame loop's wiring:
   sizing, the peeled caps are measured again and grow element by
   element;
 * overflow recovery as the backstop: every ``check_every`` frames the
-  deferred overflow queue flushes (one device→host transfer); any
+  deferred overflow queue flushes (one device→host transfer; every
+  frame for an ``interactive`` loop, 16 frames otherwise); any
   overflow re-sizes the affected cap at the current view (never below 2x
   the overflowed cap) and logs. This is the only recovery of the peeled
   caps from a spike in translucent depth, which has no cheap host bound.
@@ -41,7 +42,8 @@ class FrameEngine:
     def __init__(self, scene, batch, *, width: int, height: int,
                  mipmap: bool = False, lighting: bool = False,
                  peel: int = 0, peel_mode: str = "split",
-                 headroom: float = 1.5, check_every: int = 16):
+                 headroom: float = 1.5, check_every: int | None = None,
+                 interactive: bool = False):
         if peel and peel_mode == "multipass":
             raise device._by_decision(
                 "FrameEngine(peel_mode='multipass')", "the engine runs the "
@@ -55,6 +57,12 @@ class FrameEngine:
         self.peel = peel
         self.peel_mode = peel_mode
         self.headroom = headroom
+        # an interactive loop reads every frame back anyway (the app
+        # manager presents it), so a flush per frame costs no extra sync
+        # and bounds the peeled tap caps' only recovery window to one
+        # displayed frame; headless loops keep the 16-frame cadence
+        if check_every is None:
+            check_every = 1 if interactive else 16
         self.check_every = check_every
         self.maxc: int | None = None
         self.tap_tiles = None          # int, or the split peel's pair

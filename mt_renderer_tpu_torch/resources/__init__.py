@@ -1,4 +1,4 @@
-from .manager import Resource
+from .manager import Resource, ResourceManager
 from .memory import MemoryResourceManager
 
-__all__ = ["Resource", "MemoryResourceManager"]
+__all__ = ["Resource", "ResourceManager", "MemoryResourceManager"]

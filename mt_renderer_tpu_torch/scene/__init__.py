@@ -1,3 +1,3 @@
-from .model import DEBUG_PALETTE, DrawBatch, build_draw_batch
+from .model import DEBUG_PALETTE, DrawBatch, Model, build_draw_batch
 
-__all__ = ["DrawBatch", "build_draw_batch", "DEBUG_PALETTE"]
+__all__ = ["DrawBatch", "Model", "build_draw_batch", "DEBUG_PALETTE"]

@@ -243,6 +243,47 @@ def build_draw_batch(
     return batch
 
 
+class Model:
+    """High-level scene object mirroring the reference ``Model`` API."""
+
+    def __init__(self, model_file, material_file, shader2, resource_manager,
+                 parts_disp=None):
+        self.model_file = model_file
+        self.material_file = material_file
+        self.shader2 = shader2
+        self.resource_manager = resource_manager
+        self.parts_disp = parts_disp
+        self.batch = build_draw_batch(
+            model_file, material_file, shader2, resource_manager, parts_disp
+        )
+
+    def set_parts_disp(self, parts_disp):
+        """Host-side rebuild (drops hidden triangles from the batch).
+        For per-frame toggling of an uploaded scene use
+        ``render.device.set_parts_mask`` — it swaps only the (P,) bool
+        mask, no re-upload (model.rs:318-320 semantics)."""
+        self.parts_disp = list(parts_disp)
+        self.batch = build_draw_batch(
+            self.model_file, self.material_file, self.shader2,
+            self.resource_manager, self.parts_disp,
+        )
+
+    @property
+    def skeleton(self):
+        from .skeleton import Skeleton
+
+        if not hasattr(self, "_skeleton"):
+            self._skeleton = Skeleton.from_model(self.model_file)
+        return self._skeleton
+
+    def joint_world_positions(self, deltas=None) -> np.ndarray:
+        """World joint origins (overlay feed, model.rs:309-315)."""
+        sk = self.skeleton
+        if sk is None:
+            return np.zeros((0, 3), np.float32)
+        return sk.joint_world_positions(deltas)
+
+
 def merge_batches(a: DrawBatch, b: DrawBatch,
                   keep_b_skin: bool = False) -> DrawBatch:
     """Concatenate two batches; b's texture ids remap into a's atlas.

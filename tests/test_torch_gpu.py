@@ -19,6 +19,10 @@ bc1 and bc7 pools built on the card equal the CPU's builds, the BC7
 decodes on the card the NumPy decoder, and the bc1, bc7 and narrow
 frames on the card equal their decoded-chains and quad pools' frames
 there bit for bit; the reference bench's verify legs pass on the card.
+The viewers' torch stages give the CPU's bits on the card (the HUD
+composite, the texture view), and ``modelviewer --demo`` on the card
+launches K1 in every frame with no overflow, its frame under the golden
+rule against the CPU's.
 """
 
 import os
@@ -822,3 +826,107 @@ def test_bench_legs_on_card(cuda):
     r = verify.bench_legs(cuda)
     assert r["passed"], r
     assert tr.raster_fwd.launches > k1 and tr.raster_fwd_ml.launches > k2
+
+
+# ------------------------------------------------------------- viewers
+
+
+def _gui_case(rows: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    frame = rng.integers(0, 256, (H, W, 4), dtype=np.uint8)
+    band = rng.integers(0, 256, (rows, W, 4), dtype=np.uint8)
+    for i, a in enumerate((0, 1, 127, 128, 254, 255)):
+        frame[i::7, :, 3] = a
+        band[:, i::7, 3] = a
+    return frame, band
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,y0", [(H, 0), (24, 0), (24, 50)])
+def test_gui_composite_on_card_matches_cpu(cuda, rows, y0):
+    """The HUD composite (torch ops) gives the CPU's bits on the card,
+    packed and unpacked."""
+    from mt_renderer_tpu_torch.scene import gui
+
+    frame, band = _gui_case(rows, seed=rows + y0)
+    fp = torch.from_numpy(frame.copy().view(np.int32)[..., 0])
+    bp = torch.from_numpy(band.copy().view(np.int32)[..., 0])
+    want = gui._composite_packed(fp, bp, y0=y0)
+    got = gui._composite_packed(fp.to(cuda), bp.to(cuda), y0=y0)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    want = gui._composite_u8(torch.from_numpy(frame), bp, y0=y0)
+    got = gui._composite_u8(torch.from_numpy(frame).to(cuda), bp.to(cuda),
+                            y0=y0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tex_shape,size", [((64, 64), (96, 80)),
+                                            ((16, 40), (72, 64)),
+                                            ((48, 12), (64, 80)),
+                                            ((5, 7), (96, 64)),
+                                            ((512, 256), (200, 120))])
+@pytest.mark.parametrize("ycbcr", [False, True])
+def test_view_texture_on_card_matches_cpu(cuda, tex_shape, size, ycbcr):
+    """The texture view gives the CPU's bits on the card (no division by
+    a host scalar, which CUDA turns into a reciprocal product)."""
+    from mt_renderer_tpu_torch.render.texture_view import view_texture
+
+    tex = np.random.default_rng(sum(tex_shape)).integers(
+        0, 256, (*tex_shape, 4), dtype=np.uint8)
+    w, h = size
+    want = view_texture(torch.from_numpy(tex), width=w, height=h,
+                        ycbcr=ycbcr)
+    got = view_texture(torch.from_numpy(tex).to(cuda), width=w, height=h,
+                       ycbcr=ycbcr)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_modelviewer_demo_on_card(cuda, tmp_path):
+    """``modelviewer --demo`` on the card at 256x256 with the HUD: K1 in
+    every frame, no overflow, and the engine's frame 0 under the golden
+    rule against the same frame rendered on the CPU."""
+    from mt_renderer_tpu_torch.cli import modelviewer
+    from mt_renderer_tpu_torch.render import engine as te
+
+    seen = []
+    orig_render, orig_counts = te.FrameEngine.render, tr.flush_overflow_counts
+
+    def render(self, vp, bones=None):
+        k1 = tr.raster_fwd.launches
+        color, depth = orig_render(self, vp, bones)
+        seen.append((tr.raster_fwd.launches - k1, np.asarray(vp),
+                     bones.cpu() if isinstance(bones, torch.Tensor)
+                     else bones, color.cpu()))
+        return color, depth
+
+    over = []
+
+    def counts():
+        c = orig_counts()
+        over.extend(n for n, _ in c.values() if n > 0)
+        return c
+
+    te.FrameEngine.render, tr.flush_overflow_counts = render, counts
+    try:
+        mgr = modelviewer.main(["--demo", "6", "--frames", "4", "--width",
+                                "256", "--height", "256", "--hud", "--out",
+                                str(tmp_path / "f_{i}.png")])
+    finally:
+        te.FrameEngine.render, tr.flush_overflow_counts = (orig_render,
+                                                           orig_counts)
+    tr.flush_overflow_checks()
+    assert mgr.frame_index == 4 and len(seen) == 4
+    assert all(n >= 1 for n, *_ in seen), [n for n, *_ in seen]
+    assert not over and mgr.app._eng.recoveries == 0
+    _, vp, bones, color = seen[0]
+    app = mgr.app
+    cpu = td.upload(app.world.batch, pool_mode="auto", mipmap=True,
+                    device="cpu")
+    eng = te.FrameEngine(cpu, app.world.batch, width=256, height=256,
+                         mipmap=True)
+    want, _ = eng.render(vp, bones)
+    got, want = td.unpack_rgba(color), td.unpack_rgba(want)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(-1)
+    assert float((diff > 1).mean()) <= 0.003

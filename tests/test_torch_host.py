@@ -237,3 +237,165 @@ def test_mat_color_matches_jax():
                                    np.asarray(ja.mat_color(frame)),
                                    atol=1e-5)
     assert float(ta.mat_color(15.0, "cpu")[1, 3]) == pytest.approx(0.5)
+
+
+# ---------------------------------------------------- viewer formats
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("build_texture_bc1", {}),
+    ("build_texture_bc7", dict(size=16)),
+    ("build_shader_package", {}),
+    ("build_character_prp", {}),
+    ("build_character_prp", dict(parts_disp=(False, True, True),
+                                 model_path="model\\fixture_cube_skinned")),
+    ("build_gmd", {}),
+    ("build_scheduler", {}),
+    ("build_archive", {}),
+])
+def test_viewer_fixture_builders_give_the_same_bytes(name, kw):
+    assert getattr(tfix, name)(**kw) == getattr(jfix, name)(**kw)
+
+
+def _fmt(pkg: str, name: str):
+    return importlib.import_module(f"{pkg}.formats.{name}")
+
+
+def test_xfs_parses_and_round_trips_like_jax():
+    """The character ``.prp`` parses to the same object in both packages,
+    and a serialized graph of every scalar and composite property type
+    round-trips to the same values and bytes."""
+    blob = tfix.build_character_prp(parts_disp=(True, False, True))
+    objs = []
+    for pkg in ("mt_renderer_tpu_torch", "mt_renderer_tpu"):
+        xfs = _fmt(pkg, "xfs")
+        root = xfs.deserialize(xfs.strip_prpz(blob))
+        objs.append((root.class_type.name, root.class_type.hash,
+                     repr(root.props)))
+        specs = [xfs.ClassSpec("cResource", [
+            xfs.PropSpec("mChild", xfs.PropType.classref),
+            xfs.PropSpec("mName", xfs.PropType.string),
+            xfs.PropSpec("mPos", xfs.PropType.vector3),
+            xfs.PropSpec("mTimes", xfs.PropType.time),
+            xfs.PropSpec("mQuat", xfs.PropType.quaternion),
+            xfs.PropSpec("mDyn", xfs.PropType.custom,
+                         attr=xfs.PROP_ATTR_DYNAMIC),
+        ]), xfs.ClassSpec("MtObject", [
+            xfs.PropSpec("mValue", xfs.PropType.s32),
+            xfs.PropSpec("mFlags", xfs.PropType.u64),
+        ])]
+        graph = ("cResource", {
+            "mChild": [("MtObject", {"mValue": [-7], "mFlags": [2**63]})],
+            "mName": ["テスト"], "mPos": [(1.0, -0.5, 0.25)],
+            "mTimes": [-1234567890123], "mQuat": [(0.0, 0.5, 0.5, 1.0)],
+            "mDyn": [["rModel", "model\\fixture_cube"]],
+        })
+        data = xfs.serialize(graph, specs)
+        back = xfs.deserialize(data)
+        objs.append((data, repr(back.props)))
+    assert objs[0] == objs[2] and objs[1] == objs[3]
+    assert "mpModel" in objs[0][2]
+
+
+def test_arc_parses_and_round_trips_like_jax(tmp_path):
+    blob = tfix.build_archive()
+    tables = []
+    for pkg in ("mt_renderer_tpu_torch", "mt_renderer_tpu"):
+        arc = _fmt(pkg, "arc")
+        a = arc.ArchiveFile(blob)
+        infos = a.resource_infos()
+        tables.append([(i.path, i.dti.name, i.dti.hash, i.size_compressed,
+                        i.size_uncompressed, i.quality, i.offset,
+                        a.get_resource_by_info(i)) for i in infos])
+        out = tmp_path / pkg
+        (tmp_path / f"{pkg}.arc").write_bytes(blob)
+        assert arc.unpack_archive(tmp_path / f"{pkg}.arc", out) == len(infos)
+        arc.repack_archive(out, tmp_path / f"{pkg}_2.arc")
+        again = arc.ArchiveFile((tmp_path / f"{pkg}_2.arc").read_bytes())
+        assert [(i.path, i.dti.hash) for i in again.resource_infos()] == \
+            [(i.path, i.dti.hash) for i in infos]
+    assert tables[0] == tables[1] and len(tables[0]) == 8
+    assert (tmp_path / "mt_renderer_tpu_torch_2.arc").read_bytes() == \
+        (tmp_path / "mt_renderer_tpu_2.arc").read_bytes()
+
+
+def test_spkg_parses_like_jax():
+    blob = tfix.build_shader_package()
+    got = []
+    for pkg in ("mt_renderer_tpu_torch", "mt_renderer_tpu"):
+        spkg, mfx = _fmt(pkg, "spkg"), _fmt(pkg, "mfx")
+        p = spkg.ShaderPackageFile(blob, mfx.Shader2File(tfix.build_shader2()))
+        got.append((
+            [(s.code, s.crc) for s in p.vertex_shaders + p.pixel_shaders],
+            [([None if o is None else o.name for o in i.layouts], i.crc)
+             for i in p.inputs],
+            p.shader_records.tobytes()))
+    assert got[0] == got[1]
+    assert got[0][0] == [(b"\xde\xad\xbe\xef", 0x1), (b"\xca\xfe", 0x2)]
+
+
+def test_gmd_parses_and_round_trips_like_jax():
+    out = []
+    for pkg in ("mt_renderer_tpu_torch", "mt_renderer_tpu"):
+        gmd = _fmt(pkg, "gmd")
+        g = gmd.GuiMessageFile.parse(tfix.build_gmd())
+        jp = gmd.GuiMessageFile(language_id=1, package_name="jp",
+                                update_time=7, messages=[
+                                    gmd.GuiMessage("A", "こんにちは"),
+                                    gmd.GuiMessage("B", "line\r\ntwo")])
+        back = gmd.GuiMessageFile.parse(jp.tobytes())
+        out.append(([(m.label, m.message) for m in g.messages],
+                    g.package_name, g.language_id, g.update_time,
+                    g.tobytes(), jp.tobytes(),
+                    [(m.label, m.message) for m in back.messages]))
+    assert out[0] == out[1]
+    assert out[0][4] == tfix.build_gmd()
+    assert out[0][0][0] == ("LABEL_HELLO", "Hello, world!")
+
+
+def test_viewer_dti_entries_match_jax():
+    """The entries the viewers add (the character, the GUI message table,
+    the shader package and the archive) resolve as in the JAX registry."""
+    treg = importlib.import_module("mt_renderer_tpu_torch.dti.registry")
+    jreg = importlib.import_module("mt_renderer_tpu.dti.registry")
+    for name, ext in (("nGO::rCharacter", "chr"), ("rGUIMessage", "gmd"),
+                      ("rShaderPackage", "spkg"), ("rArchive", "arc")):
+        t, j = treg.from_name(name), jreg.from_name(name)
+        assert (t.name, t.hash, t.size, t.file_ext, t.parent_name) == \
+            (j.name, j.hash, j.size, j.file_ext, j.parent_name)
+        assert t.file_ext == ext
+        assert [(p.name, p.type, p.attr) for p in t.props] == \
+            [(p.name, p.type, p.attr) for p in j.props]
+        assert t.is_type_of(treg.from_name("cResource"))
+
+
+def test_resource_manager_resolves_like_jax(tmp_path):
+    """Loose files win, mounted archives are scanned, ``archive:path``
+    mounts on the fly, a missing resource raises — as in the JAX
+    package's ``ResourceManager``."""
+    tfix.write_fixture_tree(tmp_path)
+    lookups = [("model/fixture_cube", "rModel"),
+               ("model\\fixture_cube_skinned", "rMaterial"),
+               ("fixture_scene:chara\\fixture_character", "nGO::rCharacter"),
+               ("fixture_scene:model\\fixture_albedo", "rTexture"),
+               ("custom_shaders/CustomShaderPackage", "rShaderPackage")]
+    got = []
+    for pkg in ("mt_renderer_tpu_torch", "mt_renderer_tpu"):
+        res = importlib.import_module(f"{pkg}.resources")
+        dti = importlib.import_module(f"{pkg}.dti")
+        rm = res.ResourceManager(tmp_path)
+        out = [rm.get_resource_fancy(p, dti.from_name(d)).read()
+               for p, d in lookups]
+        rm.add_archive("fixture_scene")            # a second mount: no-op
+        assert len(rm._archives) == 1
+        (tmp_path / "model" / "fixture_cube.mod").rename(
+            tmp_path / "model" / "moved.mod")
+        out.append(rm.get_resource("model/fixture_cube",
+                                   dti.from_name("rModel")).read())
+        (tmp_path / "model" / "moved.mod").rename(
+            tmp_path / "model" / "fixture_cube.mod")
+        with pytest.raises(FileNotFoundError):
+            rm.get_resource("model/nothing", dti.from_name("rModel"))
+        got.append(out)
+    assert got[0] == got[1]
+    assert got[0][0] == got[0][-1] == tfix.build_model()

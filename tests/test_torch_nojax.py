@@ -9,8 +9,11 @@ mipmapped, lit frame, a small archive-world frame whose palette
 ``bone_mats_device`` computes, the same world's frames from the bc1
 texel pool (its textures BC1-encoded through the port's own native
 binding) and from the bc7 pool (mode-6 content), runs the reference
-bench's verify legs (``verify.bench_legs``) at a small size, and checks
-that no module of jax or of the JAX package was loaded on the way."""
+bench's verify legs (``verify.bench_legs``) at a small size, writes the
+fixture tree and runs the three viewers on it with ``--device cpu``
+(``modelviewer`` with the joint overlay and with the archive world and
+its HUD, ``textureviewer``, ``sceneviewer``), and checks that no module
+of jax or of the JAX package was loaded on the way."""
 
 import subprocess
 import sys
@@ -102,6 +105,28 @@ from mt_renderer_tpu_torch import verify
 
 legs = verify.bench_legs("cpu", width=64, height=64, instances=4, subdiv=1)
 assert legs["passed"], legs
+
+import pathlib
+import tempfile
+
+from mt_renderer_tpu_torch import fixtures
+from mt_renderer_tpu_torch.cli import modelviewer, sceneviewer, textureviewer
+
+with tempfile.TemporaryDirectory() as tmp:
+    root = pathlib.Path(tmp)
+    fixtures.write_fixture_tree(root)
+    cpu = ["--device", "cpu", "--width", "48", "--height", "48"]
+    modelviewer.main([str(root),
+                      str(root / "chara/fixture_character_skinned.chr"),
+                      "--overlay", "--out", str(root / "mv.png"), *cpu])
+    modelviewer.main(["--demo", "2", "--hud", "--out", str(root / "w.png"),
+                      *cpu])
+    textureviewer.main([str(root / "model/fixture_albedo.tex"),
+                        "--out", str(root / "t.png"), *cpu])
+    sceneviewer.main([str(root), "fixture_scene", "--overlay",
+                      "--out", str(root / "s.png"), *cpu])
+    for name in ("mv.png", "w.png", "t.png", "s.png"):
+        assert (root / name).read_bytes().startswith(b"\x89PNG"), name
 
 loaded = sorted(m for m in sys.modules if blocked(m))
 assert not loaded, loaded
