@@ -147,7 +147,28 @@ on failure:
     /event`` reaches the input state); (v6) ``textureviewer`` on a
     2048x2048 RGBA ``.tex``, raw and YCbCr: the PNG equal, byte for byte,
     to the CPU run's, and ``view_texture``'s device time; (v7)
-    ``sceneviewer`` on the fixture archive with the joint overlay.
+    ``sceneviewer`` on the fixture archive with the joint overlay;
+24. (s1) the served headline: ``serving.export_render`` of the headline
+    scene on the card (K1 as the custom op ``mtr::raster_fwd_tap``),
+    ``load_render``, then 20 requests with yaw and bones varying as in
+    phase 5, K1's launches counted from 0, the overflow queue drained (it
+    must read 0); each served (color, depth) equal, bit for bit, to
+    ``render_frame`` on the same inputs; the export and load times, the
+    artifact's bytes, the served request's ms beside ``render_frame``'s
+    (CUDA events, median of 20); K1 against its plain version on request
+    0's inputs at the served program's ``maxc`` (256), with its breakdown;
+25. (s2) the served mip headline (tri pool, ``export_render(mipmap=
+    True)``, K1's mtap through ``mtr::raster_fwd_mtap``): 5 requests, each
+    bit-equal to ``render_frame``;
+26. (s3) one headline frame and one ``stage_timer``-ed frame (vertex,
+    setup, prebin, raster, shade; each stage's ms printed) under
+    ``utils.profiling.trace``: the Chrome trace must hold K1's
+    ``raster_fwd_kernel`` twice as a CUDA kernel event with a duration
+    (printed beside K1's graph-replay ms) and each stage's range once;
+27. (s4) ``makefixtures`` into a temporary directory, then the other nine
+    dump/pack CLIs on that tree as processes started together, each
+    exiting 0, and ``arctool pack`` and ``gmdtool rebuild`` giving back
+    the archive's and the GMD's bytes.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Prints the card's name and power limit, then every
@@ -162,8 +183,9 @@ time, K2's the fill of its output bytes; K2 has three records: tap on
 the glass loop, mtap + lit on the peeled mip+light loop, ``full`` on
 the opaque mip+light headline's ml peel; K1 a fourth and a fifth, mtap
 on the bc1 and the bc7 world's loops, and a sixth, mtap on the viewer's
-(v1), and K2 a fourth and a fifth, mtap + lit on the bc1 and the bc7
-glass headline's split peel) as one JSON line before the last, and as
+(v1), and a seventh, tap on the served headline (s1), and K2 a fourth
+and a fifth, mtap + lit on the bc1 and the bc7 glass headline's split
+peel) as one JSON line before the last, and as
 its last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
@@ -204,6 +226,7 @@ VIEWER_WORLD = 280          # modelviewer --demo: the bench's world size
 VIEWER_SMALL_WORLD = 40     # the --events and --serve runs
 LAYERS = 4                  # the glass preset's peel depth
 FRAMES = 20
+SERVED_MIP = 5              # requests to the served mip headline
 GOLDEN_SHARE = 0.003        # pixels allowed a channel off by more than 1
 ULP_TOL = 2
 # NVIDIA H100 SXM data sheet
@@ -2281,6 +2304,249 @@ def phase_viewers(device, card: str) -> dict:
     return k1
 
 
+# ------------------------------------------------- serving, profiling, CLIs
+
+
+def serve_requests(art, case: dict, n: int) -> tuple:
+    """``n`` requests to a ``serving.RenderArtifact`` with the camera yaw
+    and the bones varying as in ``phase_main``, each between two CUDA
+    events → (the requests' (view_proj, bones, color, depth), their ms)."""
+    import torch
+
+    demo = case["demo"]
+    cam = demo.camera
+    base_yaw = cam.yaw
+    out, ms = [], []
+    for t in range(n):
+        cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
+        vp, bones = demo.view_proj(), demo.bone_mats(0.3 * t)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        color, depth = art(case["scene"], vp, bones)
+        ev[1].record()
+        out.append((vp, bones, color, depth))
+        ms.append(ev)
+    cam.yaw = base_yaw
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in ms]
+
+
+def phase_served(case: dict, what: str, requests: int, card: str,
+                 mipmap: bool = False) -> dict:
+    """(s1), (s2): ``serving.export_render`` of the case's scene on the
+    card, ``load_render``, then ``requests`` requests with their K1
+    launches counted from 0 and the overflow queue drained (it must read
+    0); each served (color, depth) equal, bit for bit, to
+    ``render_frame`` on the same inputs, whose request ms stand beside
+    the served ones (CUDA events, median). → K1's launches."""
+    import torch
+
+    from mt_renderer_tpu_torch import serving
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = case["width"], case["height"]
+    rs_flush_before(what)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = serving.export_render(case["scene"], width=w, height=h,
+                                 mipmap=mipmap, platforms=["cuda"])
+    t1 = time.perf_counter()
+    art = serving.load_render(blob)
+    t2 = time.perf_counter()
+    log(f"{what}: export {t1 - t0!r} s, artifact {len(blob)} bytes, load "
+        f"{t2 - t1!r} s")
+    rs.flush_overflow_counts()
+    reset_launches()
+    served, served_ms = serve_requests(art, case, requests)
+    launches = rs.raster_fwd.launches
+    over = rs.flush_overflow_counts()
+    log(f"{what}: {requests} requests, K1 launches {launches}, overflow "
+        f"{over}")
+    if launches != requests or rs.raster_fwd_ml.launches:
+        raise AssertionError(f"{what}: {launches} K1 launches in "
+                             f"{requests} requests")
+    if any(n for n, _ in over.values()) or len(over) != 2:
+        raise AssertionError(f"{what}: overflow {over}")
+    eager_ms, n_bad = [], []
+    for vp, bones, color, depth in served:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want, wdepth = dv.render_frame(case["scene"], vp, bones, width=w,
+                                       height=h, mipmap=mipmap)
+        ev[1].record()
+        ev[1].synchronize()
+        eager_ms.append(ev[0].elapsed_time(ev[1]))
+        if (tuple(color.shape) != (h, w, 4) or color.dtype != torch.uint8
+                or not bool(torch.isfinite(depth).all())):
+            raise AssertionError(f"{what}: a malformed frame "
+                                 f"{color.dtype} {tuple(color.shape)}")
+        n_bad.append(int((color != want).any(-1).sum())
+                     + int((depth != wdepth).sum()))
+    rs.flush_overflow_checks()
+    coverage = float((served[0][3] < 1.0).float().mean())
+    log(f"{what}: pixels off render_frame per request {n_bad}; coverage "
+        f"{coverage:.4f}")
+    if any(n_bad) or not 0.0 < coverage < 1.0:
+        raise AssertionError(f"{what}: the served frame is not "
+                             "render_frame's")
+    log(f"{what}: served request ms median {float(np.median(served_ms))!r}"
+        f", render_frame ms median {float(np.median(eager_ms))!r} (CUDA "
+        f"events, {requests} requests each; {card})")
+    return dict(launches=launches, vp=served[0][0], bones=served[0][1])
+
+
+def phase_profile(case: dict, k1_ms: float, card: str) -> None:
+    """(s3) One headline frame under ``utils.profiling.trace``: its
+    Chrome trace must hold K1's ``__global__`` as a CUDA kernel event
+    with a duration (beside K1's graph-replay ms); then one frame with
+    ``stage_timer`` around vertex, setup, prebin, raster and shade, each
+    stage's ms printed and its range found in the trace."""
+    import tempfile
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+    from mt_renderer_tpu_torch.utils import profiling
+
+    w, h, scene = case["width"], case["height"], case["scene"]
+    pw, ph = dv._padded(w, h)
+    vp, bones = case["vp"], case["bones"]
+    stages = ("vertex", "setup", "prebin", "raster", "shade")
+
+    def timed_frame(times):
+        with profiling.stage_timer(times, "vertex") as fence:
+            clip = fence(dv.vertex_stage(scene, vp, bones))
+        with profiling.stage_timer(times, "setup") as fence:
+            cols, bbox = fence(dv.setup_packed_cols(scene, clip, w, h))
+        with profiling.stage_timer(times, "prebin") as fence:
+            pre = fence(rs.prebin(cols, bbox, 0, 0, width=pw, height=ph,
+                                  maxc=case["maxc"]))
+        with profiling.stage_timer(times, "raster") as fence:
+            zb, ib, tattrs, tapidx = fence(rs.raster_fwd(
+                cols, *pre[:3], (0, 0), width=pw, height=ph,
+                w_eps=dv.W_EPS))
+        with profiling.stage_timer(times, "shade") as fence:
+            fence(dv.shade_finish_tap_flat(scene, tattrs, tapidx, ib,
+                                           (255, 255, 255, 255),
+                                           tap_tiles=case["taps"]))
+        return pre[3]
+
+    timed_frame({})                                   # warm-up
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as log_dir:
+            dv.render_frame(scene, vp, bones, width=w, height=h,
+                            maxc=case["maxc"], tap_tiles=case["taps"])
+            n_over = timed_frame(times)
+        path = Path(log_dir) / profiling.TRACE_FILE
+        events = json.loads(path.read_text())["traceEvents"]
+        size = path.stat().st_size
+    rs.queue_overflow_check(n_over, case["maxc"])
+    rs.flush_overflow_checks()
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "raster_fwd" in e.get("name", "")
+               and "raster_fwd_ml" not in e["name"]]
+    ranges = {s: sum(1 for e in events if e.get("name") == s
+                     and e.get("cat") == "user_annotation")
+              for s in stages}
+    log(f"(s3) trace: {len(events)} events, {size} bytes; K1 kernel events "
+        f"{len(kernels)}: " + "; ".join(
+            f"{e['name']!r} {e.get('dur', 0) / 1e3!r} ms" for e in kernels)
+        + f"; K1 graph replay {k1_ms!r} ms ({card})")
+    log(f"(s3) stage_timer ms: " + ", ".join(
+        f"{s} {times[s] * 1e3!r}" for s in stages)
+        + f"; ranges in the trace {ranges} ({card})")
+    if len(kernels) != 2 or not all(e.get("dur", 0) > 0 for e in kernels):
+        raise AssertionError("(s3) the trace lacks K1's two kernel events")
+    if any(n != 1 for n in ranges.values()):
+        raise AssertionError(f"(s3) stage ranges in the trace: {ranges}")
+
+
+CLI_TOOLS = (
+    ("arctool", ["unpack", "fixture_scene.arc", "-o", "unpacked"]),
+    ("unpackall", ["."]),
+    ("gmdtool", ["dump", "gui/fixture_messages.gmd"]),
+    ("mtdeserializer", ["chara/fixture_character_skinned.chr"]),
+    ("materialinfo", [".", "fixture_scene:model\\fixture_cube"]),
+    ("schedulerdump", ["motion/fixture_timeline.sdl"]),
+    ("shaderdump", ["custom_shaders/CustomShaderPackage.mfx"]),
+    ("shaderpackagedump", [".", "custom_shaders/CustomShaderPackage"]),
+    ("scriptparse", ["gui/fixture_messages.gmd", "--name-gmd",
+                     "gui/fixture_messages.gmd"]),
+)
+
+
+def run_tools(root: Path, runs) -> list:
+    """Start ``python -m mt_renderer_tpu_torch.cli.<tool> <args>`` for
+    every (tool, args) of ``runs`` at once in ``root``; wait for all →
+    their stdouts. Raises unless each exits 0."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    procs = [(tool, subprocess.Popen(
+        [sys.executable, "-m", f"mt_renderer_tpu_torch.cli.{tool}", *args],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for tool, args in runs]
+    outs, failed = [], []
+    for tool, proc in procs:
+        out, err = proc.communicate(timeout=300)
+        outs.append(out)
+        log(f"(s4) {tool}: exit {proc.returncode}, {len(out)} bytes out")
+        if proc.returncode != 0:
+            failed.append(f"{tool} exited {proc.returncode}:\n{err}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return outs
+
+
+def phase_tools() -> None:
+    """(s4) ``makefixtures`` into a temporary directory, then the other
+    nine dump/pack CLIs on that tree as processes started together, each
+    exiting 0; then ``arctool pack`` and ``gmdtool rebuild`` on what they
+    wrote, giving back the archive's and the GMD's bytes."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        run_tools(root, [("makefixtures", ["tree"])])
+        tree = root / "tree"
+        outs = run_tools(tree, CLI_TOOLS)
+        (tree / "m.json").write_text(outs[2])
+        run_tools(tree, [("arctool", ["pack", "unpacked", "-o",
+                                      "repacked.arc"]),
+                         ("gmdtool", ["rebuild", "m.json", "-o", "re.gmd"])])
+        same = ((tree / "repacked.arc").read_bytes()
+                == (tree / "fixture_scene.arc").read_bytes(),
+                (tree / "re.gmd").read_bytes()
+                == (tree / "gui/fixture_messages.gmd").read_bytes())
+    log(f"(s4) ten CLIs exit 0 in {time.perf_counter() - t0:.1f} s; "
+        f"repacked archive and rebuilt GMD byte-equal: {same}")
+    if not all(same):
+        raise AssertionError("(s4) a round trip changed the bytes")
+
+
+def phase_serving(device, case: dict, card: str) -> tuple:
+    """(s1)-(s4) → (K1's launches on the served headline, K1's reading
+    on its first request's inputs)."""
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    served = phase_served(case, "(s1) served headline", FRAMES, card)
+    # K1 as the served program ran it: request 0's inputs, maxc default
+    k1 = phase_kernel(dict(case, vp=served["vp"], bones=served["bones"],
+                           maxc=rs.MAXC_DEFAULT))
+    mip = headline_case(device, **MIP)
+    phase_served(mip, "(s2) served mip headline", SERVED_MIP, card,
+                 mipmap=True)
+    del mip
+    phase_profile(case, k1["ms"], card)
+    phase_tools()
+    log(f"serving phases (s1)-(s4) in {time.perf_counter() - t0:.1f} s")
+    return served["launches"], k1
+
+
 def main() -> int:
     import torch
 
@@ -2324,6 +2590,8 @@ def main() -> int:
     bc7_peel = phase_bcn_peel(device, "bc7")
     phase_bench_legs(device)
     viewer = phase_viewers(device, dev_info["card"])
+    served_launches, k1_served = phase_serving(device, case,
+                                               dev_info["card"])
     from mt_renderer_tpu_torch.tools import raster_roofline
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2363,6 +2631,8 @@ def main() -> int:
         raster_record("raster_fwd",
                       f"mtap (modelviewer --demo {VIEWER_WORLD} --hud)",
                       viewer["launches"], viewer),
+        raster_record("raster_fwd", "tap (served artifact)", served_launches,
+                      k1_served),
         raster_record("raster_fwd_ml", "tap", peel_run["k2"], k2),
         raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
                       k2_mip),

@@ -5,11 +5,9 @@ CRC of its class name (the "DTI hash").  The registry maps hashes to class
 metadata: name, instance size, resource file extension, parent class, and
 serialized property definitions.
 
-The data ships as ``dti_registry.json``: the entries of the JAX
-package's full registry (generated by ``tools/gen_dti_registry.py`` from
-an engine class-metadata dump) that the scene path reaches — the
-resource types it parses, the material type, and their parent chains —
-copied unchanged. Unlike the reference — whose
+The data ships as ``dti_registry.json``, a byte-equal copy of the JAX
+package's registry (generated by ``tools/gen_dti_registry.py`` from an
+engine class-metadata dump). Unlike the reference — whose
 ``DTI::is_type_of`` parent walk is an unimplemented ``todo!()``
 (``dti.rs:138-145``) — this registry resolves parent chains.
 

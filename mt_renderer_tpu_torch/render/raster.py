@@ -31,7 +31,10 @@ tensors' device: a CPU tensor runs the plain PyTorch version
 (``raster_fwd_reference``, ``raster_fwd_ml_reference``,
 ``raster_micro_reference``); a CUDA tensor launches the hand-written
 kernel (``csrc/raster_fwd.cu``, ``csrc/raster_fwd_ml.cu``,
-``csrc/raster_micro.cu``) or raises.
+``csrc/raster_micro.cu``) or raises. ``raster_fwd`` dispatches through
+the ``torch.library`` custom ops ``mtr::raster_fwd_tap`` and
+``mtr::raster_fwd_mtap`` (``K1_OPS``), so that ``torch.export`` can
+trace a frame (``serving.export_render``).
 
 K1, K2 and K3 run ``PARTS`` CTAs per tile, each with ``WARPS // PARTS``
 warps of ``WARP_W`` x ``WARP_H`` pixels, and every warp culls each
@@ -358,19 +361,20 @@ def raster_fwd(cols, lists, glists, counts, origin, *, width: int,
     P) i32 quad-pool row or -1 for untextured winners; for "mtap" mattrs
     (n_tiles, 17, P) f32 (see ATTRS_MTAP).
 
-    A CPU tensor runs ``raster_fwd_reference``. A CUDA tensor launches
+    Every call goes through the custom op ``mtr::raster_fwd_tap`` or
+    ``mtr::raster_fwd_mtap`` (``K1_OPS``), which ``torch.export`` traces
+    (``serving.export_render``). On a CPU tensor the op runs
+    ``raster_fwd_reference``; on a CUDA tensor it launches
     ``csrc/raster_fwd.cu`` (counted in ``raster_fwd.launches``) or
     raises."""
     _check_fwd_args(cols, lists, glists, counts, width, height, mode, light)
-    kw = dict(width=width, height=height, w_eps=w_eps, mode=mode,
-              light=light)
-    if cols.device.type == "cpu":
-        return raster_fwd_reference(cols, lists, glists, counts, origin,
-                                    **kw)
-    if cols.device.type != "cuda":
+    if cols.device.type not in ("cpu", "cuda"):
         raise ValueError(f"raster_fwd runs on CPU or CUDA, not "
                          f"{cols.device}")
-    return _raster_fwd_cuda(cols, lists, glists, counts, origin, **kw)
+    return K1_OPS[mode](cols, lists, glists, counts,
+                        [int(o) for o in origin], width, height,
+                        float(w_eps),
+                        None if light is None else [float(c) for c in light])
 
 
 raster_fwd.launches = 0
@@ -520,6 +524,60 @@ def raster_fwd_reference(cols, lists, glists, counts, origin, *,
                 torch.stack(_mtap_epilogue(coef, px, py, w_eps, light), 1))
     planes, tapidx = _tap_epilogue(coef, px, py, w_eps, light)
     return zb, win[:, None, :], torch.stack(planes, 1), tapidx[:, None, :]
+
+
+# ------------------------------------------------------- K1 as a custom op
+
+# K1's two epilogues as ``torch.library`` ops, so that ``torch.export``
+# sees the raster as one node (its fake kernel gives the output shapes)
+# and a loaded program dispatches to the same kernels as eager code: the
+# plain version on the CPU, the hand kernel (and its launch count) on
+# CUDA. The op names stand in a serialized program; a program that holds
+# them loads only where this module is imported.
+_K1_SCHEMA = ("(Tensor cols, Tensor lists, Tensor glists, Tensor counts, "
+              "int[] origin, int width, int height, float w_eps, "
+              "float[]? light) -> ({})")
+
+
+def _k1_kw(mode, width, height, w_eps, light) -> dict:
+    return dict(width=width, height=height, w_eps=w_eps, mode=mode,
+                light=None if light is None else tuple(light))
+
+
+def _register_k1_op(mode: str):
+    n_out = 4 if mode == "tap" else 3
+
+    def cpu(cols, lists, glists, counts, origin, width, height, w_eps,
+            light):
+        return raster_fwd_reference(cols, lists, glists, counts, origin,
+                                    **_k1_kw(mode, width, height, w_eps,
+                                             light))
+
+    def cuda(cols, lists, glists, counts, origin, width, height, w_eps,
+             light):
+        return _raster_fwd_cuda(cols, lists, glists, counts, origin,
+                                **_k1_kw(mode, width, height, w_eps, light))
+
+    def fake(cols, lists, glists, counts, origin, width, height, w_eps,
+             light):
+        n_tiles = (height // TILE_H) * (width // TILE_W)
+        n_planes = ATTRS_TAP if mode == "tap" else ATTRS_MTAP
+        out = (cols.new_empty((n_tiles, 1, P)),
+               cols.new_empty((n_tiles, 1, P), dtype=torch.int32),
+               cols.new_empty((n_tiles, n_planes, P)),
+               cols.new_empty((n_tiles, 1, P), dtype=torch.int32))
+        return out[:n_out]
+
+    op = torch.library.custom_op(
+        f"mtr::raster_fwd_{mode}", cpu, mutates_args=(),
+        device_types="cpu",
+        schema=_K1_SCHEMA.format(", ".join(["Tensor"] * n_out)))
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
+
+
+K1_OPS = {mode: _register_k1_op(mode) for mode in MODES}
 
 
 # ------------------------------------------------ K1's cull: the plain twin

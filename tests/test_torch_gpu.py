@@ -22,7 +22,10 @@ there bit for bit; the reference bench's verify legs pass on the card.
 The viewers' torch stages give the CPU's bits on the card (the HUD
 composite, the texture view), and ``modelviewer --demo`` on the card
 launches K1 in every frame with no overflow, its frame under the golden
-rule against the CPU's.
+rule against the CPU's. The frame served from ``serving.export_render``'s
+program equals ``render_frame`` bit for bit on the card, K1's two ops
+pass ``torch.library.opcheck`` on CUDA inputs, and a CPU artifact
+refuses card tensors.
 """
 
 import os
@@ -930,3 +933,59 @@ def test_modelviewer_demo_on_card(cuda, tmp_path):
     got, want = td.unpack_rgba(color), td.unpack_rgba(want)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(-1)
     assert float((diff > 1).mean()) <= 0.003
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mipmap", [False, True])
+def test_served_headline_on_card_equals_render_frame(cuda, mipmap):
+    """The headline scene (1024 instances at subdiv 4) at 256x256 served
+    from ``export_render``'s program on the card: every request equals
+    ``render_frame`` bit for bit, K1 launches once a request through its
+    op, and the queue holds no overflow."""
+    from mt_renderer_tpu_torch import serving
+
+    case = entry.demo_case(cuda, instances=1024, subdiv=4, width=256,
+                           height=256, pool_mode="tri" if mipmap else "quad")
+    art = serving.load_render(serving.export_render(
+        case.scene, width=256, height=256, mipmap=mipmap,
+        platforms=["cuda"]))
+    assert art.device.type == "cuda"
+    tr.flush_overflow_counts()
+    for t in range(3):
+        case.camera.yaw += 5.0
+        vp, bones = case.view_proj(), case.bone_mats(0.3 * t)
+        k1 = tr.raster_fwd.launches
+        color, depth = art(case.scene, vp, bones)
+        assert tr.raster_fwd.launches == k1 + 1
+        want, wdepth = td.render_frame(case.scene, vp, bones, width=256,
+                                       height=256, mipmap=mipmap)
+        assert color.device.type == "cuda"
+        assert torch.equal(color, want) and torch.equal(depth, wdepth)
+    assert all(n == 0 for n, _ in tr.flush_overflow_counts().values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", tr.MODES)
+@pytest.mark.parametrize("lit", [False, True])
+def test_k1_ops_pass_opcheck_on_card(cuda, mode, lit):
+    (cols, lists, glists, counts, _), _ = _binned(
+        cuda, glass="all" if lit else None, lighting=lit)
+    light = list(td._light_unit()) if lit else None
+    torch.library.opcheck(tr.K1_OPS[mode], (cols, lists, glists, counts,
+                                            [0, 0], W, H, td.W_EPS, light))
+
+
+@pytest.mark.gpu
+def test_cpu_artifact_refuses_card_tensors(cuda):
+    from mt_renderer_tpu_torch import serving
+
+    case = entry.demo_case("cpu", instances=4, subdiv=1, width=128,
+                           height=64)
+    art = serving.load_render(serving.export_render(case.scene, width=128,
+                                                    height=64))
+    card = [x.to(cuda) for x in serving.scene_leaves(case.scene)]
+    with pytest.raises(ValueError, match="is on cuda"):
+        art(card, case.view_proj(), case.bone_mats(0.2))
+    with pytest.raises(ValueError, match="holds the scene's device"):
+        serving.export_render(case.scene, width=128, height=64,
+                              platforms=["cuda"])

@@ -129,15 +129,17 @@ def test_cameras_match_jax():
 
 
 def test_dti_entries_match_the_jax_registry():
-    """The port carries a trimmed registry: each entry equals the JAX
-    registry's, every parent chain is complete, and the scene path's
+    """The port carries the JAX package's registry byte for byte: every
+    entry equal, every parent chain complete, and the scene path's
     lookups resolve."""
     treg = importlib.import_module("mt_renderer_tpu_torch.dti.registry")
     jreg = importlib.import_module("mt_renderer_tpu.dti.registry")
+    assert treg._REGISTRY_PATH.read_bytes() == \
+        jreg._REGISTRY_PATH.read_bytes()
     entries = json.loads(treg._REGISTRY_PATH.read_text())
     full = {e["name"]: e for e in json.loads(
         jreg._REGISTRY_PATH.read_text())}
-    assert 0 < len(entries) < 50
+    assert len(entries) == 2205
     for e in entries:
         assert e == full[e["name"]]
     tr, jr = treg.registry(), jreg.registry()
@@ -153,6 +155,39 @@ def test_dti_entries_match_the_jax_registry():
                  "rShader2", "rScheduler"):
         assert key(tr.from_name(name)) == key(jr.from_name(name))
     assert tr.from_name("rTexture").is_type_of(tr.from_name("cResource"))
+
+
+def test_registry_resolves_every_entry_like_jax():
+    """Every one of the 2,205 entries resolves by name and by hash in the
+    port as in the reference, with the same parent chain and the same
+    ``is_type_of`` answers against ``cResource``; unknown names hash to
+    the same miss."""
+    treg = importlib.import_module("mt_renderer_tpu_torch.dti.registry")
+    jreg = importlib.import_module("mt_renderer_tpu.dti.registry")
+    tr, jr = treg.registry(), jreg.registry()
+    names = [e["name"] for e in json.loads(jreg._REGISTRY_PATH.read_text())]
+    assert len(names) == 2205 and len(tr) == len(jr)
+
+    def key(d):
+        if d is None:
+            return None
+        chain = []
+        node = d
+        while node is not None and len(chain) < 64:
+            chain.append(node.name)
+            node = node.parent
+        return (d.name, d.hash, d.size, d.file_ext, d.parent_name,
+                tuple((p.name, p.type, p.attr) for p in d.props),
+                tuple(chain))
+
+    t_res, j_res = tr.from_name("cResource"), jr.from_name("cResource")
+    for name in names:
+        t, j = tr.from_name(name), jr.from_name(name)
+        assert key(t) == key(j), name
+        assert key(tr.from_hash(j.hash)) == key(jr.from_hash(j.hash)), name
+        assert t.is_type_of(t_res) == j.is_type_of(j_res), name
+    for name in ("noSuchClass", "rTexture2", ""):
+        assert key(tr.from_name(name)) == key(jr.from_name(name))
 
 
 # ------------------------------------------------------------ animation

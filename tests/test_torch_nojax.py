@@ -12,8 +12,12 @@ binding) and from the bc7 pool (mode-6 content), runs the reference
 bench's verify legs (``verify.bench_legs``) at a small size, writes the
 fixture tree and runs the three viewers on it with ``--device cpu``
 (``modelviewer`` with the joint overlay and with the archive world and
-its HUD, ``textureviewer``, ``sceneviewer``), and checks that no module
-of jax or of the JAX package was loaded on the way."""
+its HUD, ``textureviewer``, ``sceneviewer``), serves a small frame
+through ``serving.export_render``/``load_render`` (equal to
+``render_frame``) under ``utils.profiling.trace`` (whose Chrome trace
+names K1's op), runs the ``schedulerdump`` CLI on the fixture tree, and
+checks that no module of jax or of the JAX package was loaded on the
+way."""
 
 import subprocess
 import sys
@@ -127,6 +131,36 @@ with tempfile.TemporaryDirectory() as tmp:
                       "--out", str(root / "s.png"), *cpu])
     for name in ("mv.png", "w.png", "t.png", "s.png"):
         assert (root / name).read_bytes().startswith(b"\x89PNG"), name
+
+import contextlib
+import io
+
+import torch
+
+from mt_renderer_tpu_torch import serving
+from mt_renderer_tpu_torch.cli import schedulerdump
+from mt_renderer_tpu_torch.utils import profiling
+
+small = entry.demo_case("cpu", instances=4, width=64, height=64, subdiv=1)
+vp, bones = small.view_proj(), small.bone_mats(0.3)
+art = serving.load_render(serving.export_render(small.scene, width=64,
+                                                height=64))
+color, depth = art(small.scene, vp, bones)
+want, wdepth = device.render_frame(small.scene, vp, bones, width=64,
+                                   height=64)
+assert torch.equal(color, want) and torch.equal(depth, wdepth)
+with tempfile.TemporaryDirectory() as tmp:
+    with profiling.trace(tmp) as log_dir:
+        art(small.scene, vp, bones)
+    text = (pathlib.Path(log_dir) / profiling.TRACE_FILE).read_text()
+    assert "mtr::raster_fwd_tap" in text
+    root = pathlib.Path(tmp)
+    fixtures.write_fixture_tree(root)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        schedulerdump.main([str(root / "motion/fixture_timeline.sdl")])
+    assert "mAlpha" in out.getvalue()
+raster.flush_overflow_checks()
 
 loaded = sorted(m for m in sys.modules if blocked(m))
 assert not loaded, loaded
