@@ -15,10 +15,12 @@ mipmapped and lit, through ``FrameEngine(mipmap=True, lighting=True)``
 the tri pool through ``FrameEngine(peel=4, mipmap=True,
 lighting=True)`` (the ``peel4+mip+light`` row); the archive world (280
 buildings, 239,664 triangles, the tri pool, mipmapped, the characters
-posed on the card: the ``pallas world`` row); and the two probe tools'
+posed on the card: the ``pallas world`` row); the two probe tools'
 paths, shortened: ``tools.raster_roofline`` on its ``default`` and
-``world`` presets and ``tools.bilin_ab``. Phases, each of which raises
-on failure:
+``world`` presets and ``tools.bilin_ab``; and the split frames of
+``parallel``: the band split, the geometry split and two processes over
+gloo, each on slots of the one card. Phases, each of which raises on
+failure:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build K1 (``csrc/raster_fwd.cu``), K2 (``csrc/raster_fwd_ml.cu``),
@@ -168,7 +170,31 @@ on failure:
 27. (s4) ``makefixtures`` into a temporary directory, then the other nine
     dump/pack CLIs on that tree as processes started together, each
     exiting 0, and ``arctool pack`` and ``gmdtool rebuild`` giving back
-    the archive's and the GMD's bytes.
+    the archive's and the GMD's bytes;
+28. (m1) the headline band split (``parallel.tiles.
+    render_frame_multichip``) over n slots of the card for n in 1, 2, 3,
+    8, packed with taps from ``auto_tap_tiles(bands=n)``: each frame
+    bit-equal (color and depth) to ``render_frame``, K1 launched n times;
+    8 bands unpacked and with ``setup_shard`` too; the banded frame's ms
+    beside the single frame's (one card runs the bands one after another
+    and repeats the vertex and setup stages per band: no speed-up is
+    claimed); K1 against its plain version on band 4 of 8;
+29. (m2) the world (280 buildings, mipmapped, palette on the card) in 8
+    bands with the tri pool and with the bc7 pool, each bit-equal to its
+    single-device frame; K1 (mtap) on band 4 of 8;
+30. (m3) the glass headline's split peel, L = 4, in 8 bands with the cap
+    pair from ``measure_live_tap_tiles(mode="split", bands=8)``,
+    bit-equal to ``render_frame_peeled(peel_mode="split")``; K1 and K2
+    launched 8 times; K2 against its plain version on band 4 of 8;
+31. (m4) the headline's geometry split (``render_frame_geomsplit``) over
+    2 and 4 slots, bit-equal to ``render_frame``; K1 on shard 0 of 4;
+32. (m5) two processes sharing the card over a gloo group,
+    ``mt_renderer_tpu_torch.tools.multihost_demo`` at the headline size:
+    each rank's rows (packed, peeled, mipmapped, sharded setup) and the
+    geometry split's frame bit-equal to its own single-device frame,
+    ``gather_full_frame`` the whole frame, MULTIHOST OK twice;
+33. (m6) ``entry.dryrun_multichip(8)`` on the card and the bench's
+    ``multichip_1dev`` verify leg from (h).
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Prints the card's name and power limit, then every
@@ -183,9 +209,12 @@ time, K2's the fill of its output bytes; K2 has three records: tap on
 the glass loop, mtap + lit on the peeled mip+light loop, ``full`` on
 the opaque mip+light headline's ml peel; K1 a fourth and a fifth, mtap
 on the bc1 and the bc7 world's loops, and a sixth, mtap on the viewer's
-(v1), and a seventh, tap on the served headline (s1), and K2 a fourth
-and a fifth, mtap + lit on the bc1 and the bc7 glass headline's split
-peel) as one JSON line before the last, and as
+(v1), and a seventh, tap on the served headline (s1), an eighth, a
+ninth and a tenth on the split frames: tap on the headline's 8-band
+frame (m1), mtap on the world's (m2), tap on the 4-shard geometry split
+(m4); and K2 a fourth and a fifth, mtap + lit on the bc1 and the bc7
+glass headline's split peel, and a sixth, tap on the 8-band split peel
+(m3)) as one JSON line before the last, and as
 its last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
@@ -247,6 +276,22 @@ def golden_share(got_u8: np.ndarray, want_u8: np.ndarray) -> tuple:
     diff = np.abs(got_u8.astype(np.int32) - want_u8.astype(np.int32))
     dmax = diff.max(-1)
     return float((dmax > 1).mean()), int((dmax > 0).sum())
+
+
+def frame_rgba(color, h: int, w: int, what: str) -> np.ndarray:
+    """A frame in either format a ``FrameEngine`` returns (the (H, W)
+    int32 packed frame, or a peeled mip frame's (H, W, 4) uint8 view)
+    → its (H, W, 4) uint8 pixels on the host; raises on any other."""
+    import torch
+
+    from mt_renderer_tpu_torch.app.manager import _to_rgba
+
+    if not ((color.dtype == torch.int32 and tuple(color.shape) == (h, w))
+            or (color.dtype == torch.uint8
+                and tuple(color.shape) == (h, w, 4))):
+        raise AssertionError(f"{what} frame malformed: {color.dtype} "
+                             f"{tuple(color.shape)}")
+    return _to_rgba(color)
 
 
 def ulp_dist(a, b):
@@ -683,45 +728,60 @@ def phase_main(case: dict, mipmap: bool = False,
     return dict(launches=launches, coverage=coverage, frame_ms=frame_ms)
 
 
+def k2_split_reading(glass: dict, n: int, band: int, what: str) -> dict:
+    """K2 against its plain version as the split peel calls it on band
+    ``band`` of ``n`` of the glass case (the whole frame for n = 1): the
+    translucent set binned at the band's origin, no opaque cull, the
+    band's opaque z from K1 as ``zhi``, L = LAYERS; its breakdown and
+    both times (logged as ``raster_ml_<what>_kernel_ms`` and
+    ``_plain_ms``) → a record's readings. Raises if either binning
+    overflows."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    maxc = glass["maxc"]
+    (_, (cols_tr, bbox_tr)), oargs, (pw, pb), nov_op = band_args(
+        glass["scene"], glass["vp"], glass["bones"], glass["width"],
+        glass["height"], n, band, maxc, opacity_split=True)
+    kw = dict(width=pw, height=pb, w_eps=dv.W_EPS)
+    zo, io = rs.raster_fwd(*oargs, **kw)[:2]
+    zhi = torch.where(io >= 0, zo, float("inf"))
+    lists, glists, counts, n_over = rs.prebin(
+        cols_tr, bbox_tr, *oargs[4], width=pw, height=pb, maxc=maxc)
+    if int(n_over) or int(nov_op):
+        raise AssertionError(f"{what}: a binning overflows maxc")
+    args = (cols_tr, lists, glists, counts, oargs[4])
+    mlkw = dict(kw, layers=LAYERS, opaque_cull=False, zhi=zhi)
+    got = rs.raster_fwd_ml(*args, **mlkw)
+    want = rs.raster_fwd_ml_reference(*args, **mlkw)
+    torch.cuda.synchronize()
+    err = compare_outputs(
+        got, want, f"K2 vs plain, {what} {pw}x{pb} at {args[4]}, "
+        f"translucent set, nocull + zhi, L={LAYERS}, maxc={lists.shape[1]}")
+    kernel_ms = graph_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_ml_reference(*args, **mlkw),
+                       warmup=1, reps=5)
+    tag = "_".join(what.replace(",", " ").split())
+    log(f"raster_ml_{tag}_kernel_ms {kernel_ms!r}")
+    log(f"raster_ml_{tag}_plain_ms {plain_ms!r}")
+    bnd = k2_breakdown(args, mlkw, got, f"{what}, tap, nocull + zhi")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
+
+
 def phase_ml_kernel(glass: dict, opaque: dict) -> dict:
     """K2 against its plain version: on the glass headline as the split
     peel calls it (translucent set, no opaque cull, K1's opaque z-buffer
     as ``zhi``), and with the opaque cull on the opaque headline."""
-    import torch
-
     from mt_renderer_tpu_torch.render import device as dv
     from mt_renderer_tpu_torch.render import raster as rs
 
     w, h = glass["width"], glass["height"]
     pw, ph = dv._padded(w, h)
     kw = dict(width=pw, height=ph, w_eps=dv.W_EPS)
-    scene = glass["scene"]
-    clip = dv.vertex_stage(scene, glass["vp"], glass["bones"])
-    (cols_op, bbox_op), (cols_tr, bbox_tr) = dv.setup_packed_cols(
-        scene, clip, w, h, opacity_split=True)
-    pre = rs.prebin(cols_op, bbox_op, 0, 0, width=pw, height=ph,
-                    maxc=glass["maxc"])
-    zo, io, _, _ = rs.raster_fwd(cols_op, *pre[:3], (0, 0), **kw)
-    zhi = torch.where(io >= 0, zo, float("inf"))
-    lists, glists, counts, n_over = rs.prebin(
-        cols_tr, bbox_tr, 0, 0, width=pw, height=ph, maxc=glass["maxc"])
-    if int(n_over) or int(pre[3]):
-        raise AssertionError("glass frame 0 overflows maxc")
-    args = (cols_tr, lists, glists, counts, (0, 0))
-    mlkw = dict(kw, layers=LAYERS, opaque_cull=False, zhi=zhi)
-    got = rs.raster_fwd_ml(*args, **mlkw)
-    want = rs.raster_fwd_ml_reference(*args, **mlkw)
-    torch.cuda.synchronize()
-    err = compare_outputs(
-        got, want, f"K2 vs plain, glass headline {pw}x{ph}, translucent "
-        f"set, nocull + zhi, L={LAYERS}, maxc={lists.shape[1]}")
-    kernel_ms = graph_ms(lambda: rs.raster_fwd_ml(*args, **mlkw))
-    plain_ms = cuda_ms(lambda: rs.raster_fwd_ml_reference(*args, **mlkw),
-                       warmup=1, reps=5)
-    log(f"raster_ml_kernel_ms {kernel_ms!r}")
-    log(f"raster_ml_plain_ms {plain_ms!r}")
-    bnd = k2_breakdown(args, mlkw, got, "glass headline, tap, nocull + zhi")
-    del got, want
+    reading = k2_split_reading(glass, 1, 0, "glass headline")
+    err = reading["max_abs_err"]
 
     scene = opaque["scene"]
     cols, bbox = dv.setup_packed_cols(
@@ -738,7 +798,7 @@ def phase_ml_kernel(glass: dict, opaque: dict) -> dict:
     full = k2_breakdown(args, mlkw, got, "opaque headline, tap, full")
     log(f"raster_ml_kernel_ms, opaque headline, full: {full_ms!r} (bound "
         f"{full['bound_ms']!r}, {full['bound_by']})")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
+    return dict(reading, max_abs_err=err)
 
 
 def split_equals_ml(case: dict, layers: int, what: str,
@@ -840,11 +900,13 @@ def phase_peel_main(glass: dict, mipmap: bool = False,
         raise AssertionError(f"overflow on the {what}")
 
     color0, depth0, vp0, bones0, maxc0, taps0 = first
-    if (tuple(color0.shape) != (h, w) or color0.dtype != torch.int32
-            or tuple(depth0.shape) != (h, w)
-            or not bool(torch.isfinite(depth0).all())):
+    # the engine's format: the peeled mip frame is the uint8 view
+    rgba0 = frame_rgba(color0, h, w, f"{what} frame 0")
+    if (color0.dtype == torch.uint8) != (not eng.packed) \
+            or tuple(depth0.shape) != (h, w) \
+            or not bool(torch.isfinite(depth0).all()):
         raise AssertionError(f"{what} frame 0 malformed: {color0.dtype} "
-                             f"{tuple(color0.shape)}")
+                             f"{tuple(color0.shape)}, packed {eng.packed}")
     coverage = float((depth0 < 1.0).float().mean())
     plain, _, _ = dv._render_frame_peeled_core(
         glass["scene"], vp0, bones0, width=w, height=h, layers=LAYERS,
@@ -852,8 +914,7 @@ def phase_peel_main(glass: dict, mipmap: bool = False,
         tap_tiles=taps0, mipmap=mipmap, lighting=lighting,
         raster=rs.raster_fwd_reference,
         raster_ml=rs.raster_fwd_ml_reference)
-    share, n_diff = golden_share(dv.unpack_rgba(color0),
-                                 dv.unpack_rgba(plain))
+    share, n_diff = golden_share(rgba0, dv.unpack_rgba(plain))
     log(f"{what} frame 0 vs plain rasters: {share:.6f} of pixels off by "
         f"> 1, {n_diff} pixels differ; coverage {coverage:.4f}")
     if share > GOLDEN_SHARE or not 0.0 < coverage <= 1.0:
@@ -1092,37 +1153,63 @@ def phase_world_main(device) -> dict:
     return dict(launches=launches, frame_ms=frame_ms, **k1)
 
 
+def k1_reading(args, kw, what: str) -> dict:
+    """K1 against its plain version on prebinned ``args`` (cols, lists,
+    glists, counts, origin) with ``kw``, its breakdown and both times
+    (logged as ``raster_<what>_kernel_ms`` and ``_plain_ms``) → a
+    record's readings."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    got = rs.raster_fwd(*args, **kw)
+    want = rs.raster_fwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare_outputs(got, want, f"K1 vs plain, {what}, origin "
+                          f"{args[4]}, {kw['width']}x{kw['height']}, "
+                          f"{args[0].shape[1]} tris, maxc={args[1].shape[1]}")
+    bnd = k1_breakdown(args, kw, got, what)
+    del got, want
+    kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
+                       warmup=1, reps=5)
+    tag = "_".join(what.replace("+", " ").replace(",", " ").split())
+    log(f"raster_{tag}_kernel_ms {kernel_ms!r}")
+    log(f"raster_{tag}_plain_ms {plain_ms!r}")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
+
+
+def band_args(scene, vp, bones, w: int, h: int, n: int, band: int,
+              maxc: int, lighting: bool = False, opacity_split=False):
+    """The full frame's setup binned over band ``band`` of ``n`` (the
+    opaque set's under ``opacity_split``) → (the setup, (cols, lists,
+    glists, counts, origin) of that band, its padded grid (pw, pb), the
+    binning's count of tiles over ``maxc``)."""
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    band_h, pb = dv.band_rows(h, n)
+    pw, _ = dv._padded(w, h)
+    setup = dv.setup_packed_cols(scene, dv.vertex_stage(scene, vp, bones),
+                                 w, h, opacity_split=opacity_split,
+                                 bone_mats=bones, lighting=lighting)
+    cols, bbox = setup[0] if opacity_split else setup
+    y0 = band * band_h
+    lists, glists, counts, n_over = rs.prebin(cols, bbox, 0, y0, width=pw,
+                                              height=pb, maxc=maxc)
+    return setup, (cols, lists, glists, counts, (0, y0)), (pw, pb), n_over
+
+
 def k1_mtap_at(scene, vp, pal, w: int, h: int, maxc: int,
                what: str) -> dict:
     """K1 (mtap, unlit) against its plain version on the inputs of one
     mipmapped frame (``what``'s frame 0), its breakdown and both times →
     its record's readings."""
-    import torch
-
     from mt_renderer_tpu_torch.render import device as dv
-    from mt_renderer_tpu_torch.render import raster as rs
 
-    pw, ph = dv._padded(w, h)
-    cols, bbox = dv.setup_packed_cols(scene, dv.vertex_stage(scene, vp, pal),
-                                      w, h)
-    lists, glists, counts, _ = rs.prebin(cols, bbox, 0, 0, width=pw,
-                                         height=ph, maxc=maxc)
-    args = (cols, lists, glists, counts, (0, 0))
-    kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap")
-    got = rs.raster_fwd(*args, **kw)
-    want = rs.raster_fwd_reference(*args, **kw)
-    torch.cuda.synchronize()
-    err = compare_outputs(got, want, f"K1 mtap vs plain, {what} frame 0, "
-                          f"{cols.shape[1]} tris, maxc={lists.shape[1]}")
-    bnd = k1_breakdown(args, kw, got, f"{what} frame 0, mtap")
-    del got, want
-    kernel_ms = graph_ms(lambda: rs.raster_fwd(*args, **kw))
-    plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*args, **kw),
-                       warmup=1, reps=5)
-    tag = what.replace(" ", "_").replace("+", "_")
-    log(f"raster_{tag}_mtap_kernel_ms {kernel_ms!r}")
-    log(f"raster_{tag}_mtap_plain_ms {plain_ms!r}")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, **bnd)
+    _, args, (pw, ph), _ = band_args(scene, vp, pal, w, h, 1, 0, maxc)
+    return k1_reading(args, dict(width=pw, height=ph, w_eps=dv.W_EPS,
+                                 mode="mtap"), f"{what} mtap")
 
 
 def decoded_chains(batch, mode: str = "bc1") -> list:
@@ -1514,10 +1601,10 @@ def phase_bcn_peel(device, mode: str) -> dict:
                 plain_ms=plain_ms, **bnd)
 
 
-def phase_bench_legs(device) -> None:
+def phase_bench_legs(device) -> dict:
     """(h) The reference bench's verify legs (``verify.bench_legs``:
     256x256, 9 instances at subdiv 2) on the card, each leg's readings
-    printed."""
+    printed → the legs."""
     from mt_renderer_tpu_torch import verify
     from mt_renderer_tpu_torch.render import raster as rs
 
@@ -1533,6 +1620,7 @@ def phase_bench_legs(device) -> None:
     if not r["passed"] or rs.OVERFLOW_EVENTS or rs.raster_fwd.launches < 1 \
             or rs.raster_fwd_ml.launches < 1:
         raise AssertionError("a bench verify leg failed")
+    return r
 
 
 def phase_narrow(case: dict) -> None:
@@ -1868,13 +1956,11 @@ def viewer_frame0_vs_plain(watch: ViewerWatch, what: str,
         plain, _, _ = dv._render_frame_core(eng.scene, f["vp"], f["bones"],
                                             **kw)
     shown = (watch.hud["out"] if watch.hud is not None else f["color"])
-    if (tuple(shown.shape) != (eng.height, eng.width)
-            or shown.dtype != torch.int32
-            or not bool(torch.isfinite(f["depth"]).all())):
+    rgba = frame_rgba(shown, eng.height, eng.width, f"{what} frame 0")
+    if not bool(torch.isfinite(f["depth"]).all()):
         raise AssertionError(f"{what} frame 0 malformed")
     coverage = float((f["depth"] < 1.0).float().mean())
-    share, n_diff = golden_share(dv.unpack_rgba(shown)[rows],
-                                 dv.unpack_rgba(plain)[rows])
+    share, n_diff = golden_share(rgba[rows], dv.unpack_rgba(plain)[rows])
     log(f"viewer {what} frame 0 vs plain rasters (rows {rows.start or 0}"
         f"-{eng.height}): {share:.6f} of pixels off by > 1, {n_diff} "
         f"pixels differ; coverage {coverage:.4f}")
@@ -2547,6 +2633,317 @@ def phase_serving(device, case: dict, card: str) -> tuple:
     return served["launches"], k1
 
 
+# ------------------------------------------------- slice 6: split frames
+
+BANDS = (1, 2, 3, 8)        # (m1) band counts of the headline
+SLOTS = 8                   # (m2), (m3), (m6) slots on the one card
+SHARDS = (2, 4)             # (m4) geometry shards
+
+
+def split_check(what: str, got, want) -> None:
+    """A split frame against its single-device frame: color and depth bit
+    for bit."""
+    import torch
+
+    n_c = int((got[0] != want[0]).sum())
+    n_z = int((got[1] != want[1]).sum())
+    cover = float((want[1] < 1.0).float().mean())
+    log(f"{what}: {n_c} color and {n_z} depth elements differ from the "
+        f"single-device frame; coverage {cover:.4f}")
+    if n_c or n_z or not torch.equal(got[0], want[0]) or not 0.0 < cover:
+        raise AssertionError(f"{what} differs from the single-device frame")
+
+
+def phase_bands(case: dict, card: str) -> dict:
+    """(m1) The headline band split over n slots of the card for n in
+    BANDS: packed, taps from ``auto_tap_tiles(bands=n)``, each frame
+    bit-equal (color and depth) to ``render_frame`` at the same maxc and
+    its own taps, K1 launched n times; n = SLOTS unpacked and with
+    ``setup_shard`` too. The banded frame's ms beside the single frame's
+    (one card doing n times the vertex and setup work: no speed-up is
+    claimed). → K1's launches in the SLOTS-band frame (counts set to 0
+    just before it) and K1's reading on band SLOTS // 2."""
+    from mt_renderer_tpu_torch.parallel import tiles
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    demo, scene, vp, bones = (case[k] for k in ("demo", "scene", "vp",
+                                                "bones"))
+    w, h, maxc = case["width"], case["height"], case["maxc"]
+    kw = dict(width=w, height=h, maxc=maxc)
+    want = dv.render_frame(scene, vp, bones, packed=True,
+                           tap_tiles=case["taps"], **kw)
+    single_ms = cuda_ms(lambda: dv.render_frame(
+        scene, vp, bones, packed=True, tap_tiles=case["taps"], **kw),
+        warmup=1, reps=10)
+    out = {}
+    for n in BANDS:
+        mesh = tiles.make_row_mesh(n, device=scene.device)
+        taps = dv.auto_tap_tiles(demo.batch, vp, bones, width=w, height=h,
+                                 bands=n)
+        bkw = dict(kw, mesh=mesh, packed=True, tap_tiles=taps)
+        reset_launches()
+        got = tiles.render_frame_multichip(scene, vp, bones, **bkw)
+        k1 = rs.raster_fwd.launches
+        split_check(f"(m1) headline in {n} bands (tap_tiles={taps}), K1 "
+                    f"launches {k1}", got, want)
+        if k1 != n:
+            raise AssertionError(f"(m1) {n} bands launched K1 {k1} times")
+        band_ms = cuda_ms(lambda: tiles.render_frame_multichip(
+            scene, vp, bones, **bkw), warmup=1, reps=10)
+        log(f"(m1) band_frame_ms n={n} {band_ms!r} beside the single "
+            f"frame's {single_ms!r} (CUDA events, 10 frames each; one card "
+            f"runs the n bands one after another and n times the vertex "
+            f"and setup work: not a speed-up; {card})")
+        out[n] = dict(launches=k1, ms=band_ms)
+    mesh = tiles.make_row_mesh(SLOTS, device=scene.device)
+    unpacked = dv.render_frame(scene, vp, bones, **kw)
+    split_check(f"(m1) headline in {SLOTS} bands, unpacked",
+                tiles.render_frame_multichip(scene, vp, bones, mesh=mesh,
+                                             **kw), unpacked)
+    split_check(f"(m1) headline in {SLOTS} bands, setup_shard",
+                tiles.render_frame_multichip(
+                    scene, vp, bones, mesh=mesh, packed=True, setup_shard=True,
+                    tap_tiles=dv.auto_tap_tiles(demo.batch, vp, bones,
+                                                width=w, height=h,
+                                                bands=SLOTS), **kw), want)
+    rs.flush_overflow_checks()
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError("(m1) overflow")
+    _, args, (pw, pb), _ = band_args(scene, vp, bones, w, h, SLOTS, SLOTS // 2,
+                                  maxc)
+    reading = k1_reading(args, dict(width=pw, height=pb, w_eps=dv.W_EPS),
+                         f"headline band {SLOTS // 2} of {SLOTS}, tap")
+    log(f"(m1) in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=out[SLOTS]["launches"], single_ms=single_ms,
+                band_ms={n: v["ms"] for n, v in out.items()}, **reading)
+
+
+def phase_banded_world(device, card: str) -> dict:
+    """(m2) The world (280 buildings, mipmapped, palette on the card) in
+    SLOTS bands with the tri pool and with the bc7 pool, each bit-equal
+    to its single-device frame (taps from ``auto_tap_tiles(bands=)``),
+    K1 launched SLOTS times. → K1's launches in the tri pool's banded
+    frame and its mtap reading on band SLOTS // 2."""
+    from mt_renderer_tpu_torch.entry import world_case
+    from mt_renderer_tpu_torch.parallel import tiles
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    mesh = tiles.make_row_mesh(SLOTS, device=device)
+    out = {}
+    for pool in ("tri", "bc7"):
+        case = world_case(device, pool_mode=pool, **WORLD)
+        w, h = case.width, case.height
+        vp, host_pal = case.view_proj(), case.bone_mats(0.0)
+        pal = case.bone_mats_device(0.0)
+        maxc = dv.auto_maxc(case.batch, vp, host_pal, width=w, height=h)
+        kw = dict(width=w, height=h, maxc=maxc, mipmap=True, packed=True)
+        taps = dv.auto_tap_tiles(case.batch, vp, host_pal, width=w,
+                                 height=h, bands=SLOTS)
+        want = dv.render_frame(case.scene, vp, pal, tap_tiles=dv.
+                               auto_tap_tiles(case.batch, vp, host_pal,
+                                              width=w, height=h), **kw)
+        reset_launches()
+        got = tiles.render_frame_multichip(case.scene, vp, pal, mesh=mesh,
+                                           tap_tiles=taps, **kw)
+        k1 = rs.raster_fwd.launches
+        split_check(f"(m2) {pool} world in {SLOTS} bands (tap_tiles="
+                    f"{taps}), K1 launches {k1}", got, want)
+        if k1 != SLOTS:
+            raise AssertionError(f"(m2) {pool} world launched K1 {k1} times")
+        band_ms = cuda_ms(lambda: tiles.render_frame_multichip(
+            case.scene, vp, pal, mesh=mesh, tap_tiles=taps, **kw),
+            warmup=1, reps=5)
+        log(f"(m2) {pool} world band_frame_ms n={SLOTS} {band_ms!r} (CUDA "
+            f"events, 5 frames; {card})")
+        out[pool] = k1
+        if pool == "tri":
+            _, args, (pw, pb), _ = band_args(case.scene, vp, pal, w, h, SLOTS,
+                                          SLOTS // 2, maxc)
+            reading = k1_reading(args, dict(width=pw, height=pb,
+                                            w_eps=dv.W_EPS, mode="mtap"),
+                                 f"world band {SLOTS // 2} of {SLOTS}, mtap")
+        del case
+    rs.flush_overflow_checks()
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError("(m2) overflow")
+    log(f"(m2) in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=out["tri"], **reading)
+
+
+def phase_banded_peel(device, card: str) -> dict:
+    """(m3) The glass headline's split peel, L = LAYERS, in SLOTS bands
+    with the cap pair from ``measure_live_tap_tiles(mode="split",
+    bands=SLOTS)``, bit-equal to ``render_frame_peeled(peel_mode=
+    "split")`` at its own caps; K1 and K2 launched SLOTS times each. →
+    K2's launches in that frame and K2's reading on band SLOTS // 2 (the
+    translucent set behind the band's opaque z)."""
+    import torch
+
+    from mt_renderer_tpu_torch.parallel import tiles
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    glass = headline_case(device, **GLASS)
+    scene, vp, bones = glass["scene"], glass["vp"], glass["bones"]
+    w, h, maxc = glass["width"], glass["height"], glass["maxc"]
+    kw = dict(width=w, height=h, maxc=maxc, packed=True)
+    mkw = dict(width=w, height=h, maxc=maxc, layers=LAYERS, mode="split")
+    caps = dv.measure_live_tap_tiles(scene, vp, bones, bands=SLOTS, **mkw)
+    want = dv.render_frame_peeled(
+        scene, vp, bones, layers=LAYERS, peel_mode="split",
+        tap_tiles=dv.measure_live_tap_tiles(scene, vp, bones, **mkw), **kw)
+    mesh = tiles.make_row_mesh(SLOTS, device=device)
+    reset_launches()
+    got = tiles.render_frame_multichip(scene, vp, bones, mesh=mesh,
+                                       peel_layers=LAYERS, tap_tiles=caps,
+                                       **kw)
+    k1, k2 = rs.raster_fwd.launches, rs.raster_fwd_ml.launches
+    split_check(f"(m3) glass split peel L={LAYERS} in {SLOTS} bands (caps "
+                f"{caps}), K1 launches {k1}, K2 launches {k2}", got, want)
+    if (k1, k2) != (SLOTS, SLOTS):
+        raise AssertionError(f"(m3) launches K1 {k1}, K2 {k2}")
+    band_ms = cuda_ms(lambda: tiles.render_frame_multichip(
+        scene, vp, bones, mesh=mesh, peel_layers=LAYERS, tap_tiles=caps,
+        **kw), warmup=1, reps=5)
+    log(f"(m3) peel band_frame_ms n={SLOTS} {band_ms!r} (CUDA events, 5 "
+        f"frames; {card})")
+    rs.flush_overflow_checks()
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError("(m3) overflow")
+    reading = k2_split_reading(glass, SLOTS, SLOTS // 2,
+                               f"glass band {SLOTS // 2} of {SLOTS}")
+    log(f"(m3) in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=k2, k1=k1, **reading)
+
+
+def phase_geomsplit(case: dict, card: str) -> dict:
+    """(m4) The headline's geometry split over n slots of the card for n
+    in SHARDS, packed at the single frame's caps, bit-equal to
+    ``render_frame``; K1 launched n times. → K1's launches in the
+    SHARDS[-1]-shard frame and K1's reading on its shard 0 (a triangle
+    subset over the full frame)."""
+    from mt_renderer_tpu_torch.parallel import tiles
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t0 = time.perf_counter()
+    scene, vp, bones = case["scene"], case["vp"], case["bones"]
+    w, h = case["width"], case["height"]
+    kw = dict(width=w, height=h, maxc=case["maxc"], packed=True,
+              tap_tiles=case["taps"])
+    want = dv.render_frame(scene, vp, bones, **kw)
+    launches = 0
+    for n in SHARDS:
+        mesh = tiles.make_row_mesh(n, device=scene.device)
+        reset_launches()
+        got = tiles.render_frame_geomsplit(scene, vp, bones, mesh=mesh, **kw)
+        launches = rs.raster_fwd.launches
+        split_check(f"(m4) headline in {n} geometry shards, K1 launches "
+                    f"{launches}", got, want)
+        if launches != n:
+            raise AssertionError(f"(m4) {n} shards launched K1 {launches} "
+                                 "times")
+        ms = cuda_ms(lambda: tiles.render_frame_geomsplit(
+            scene, vp, bones, mesh=mesh, **kw), warmup=1, reps=5)
+        log(f"(m4) geomsplit_frame_ms n={n} {ms!r} (CUDA events, 5 frames; "
+            f"one card runs every shard over the full frame; {card})")
+    rs.flush_overflow_checks()
+    if rs.OVERFLOW_EVENTS:
+        raise AssertionError("(m4) overflow")
+    pw, ph = dv._padded(w, h)
+    cols, bbox = dv.setup_packed_cols(scene, dv.vertex_stage(scene, vp,
+                                                             bones), w, h)
+    shard_t = tiles.cdiv_mult(cols.shape[1], SHARDS[-1], 384)
+    cols_s = cols[:, :shard_t]
+    bbox_s = tuple(b[:shard_t // 32] for b in bbox)
+    lists, glists, counts, _ = rs.prebin(cols_s, bbox_s, 0, 0, width=pw,
+                                         height=ph, maxc=case["maxc"])
+    reading = k1_reading((cols_s, lists, glists, counts, (0, 0)),
+                         dict(width=pw, height=ph, w_eps=dv.W_EPS),
+                         f"headline shard 0 of {SHARDS[-1]}, tap")
+    log(f"(m4) in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, **reading)
+
+
+def phase_multihost(device) -> None:
+    """(m5) Two processes sharing the card over a gloo group (file
+    rendezvous in a temporary directory):
+    ``mt_renderer_tpu_torch.tools.multihost_demo`` at the headline size,
+    each rank's rows of the packed, peeled (L = LAYERS), mipmapped and
+    sharded-setup band frames bit-equal to its own single-device frame,
+    the geometry split's frame likewise, ``gather_full_frame`` the whole
+    frame; both print MULTIHOST OK."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    with tempfile.TemporaryDirectory() as tmp:
+        rdv = (Path(tmp) / "rdv").as_uri()
+        argv = ["--nproc", "2", "--coordinator", rdv, "--device",
+                str(device), "--width", str(HEADLINE["width"]), "--height",
+                str(HEADLINE["height"]), "--instances",
+                str(HEADLINE["instances"]), "--subdiv",
+                str(HEADLINE["subdiv"]), "--peel", str(LAYERS), "--mipmap",
+                "--setup-shard", "--geomsplit", "--gather", "5"]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "mt_renderer_tpu_torch.tools."
+             "multihost_demo", "--proc", str(r), *argv], cwd=tmp, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=300)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines():
+            log(f"(m5) rank {r}: {line}")
+        if proc.returncode != 0 or not out.strip().endswith("MULTIHOST OK"):
+            raise AssertionError(f"(m5) rank {r} exited {proc.returncode}")
+    log(f"(m5) two processes on {device} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_dryrun(device, legs: dict) -> None:
+    """(m6) ``entry.dryrun_multichip(SLOTS)`` on the card (every leg
+    bit-equal to its single-device frame, no overflow), and the bench's
+    ``multichip_1dev`` verify leg from (h)."""
+    from mt_renderer_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(SLOTS, device)
+    log(f"(m6) dryrun_multichip({SLOTS}): {json.dumps(out)} in "
+        f"{time.perf_counter() - t0:.1f} s; multichip_1dev leg "
+        f"{json.dumps(legs['multichip_1dev'])}")
+    if not legs["multichip_1dev"]["passed"]:
+        raise AssertionError("(m6) the multichip_1dev leg failed")
+
+
+def phase_split_frames(device, case: dict, legs: dict, card: str) -> dict:
+    """(m1)-(m6) → each banded or sharded record's launches and
+    readings."""
+    t0 = time.perf_counter()
+    out = dict(bands=phase_bands(case, card),
+               world=phase_banded_world(device, card),
+               peel=phase_banded_peel(device, card),
+               geomsplit=phase_geomsplit(case, card))
+    phase_multihost(device)
+    phase_dryrun(device, legs)
+    log(f"split-frame phases (m1)-(m6) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2588,10 +2985,11 @@ def main() -> int:
     bc7_world = phase_bcn_world(device, "bc7", earlier=bc1_world["stats"])
     phase_bc7_multimode(device)
     bc7_peel = phase_bcn_peel(device, "bc7")
-    phase_bench_legs(device)
+    legs = phase_bench_legs(device)
     viewer = phase_viewers(device, dev_info["card"])
     served_launches, k1_served = phase_serving(device, case,
                                                dev_info["card"])
+    split = phase_split_frames(device, case, legs, dev_info["card"])
     from mt_renderer_tpu_torch.tools import raster_roofline
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2633,6 +3031,13 @@ def main() -> int:
                       viewer["launches"], viewer),
         raster_record("raster_fwd", "tap (served artifact)", served_launches,
                       k1_served),
+        raster_record("raster_fwd", f"tap (headline band split, {SLOTS} "
+                      "slots)", split["bands"]["launches"], split["bands"]),
+        raster_record("raster_fwd", f"mtap (world band split, {SLOTS} "
+                      "slots)", split["world"]["launches"], split["world"]),
+        raster_record("raster_fwd", f"tap (headline geometry split, "
+                      f"{SHARDS[-1]} shards)", split["geomsplit"]["launches"],
+                      split["geomsplit"]),
         raster_record("raster_fwd_ml", "tap", peel_run["k2"], k2),
         raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
                       k2_mip),
@@ -2645,6 +3050,8 @@ def main() -> int:
         raster_record("raster_fwd_ml",
                       "mtap+lit (bc7 glass headline, split peel)",
                       bc7_peel["launches"], bc7_peel),
+        raster_record("raster_fwd_ml", f"tap (glass split peel, {SLOTS} "
+                      "bands)", split["peel"]["launches"], split["peel"]),
         record("raster_micro", MICRO_SOURCE, MICRO_REPLACES,
                roof["launches"], k3, rows=k3["rows"],
                surviving=k3["surviving"], test_ns=sol["test_ns"],

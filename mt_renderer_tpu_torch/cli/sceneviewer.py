@@ -3,9 +3,10 @@
 The BASELINE config-5 workload: mount an ``.arc``, load every rModel it
 contains (with materials/textures resolved through the resource manager),
 lay the models out in a grid, composite the joint debug overlay, and
-render on ``--device`` (default ``cuda``) through ``FrameEngine``. The
-band-sharded multi-device frame (``--devices``) is ROADMAP item 18 and
-not here yet.
+render on ``--device`` (default ``cuda``) through ``FrameEngine``, or
+with ``--devices N`` band-split over N devices
+(``parallel.tiles.render_frame_multichip``): the first N cards, or N
+slots on the CPU under ``--device cpu``.
 
 This goes beyond the reference (whose viewer shows one model at a time,
 modelviewer.rs) to exercise the full-archive, multi-model path end to
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 from .. import dti as dti_mod
 from ..app.camera import Camera
@@ -91,17 +93,21 @@ def main(argv=None):
                    help="pallas: the binned tile raster (the only one "
                         "here; scan is not ported)")
     p.add_argument("--devices", type=int, default=0,
-                   help="shard the frame over this many devices (0 = one; "
-                        "not ported yet)")
+                   help="band-split the frame over this many devices (0 = "
+                        "one): the first N cards, or N slots on the CPU "
+                        "with --device cpu")
     add_device_arg(p)
     args = p.parse_args(argv)
     refuse_scan(args.backend)
+    mesh = None
     if args.devices:
-        raise NotImplementedError(
-            f"sceneviewer --devices {args.devices}: the band-sharded "
-            "multi-device frame is not ported yet (ROADMAP Queue 1, "
-            "item 18)")
-    dev = resolve_device(args.device)
+        from ..parallel.tiles import make_row_mesh
+
+        # with fewer cards than asked, this raises, naming the count
+        mesh = (make_row_mesh(args.devices, device="cpu")
+                if torch.device(args.device).type == "cpu"
+                else make_row_mesh(args.devices))
+    dev = resolve_device(args.device) if mesh is None else mesh[0]
 
     rm = ResourceManager(args.data_root)
     shader2 = load_shader2(rm)
@@ -121,12 +127,23 @@ def main(argv=None):
     cam.aspect = args.width / args.height
     vp = np.asarray(cam.view_proj())
 
-    from ..render.engine import FrameEngine
-
     scene = device.upload(batch, device=dev)
-    eng = FrameEngine(scene, batch, width=args.width, height=args.height)
-    color, _ = eng.render(vp, None)
-    eng.check(vp)
+    if mesh is not None:
+        from ..parallel.tiles import render_frame_multichip
+        from ..render import raster
+
+        color, _ = render_frame_multichip(
+            scene, vp, None, mesh=mesh, width=args.width,
+            height=args.height, packed=True)
+        raster.flush_overflow_checks()
+        print(f"rendered band-split over {args.devices} devices")
+    else:
+        from ..render.engine import FrameEngine
+
+        eng = FrameEngine(scene, batch, width=args.width,
+                          height=args.height)
+        color, _ = eng.render(vp, None)
+        eng.check(vp)
 
     from ..utils.png import write_png
 

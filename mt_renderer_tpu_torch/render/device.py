@@ -84,10 +84,6 @@ POOL_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 128, "bc1": 128,
                   "bc7": 128}
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(f"{what} is not ported yet: {where}")
-
-
 def _by_decision(what: str, why: str):
     return NotImplementedError(
         f"{what} is not ported, by decision: {why} (ROADMAP Queue 1, "
@@ -1771,15 +1767,18 @@ def _chunk_bboxes(batch, view_proj, bone_mats=None, *,
 
 
 def predict_bin_counts(batch, view_proj, bone_mats=None, *,
-                       width: int, height: int) -> np.ndarray:
+                       width: int, height: int, y0: int = 0,
+                       grid_rows: int | None = None) -> np.ndarray:
     """NumPy mirror of ``raster.bin_chunks``: per-tile candidate-chunk
     counts (n_ty, n_tx) for this view, computed from the host batch with
-    no device work."""
+    no device work. ``y0``/``grid_rows``: bin against a band's own tile
+    grid (its origin row and padded row count) while the screen
+    transform keeps the full frame's height, as the band split renders."""
     pw, ph = _padded(width, height)
     xmin, xmax, ymin, ymax, _ = _chunk_bboxes(
         batch, view_proj, bone_mats, width=width, height=height)
-    n_ty, n_tx = ph // rs.TILE_H, pw // rs.TILE_W
-    ty0 = np.arange(n_ty, dtype=np.float32) * rs.TILE_H
+    n_ty, n_tx = (grid_rows or ph) // rs.TILE_H, pw // rs.TILE_W
+    ty0 = np.arange(n_ty, dtype=np.float32) * rs.TILE_H + y0
     tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
     ovy = (ymax[:, None] >= ty0) & (ymin[:, None] <= ty0 + rs.TILE_H)
     ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
@@ -1787,10 +1786,11 @@ def predict_bin_counts(batch, view_proj, bone_mats=None, *,
 
 
 def predict_live_rows(batch, view_proj, bone_mats=None, *,
-                      width: int, height: int) -> int:
+                      width: int, height: int, y0: int = 0,
+                      grid_rows: int | None = None) -> int:
     """Host upper bound on live SEG_PX-px tap rows for this view: a row
     can only be textured and covered if a textured chunk's bbox
-    overlaps it."""
+    overlaps it. ``y0``/``grid_rows`` as in ``predict_bin_counts``."""
     pw, ph = _padded(width, height)
     xmin, xmax, ymin, ymax, tex = _chunk_bboxes(
         batch, view_proj, bone_mats, width=width, height=height)
@@ -1799,7 +1799,7 @@ def predict_live_rows(batch, view_proj, bone_mats=None, *,
     seg_h = SEG_PX // rs.TILE_W     # pixel rows per compaction segment
     n_tx = pw // rs.TILE_W
     tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
-    ys = np.arange(ph // seg_h, dtype=np.float32) * seg_h
+    ys = np.arange((grid_rows or ph) // seg_h, dtype=np.float32) * seg_h + y0
     ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
     ovy = (ymax[:, None] >= ys) & (ymin[:, None] <= ys + float(seg_h))
     live = (ovy.astype(np.float32).T @ ovx.astype(np.float32)) > 0.0
@@ -1816,19 +1816,64 @@ def auto_maxc(batch, view_proj, bone_mats=None, *,
     return max(8, -(-int(np.ceil(need * margin)) // 8) * 8)
 
 
+def band_rows(height: int, bands: int) -> tuple[int, int]:
+    """(rows per band, padded rows per band) of a ``bands``-way band
+    split: ceil(height / bands) rows, padded to whole tiles."""
+    band_h = -(-height // bands)
+    return band_h, -(-band_h // rs.TILE_H) * rs.TILE_H
+
+
+def _seg_rows_of(pw: int, ph: int) -> int:
+    """SEG_PX-px tap rows of a padded ``pw`` x ``ph`` grid."""
+    return (pw // rs.TILE_W) * (ph // (SEG_PX // rs.TILE_W))
+
+
 def auto_tap_tiles(batch, view_proj, bone_mats=None, *,
-                   width: int, height: int, margin: float = 1.25) -> int:
+                   width: int, height: int, margin: float = 1.25,
+                   bands: int = 1) -> int:
     """Host-side cap for the compacted texture tap, in SEG_PX-px rows:
     ``predict_live_rows`` x ``margin``, rounded up to a multiple of 8
-    and clamped to the grid's row count."""
-    pw, ph = _padded(width, height)
-    nrows = (pw // rs.TILE_W) * (ph // (SEG_PX // rs.TILE_W))
-    live = predict_live_rows(batch, view_proj, bone_mats,
-                             width=width, height=height)
-    return min(max(8, -(-int(np.ceil(live * margin)) // 8) * 8), nrows)
+    and clamped to the grid's row count. ``bands`` > 1 sizes a band
+    split (``parallel.tiles``): the maximum over each band's own tile
+    grid, so that one cap serves every band."""
+    pw, _ = _padded(width, height)
+    band_h, pb = band_rows(height, bands)
+    live = max(predict_live_rows(batch, view_proj, bone_mats, width=width,
+                                 height=height, y0=i * band_h, grid_rows=pb)
+               for i in range(bands))
+    return min(max(8, -(-int(np.ceil(live * margin)) // 8) * 8),
+               _seg_rows_of(pw, pb))
 
 
 # ------------------------------------------------------------------ frame
+
+
+def _single_layer_flat(scene: DeviceScene, cols, bbox, *, y0: int, pw: int,
+                       ph: int, maxc: int | None, tap_tiles: int | None,
+                       clear_color: tuple, mipmap: bool, light,
+                       raster=rs.raster_fwd):
+    """The single-layer frame's binning, raster and shade over one
+    tile-aligned band of ``pw`` x ``ph`` px whose top row is ``y0`` (0
+    and the whole padded frame for ``render_frame``; a band of
+    ``parallel.tiles``), from the full frame's setup ``cols``/``bbox``
+    → (packed (n_tiles, P) i32 and z (n_tiles, P) f32, both tile-major,
+    (n_over, n_over_tap) device counts)."""
+    lists, glists, counts, n_over = rs.prebin(
+        cols, bbox, 0, y0, width=pw, height=ph,
+        maxc=maxc or rs.MAXC_DEFAULT)
+    kw = dict(width=pw, height=ph, w_eps=W_EPS, light=light)
+    if mipmap:
+        zb, ib, mattrs = raster(cols, lists, glists, counts, (0, y0),
+                                mode="mtap", **kw)
+        src, covered, n_over_tap = shade_mip_tap_flat_channels(
+            scene, mattrs, ib, tap_tiles=tap_tiles)
+        colort = _blend_pack_u32(src, covered, clear_color)
+    else:
+        zb, ib, tattrs, tapidx = raster(cols, lists, glists, counts,
+                                        (0, y0), **kw)
+        colort, _, n_over_tap = shade_finish_tap_flat(
+            scene, tattrs, tapidx, ib, clear_color, tap_tiles=tap_tiles)
+    return colort, zb[:, 0, :], (n_over, n_over_tap)
 
 
 def _render_frame_core(scene: DeviceScene, view_proj, bone_mats=None, *,
@@ -1844,25 +1889,13 @@ def _render_frame_core(scene: DeviceScene, view_proj, bone_mats=None, *,
     clip = vertex_stage(scene, view_proj, bone_mats)
     cols, bbox = setup_packed_cols(scene, clip, width, height,
                                    bone_mats=bone_mats, lighting=lighting)
-    lists, glists, counts, n_over = rs.prebin(
-        cols, bbox, 0, 0, width=pw, height=ph,
-        maxc=maxc or rs.MAXC_DEFAULT)
-    kw = dict(width=pw, height=ph, w_eps=W_EPS,
-              light=_light_unit() if lighting else None)
-    if mipmap:
-        zb, ib, mattrs = raster(cols, lists, glists, counts, (0, 0),
-                                mode="mtap", **kw)
-        src, covered, n_over_tap = shade_mip_tap_flat_channels(
-            scene, mattrs, ib, tap_tiles=tap_tiles)
-        colort = _blend_pack_u32(src, covered, clear_color)
-    else:
-        zb, ib, tattrs, tapidx = raster(cols, lists, glists, counts, (0, 0),
-                                        **kw)
-        colort, _, n_over_tap = shade_finish_tap_flat(
-            scene, tattrs, tapidx, ib, clear_color, tap_tiles=tap_tiles)
+    colort, zt, n_over = _single_layer_flat(
+        scene, cols, bbox, y0=0, pw=pw, ph=ph, maxc=maxc,
+        tap_tiles=tap_tiles, clear_color=clear_color, mipmap=mipmap,
+        light=_light_unit() if lighting else None, raster=raster)
     color = rs.unflatten_tiles(colort, ph, pw)[:height, :width]
-    depth = rs.unflatten_tiles(zb[:, 0, :], ph, pw)[:height, :width]
-    return color.contiguous(), depth.contiguous(), (n_over, n_over_tap)
+    depth = rs.unflatten_tiles(zt, ph, pw)[:height, :width]
+    return color.contiguous(), depth.contiguous(), n_over
 
 
 def count_covered_textured(scene: DeviceScene, view_proj, bone_mats=None,
@@ -1910,38 +1943,45 @@ def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
     of mip 0. ``lighting``: the directional lambert term of
     ``LIGHT_DIR`` on the world normals, folded into C in K1's epilogue.
     ``tap_tiles`` (``auto_tap_tiles``) caps the compacted texture rows of
-    either shade.
+    the packed tap shade and of the trilinear shade.
 
     ``packed``: color is (H, W) int32 holding RGBA8 bits; otherwise it
-    is the (H, W, 4) uint8 view of the same plane."""
+    is the (H, W, 4) uint8 view of the same plane. As in the reference,
+    the unpacked bilinear frame shades every tap row: it ignores
+    ``tap_tiles`` and queues the bins count alone."""
     if backend != "pallas":
         raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
     _check_pool_path(scene, mipmap)
+    dense = not packed and not mipmap
     color, depth, n_over = _render_frame_core(
         scene, view_proj, bone_mats, width=width, height=height,
-        clear_color=clear_color, maxc=maxc, tap_tiles=tap_tiles,
-        mipmap=mipmap, lighting=lighting)
+        clear_color=clear_color, maxc=maxc,
+        tap_tiles=None if dense else tap_tiles, mipmap=mipmap,
+        lighting=lighting)
     if check_overflow:
-        _queue_frame_overflow(n_over, maxc, tap_tiles, width, height)
+        _queue_frame_overflow((n_over[0], None) if dense else n_over, maxc,
+                              tap_tiles, width, height)
     if not packed:
         color = color.view(torch.uint8).reshape(height, width, 4)
     return color, depth
 
 
 def _queue_frame_overflow(n_over, maxc, tap_tiles, width, height):
-    """Queue the frame's (bins, compacted-tap rows) overflow counts. The
-    split peel's (opaque, translucent) cap pair reports as its sum."""
+    """Queue the frame's (bins, compacted-tap rows) overflow counts (a
+    tap count of None: a dense shade, bins alone). The split peel's
+    (opaque, translucent) cap pair reports as its sum. ``height`` is a
+    band's padded rows where the counts are a band split's."""
     n_bins, n_tap = n_over
-    pw, ph = _padded(width, height)
-    nrows = (pw // rs.TILE_W) * (ph // (SEG_PX // rs.TILE_W))
-    if isinstance(tap_tiles, tuple):
-        cap = sum((c if c else nrows) for c in tap_tiles)
-    else:
-        cap = tap_tiles if tap_tiles else nrows
-    rs.queue_overflow_check(
-        n_tap, cap,
-        what="tap overflow: live compacted tap rows lost their "
-             "texture; raise tap_tiles")
+    if n_tap is not None:
+        nrows = _seg_rows_of(*_padded(width, height))
+        if isinstance(tap_tiles, tuple):
+            cap = sum((c if c else nrows) for c in tap_tiles)
+        else:
+            cap = tap_tiles if tap_tiles else nrows
+        rs.queue_overflow_check(
+            n_tap, cap,
+            what="tap overflow: live compacted tap rows lost their "
+                 "texture; raise tap_tiles")
     rs.queue_overflow_check(n_bins, maxc or rs.MAXC_DEFAULT)
 
 
@@ -1973,14 +2013,19 @@ def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
     epilogues, as the lit frame does. Liveness (z and id coverage and the
     tex column) is the same for the tap and the mtap epilogues, so the
     measurement runs the tap variant and its caps serve ``mipmap=True``
-    renders too, as in the reference."""
-    if bands > 1:
-        raise _not_ported("measure_live_tap_tiles(bands > 1)",
-                          "slice 6 (ROADMAP Queue 1 item 18)")
+    renders too, as in the reference.
+
+    ``bands`` > 1 (``mode="split"`` only) sizes a band split
+    (``parallel.tiles.render_frame_multichip(peel_layers=...)``): the
+    rasters run per band at its own origin and the worst band's
+    (opaque, translucent) pair comes back, in one band's rows."""
     if mode not in ("ml", "split"):
         raise ValueError(f"unknown mode {mode!r}")
+    if bands > 1 and mode != "split":
+        raise ValueError("bands > 1 sizing exists for mode='split' only "
+                         "(the band split's peel engine)")
     pw, ph = _padded(width, height)
-    nrows = (pw // rs.TILE_W) * (ph // (SEG_PX // rs.TILE_W))
+    nrows = _seg_rows_of(pw, ph)
     mc = maxc or rs.MAXC_DEFAULT
     light = _light_unit() if lighting else None
     kw = dict(width=pw, height=ph, w_eps=W_EPS, light=light)
@@ -1991,13 +2036,18 @@ def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
         return min(max(8, -(-int(np.ceil(live * margin)) // 8) * 8), hi)
 
     if mode == "split":
-        (_, io, _, tio), (_, it, _, tit), front, _ = _split_rasters(
-            *setup_packed_cols(scene, clip, width, height,
-                               opacity_split=True, **setup_kw),
-            pw=pw, ph=ph, layers=layers, maxc=mc, light=light)
-        live_op, live_tr = torch.stack(
-            [_live_rows((io >= 0) & (tio >= 0)),
-             _live_rows(front & (tit >= 0))]).tolist()
+        setup = setup_packed_cols(scene, clip, width, height,
+                                  opacity_split=True, **setup_kw)
+        band_h, pb = band_rows(height, bands)
+        live = []
+        for i in range(bands):
+            (_, io, _, tio), (_, it, _, tit), front, _ = _split_rasters(
+                *setup, y0=i * band_h, pw=pw, ph=pb, layers=layers,
+                maxc=mc, light=light)
+            live.append(torch.stack([_live_rows((io >= 0) & (tio >= 0)),
+                                     _live_rows(front & (tit >= 0))]))
+        live_op, live_tr = torch.stack(live).amax(0).tolist()
+        nrows = _seg_rows_of(pw, pb)
         return cap(live_op, nrows), cap(live_tr, nrows * layers)
 
     cols, bbox = setup_packed_cols(scene, clip, width, height, **setup_kw)
@@ -2009,15 +2059,16 @@ def measure_live_tap_tiles(scene: DeviceScene, view_proj, bone_mats=None,
 
 
 def _split_rasters(setup_op, setup_tr, *, pw: int, ph: int, layers: int,
-                   maxc: int, raster=rs.raster_fwd,
-                   raster_ml=rs.raster_fwd_ml, mode: str = "tap",
-                   light=None):
-    """The split peel's two rasters over the padded ``pw`` x ``ph``
-    frame, with the ``mode`` epilogue ("tap" or "mtap", lit under
-    ``light``): K1 over the opaque set, then K2 over the translucent set
-    (variant "nocull") with the opaque z-buffer as its ``zhi`` horizon.
-    ``setup_op``/``setup_tr`` are the (cols, bbox) pairs of
-    ``setup_packed_cols(opacity_split=True)``.
+                   maxc: int, x0: int = 0, y0: int = 0,
+                   raster=rs.raster_fwd, raster_ml=rs.raster_fwd_ml,
+                   mode: str = "tap", light=None):
+    """The split peel's two rasters over a tile-aligned ``pw`` x ``ph``
+    band whose top-left pixel is (``x0``, ``y0``) (the whole padded frame
+    at the origin, or one band of ``parallel.tiles``), with the ``mode``
+    epilogue ("tap" or "mtap", lit under ``light``): K1 over the opaque
+    set, then K2 over the translucent set (variant "nocull") with the
+    opaque z-buffer as its ``zhi`` horizon. ``setup_op``/``setup_tr`` are
+    the (cols, bbox) pairs of ``setup_packed_cols(opacity_split=True)``.
 
     Returns (K1's outputs (z, ids, attrs[, tapidx]), K2's (zl, il,
     attrs[, tapidx]), front (n_tiles, L, P) bool: the translucent
@@ -2026,16 +2077,16 @@ def _split_rasters(setup_op, setup_tr, *, pw: int, ph: int, layers: int,
     either binning)."""
     kw = dict(width=pw, height=ph, w_eps=W_EPS, mode=mode, light=light)
     (cols_op, bbox_op), (cols_tr, bbox_tr) = setup_op, setup_tr
-    lists, glists, counts, nov_op = rs.prebin(cols_op, bbox_op, 0, 0,
+    lists, glists, counts, nov_op = rs.prebin(cols_op, bbox_op, x0, y0,
                                               width=pw, height=ph, maxc=maxc)
-    opaque = raster(cols_op, lists, glists, counts, (0, 0), **kw)
+    opaque = raster(cols_op, lists, glists, counts, (x0, y0), **kw)
     zo, io = opaque[:2]
     # raw opaque z where covered, +inf where not (the raster maps
     # uncovered z to 1.0, which a real z may exceed)
     zo_eff = torch.where(io >= 0, zo, float("inf"))
-    lists, glists, counts, nov_tr = rs.prebin(cols_tr, bbox_tr, 0, 0,
+    lists, glists, counts, nov_tr = rs.prebin(cols_tr, bbox_tr, x0, y0,
                                               width=pw, height=ph, maxc=maxc)
-    translucent = raster_ml(cols_tr, lists, glists, counts, (0, 0),
+    translucent = raster_ml(cols_tr, lists, glists, counts, (x0, y0),
                             layers=layers, opaque_cull=False, zhi=zo_eff,
                             **kw)
     zt, it = translucent[:2]
@@ -2045,10 +2096,11 @@ def _split_rasters(setup_op, setup_tr, *, pw: int, ph: int, layers: int,
 
 def _split_peel_flat(scene: DeviceScene, setup_op, setup_tr, *, pw: int,
                      ph: int, layers: int, maxc: int, tap_tiles,
-                     clear_color, raster=rs.raster_fwd,
-                     raster_ml=rs.raster_fwd_ml, mipmap: bool = False,
-                     light=None):
-    """The split peel over the padded ``pw`` x ``ph`` frame: the two
+                     clear_color, x0: int = 0, y0: int = 0,
+                     raster=rs.raster_fwd, raster_ml=rs.raster_fwd_ml,
+                     mipmap: bool = False, light=None):
+    """The split peel over a tile-aligned ``pw`` x ``ph`` band whose
+    top-left pixel is (``x0``, ``y0``), as in ``_split_rasters``: the two
     rasters of ``_split_rasters``, the opaque shade and blend, then the
     translucent layers in front of the opaque winner composited over it:
     bilinear taps, or with ``mipmap`` the mtap epilogues, the trilinear
@@ -2059,8 +2111,8 @@ def _split_peel_flat(scene: DeviceScene, setup_op, setup_tr, *, pw: int,
     (n_tiles, P) nearest depth with 1.0 where empty, (n_over bins,
     n_over taps))."""
     opaque, translucent, front, nov = _split_rasters(
-        setup_op, setup_tr, pw=pw, ph=ph, layers=layers, maxc=maxc,
-        raster=raster, raster_ml=raster_ml,
+        setup_op, setup_tr, pw=pw, ph=ph, layers=layers, maxc=maxc, x0=x0,
+        y0=y0, raster=raster, raster_ml=raster_ml,
         mode="mtap" if mipmap else "tap", light=light)
     (zo, io), (zt, it) = opaque[:2], translucent[:2]
     cap_op, cap_tr = (tap_tiles if isinstance(tap_tiles, tuple)

@@ -1,9 +1,10 @@
 """Production frame engine — sized caps + overflow recovery.
 
 The counterpart of ``mt_renderer_tpu/render/engine.py`` for the packed
-single-layer frame and the packed peeled frame (``peel`` layers,
-``peel_mode`` "split" or "ml"), each bilinear or, with ``mipmap``,
-trilinear, lit or not. ``FrameEngine`` owns the frame loop's wiring:
+single-layer frame and the peeled frame (``peel`` layers, ``peel_mode``
+"split" or "ml"), each bilinear or, with ``mipmap``, trilinear, lit or
+not; the frame comes back in the reference engine's format (``packed``).
+``FrameEngine`` owns the frame loop's wiring:
 
 * lazy sizing at the first rendered view: ``auto_maxc`` for the binning
   cap; for the single-layer frame ``auto_tap_tiles`` for the compacted
@@ -40,15 +41,20 @@ logger = logging.getLogger("mt_renderer_tpu_torch.render")
 
 class FrameEngine:
     def __init__(self, scene, batch, *, width: int, height: int,
-                 mipmap: bool = False, lighting: bool = False,
-                 peel: int = 0, peel_mode: str = "split",
-                 headroom: float = 1.5, check_every: int | None = None,
+                 backend: str = "pallas", mipmap: bool = False,
+                 lighting: bool = False, peel: int = 0,
+                 peel_mode: str = "split", headroom: float = 1.5,
+                 check_every: int | None = None,
                  interactive: bool = False):
+        if backend != "pallas":
+            raise device._by_decision(f"backend={backend!r}",
+                                      device._WHY_SCAN)
         if peel and peel_mode == "multipass":
             raise device._by_decision(
                 "FrameEngine(peel_mode='multipass')", "the engine runs the "
                 "single-pass peels, 'split' and 'ml'")
         self.scene = scene
+        self.backend = backend
         self.batch = batch
         self.width = width
         self.height = height
@@ -70,6 +76,13 @@ class FrameEngine:
         self.recoveries = 0            # cap bumps taken so far
         self._since_check = 0
         self._tap_bound = 0            # host row bound seen at sizing
+
+    @property
+    def packed(self) -> bool:
+        """The frame format ``render`` returns, the reference engine's:
+        the (H, W) int32 packed frame, except for a peel with ``mipmap``,
+        whose frame is the (H, W, 4) uint8 view of the same bits."""
+        return not (self.peel and self.mipmap)
 
     def _predict(self, fn, view_proj, bone_mats, **kw):
         """A host predictor at this view; a palette on the device (the
@@ -106,7 +119,8 @@ class FrameEngine:
                     else "")
 
     def render(self, view_proj, bone_mats=None):
-        """One production frame → (packed color (H, W) i32, depth)."""
+        """One production frame → (color, depth); color as ``packed``
+        says."""
         if not self.sized:
             # drain counts queued by earlier renders so the first check
             # attributes overflow to this engine's frames only
@@ -119,13 +133,13 @@ class FrameEngine:
                 self.scene, view_proj, bone_mats, width=self.width,
                 height=self.height, layers=self.peel, maxc=self.maxc,
                 mipmap=self.mipmap, lighting=self.lighting,
-                peel_mode=self.peel_mode, packed=True,
+                peel_mode=self.peel_mode, packed=self.packed,
                 tap_tiles=self.tap_tiles)
         else:
             out = device.render_frame(
                 self.scene, view_proj, bone_mats, width=self.width,
                 height=self.height, maxc=self.maxc, mipmap=self.mipmap,
-                lighting=self.lighting, packed=True,
+                lighting=self.lighting, packed=self.packed,
                 tap_tiles=self.tap_tiles)
         self._since_check += 1
         if self._since_check >= self.check_every:

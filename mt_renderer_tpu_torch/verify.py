@@ -25,10 +25,16 @@ production path held to its oracle:
   backend, by decision;
 - ``peel_split``: the split peel, compacted to its measured (opaque,
   translucent) caps, equals the dense ml peel bit for bit, color and
-  depth (the scene is opaque).
+  depth (the scene is opaque);
+- ``multichip_1dev``: the band split over a one-slot row mesh on the
+  same device (``parallel.tiles.render_frame_multichip``, packed, the
+  taps compacted to ``auto_tap_tiles`` rows) against the ``pallas``
+  frame under the golden rule: no coverage mismatch off the oracle's
+  coverage edge and at most 0.3% of pixels with a channel off by more
+  than 1 (``bench.py:251-266``).
 
-``scan``, ``peel_scan`` (the scan backend) and ``multichip_1dev`` (slice
-6) are not ported.
+``scan`` and ``peel_scan`` (the scan backend) are not ported, by
+decision.
 
 ``world_legs`` is the counterpart of ``bench.py::verify_world``: the
 world's heterogeneous paths (more than 128 material slots, mixed mip
@@ -59,6 +65,7 @@ import numpy as np
 
 from .app.camera import Camera
 from .entry import world_case
+from .parallel import tiles
 from .render import cpu_reference
 from .render import device as dv
 from .render import raster as rs
@@ -203,6 +210,9 @@ def bench_frames(device, *, width: int = 256, height: int = 256,
         "peel_split": dv.render_frame_peeled(scene, vp, bones,
                                              peel_mode="split",
                                              tap_tiles=sps, **peel),
+        "multichip_1dev": tiles.render_frame_multichip(
+            scene, vp, bones, mesh=tiles.make_row_mesh(1, device=device),
+            tap_tiles=stt, **kw),
     }
     rs.flush_overflow_checks()
     return frames, dict(packed=stt, peel_packed=tt, peel_split=sps)
@@ -235,8 +245,8 @@ def judge_bench_legs(frames: dict, caps: dict) -> dict:
     want, want_d = frames["oracle"]
     edge = coverage_edge(want_d < 1.0)
     out: dict = {"pallas": oracle_bound(*frames["pallas"], want, want_d)}
-    out["peel_pallas"] = _frame_bound(*frames["peel_pallas"],
-                                      *frames["pallas"], edge)
+    for leg in ("peel_pallas", "multichip_1dev"):
+        out[leg] = _frame_bound(*frames[leg], *frames["pallas"], edge)
     for leg, ref in (("packed", "pallas"), ("peel_packed", "peel_pallas"),
                      ("peel_split", "peel_pallas")):
         out[leg] = _bit_equal(*frames[leg], *frames[ref], caps[leg])

@@ -137,9 +137,11 @@ def test_bin_overflow_warns_loudly():
 
 
 def test_tap_overflow_warns_loudly():
+    """The packed frame compacts its taps (the unpacked bilinear frame
+    shades every row and ignores ``tap_tiles``, as the reference's)."""
     before = tr.OVERFLOW_EVENTS
     with pytest.warns(RuntimeWarning, match="tap overflow"):
-        _dense_frame(tap_tiles=1)
+        _dense_frame(tap_tiles=1, packed=True)
         tr.flush_overflow_checks()
     assert tr.OVERFLOW_EVENTS > before
 

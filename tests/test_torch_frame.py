@@ -104,6 +104,35 @@ def test_unpacked_is_a_view_of_packed(case):
     np.testing.assert_array_equal(rgba.numpy(), td.unpack_rgba(packed))
 
 
+def test_unpacked_frame_shades_dense_like_jax(case):
+    """The unpacked bilinear frame ignores ``tap_tiles`` and queues the
+    bins count alone, as the reference's does (its dense ``shade_tap``,
+    ``mt_renderer_tpu/render/device.py:2881-2893``): with a cap far below
+    the live rows it equals the dense frame bit for bit, queues no tap
+    overflow, and matches JAX's frame at the same cap (coverage exact,
+    the golden rule on color)."""
+    _, vp, bones, js, ts, maxc, taps = case
+    low = 1
+    assert low < taps
+    tr.flush_overflow_checks()          # what earlier frames queued
+    before = tr.OVERFLOW_EVENTS
+    got, depth = td.render_frame(ts, vp, bones, width=W, height=H,
+                                 maxc=maxc, tap_tiles=low)
+    dense, _ = td.render_frame(ts, vp, bones, width=W, height=H, maxc=maxc)
+    counts = tr.flush_overflow_counts()
+    assert not any(what.startswith("tap") for what in counts), counts
+    assert all(n == 0 for n, _ in counts.values()), counts
+    assert tr.OVERFLOW_EVENTS == before
+    assert got.dtype == torch.uint8 and torch.equal(got, dense)
+    want, wdepth = jd.render_frame(js, vp, bones, width=W, height=H,
+                                   backend="pallas", maxc=maxc,
+                                   tap_tiles=low)
+    pr.flush_overflow_checks()
+    np.testing.assert_array_equal(depth.numpy() < 1.0,
+                                  np.asarray(wdepth) < 1.0)
+    assert golden_ok(got.numpy(), np.asarray(want)) <= 0.003
+
+
 def test_pack_bits_match_jax():
     """Equal float channels pack to equal u32 bits (alpha >= 128 sets
     the sign bit of the port's int32)."""

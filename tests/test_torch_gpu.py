@@ -989,3 +989,73 @@ def test_cpu_artifact_refuses_card_tensors(cuda):
     with pytest.raises(ValueError, match="holds the scene's device"):
         serving.export_render(case.scene, width=128, height=64,
                               platforms=["cuda"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_band_and_geometry_splits_on_card_equal_single_frame(cuda, n):
+    """The band split (packed, unpacked, the trilinear frame from the tri
+    pool, the split peel) and the geometry split over n slots of the card
+    equal the single-device frame on the card bit for bit, with K1
+    launched once a band or shard (and K2 once a peeled band)."""
+    from mt_renderer_tpu_torch.parallel import tiles
+
+    mesh = tiles.make_row_mesh(n, device=cuda)
+    case = entry.demo_case(cuda, instances=9, subdiv=2, width=W, height=120)
+    tri = td.upload(case.batch, "tri", device=cuda)
+    vp, bones = case.view_proj(), case.bone_mats(0.4)
+    kw = dict(width=W, height=120)
+    for scene, flags in ((case.scene, dict(packed=True)),
+                         (case.scene, dict()),
+                         (tri, dict(mipmap=True, lighting=True))):
+        want = td.render_frame(scene, vp, bones, **kw, **flags)
+        for split in (tiles.render_frame_multichip,
+                      tiles.render_frame_geomsplit):
+            before = tr.raster_fwd.launches
+            got = split(scene, vp, bones, mesh=mesh, **kw, **flags)
+            assert tr.raster_fwd.launches - before == n
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    batch, gvp, gbones = _glass(width=W, height=120)
+    glass = td.upload(batch, device=cuda)
+    want = td.render_frame_peeled(glass, gvp, gbones, layers=3,
+                                  peel_mode="split", packed=True, **kw)
+    before = tr.raster_fwd_ml.launches
+    got = tiles.render_frame_multichip(glass, gvp, gbones, mesh=mesh,
+                                       peel_layers=3, packed=True, **kw)
+    assert tr.raster_fwd_ml.launches - before == n
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    tr.flush_overflow_checks()
+    assert not tr.OVERFLOW_EVENTS
+
+
+@pytest.mark.gpu
+def test_gloo_all_reduce_carries_card_bits(cuda, tmp_path):
+    """A one-rank gloo group takes CUDA tensors in ``all_reduce``: the
+    int32 view's SUM carries a -0.0 unchanged, and the band split over
+    the group returns the card frame's rows."""
+    import torch.distributed as dist
+
+    from mt_renderer_tpu_torch.parallel import multihost, tiles
+
+    multihost.init((tmp_path / "rdv").as_uri(), 1, 0)
+    try:
+        slots = tiles._Slots(td.upload(demo.build_demo_batch(instances=1),
+                                       device=cuda), None,
+                             multihost.global_row_mesh())
+        part = torch.tensor([-0.0, 1.5], device=cuda)
+        got = slots.gather_sum([part])
+        assert got.device.type == "cuda" and bool(got.signbit()[0])
+        assert slots.reduce([torch.tensor([3], dtype=torch.int32,
+                                          device=cuda)], "min") == 3
+        case = entry.demo_case(cuda, instances=4, width=64, height=64)
+        vp, bones = case.view_proj(), case.bone_mats(0.5)
+        color, depth = multihost.render_frame_multihost(
+            case.scene, vp, bones, width=64, height=64, packed=True)
+        want, wdepth = td.render_frame(case.scene, vp, bones, width=64,
+                                       height=64, packed=True)
+        assert color.row0 == 0 and torch.equal(color.rows, want)
+        full = multihost.gather_full_frame(depth, 64)
+        np.testing.assert_array_equal(full, wdepth.cpu().numpy())
+    finally:
+        dist.destroy_process_group()

@@ -9,7 +9,10 @@ mipmapped, lit frame, a small archive-world frame whose palette
 ``bone_mats_device`` computes, the same world's frames from the bc1
 texel pool (its textures BC1-encoded through the port's own native
 binding) and from the bc7 pool (mode-6 content), runs the reference
-bench's verify legs (``verify.bench_legs``) at a small size, writes the
+bench's verify legs (``verify.bench_legs``) at a small size, renders the
+band split and the geometry split over three CPU slots (each equal to
+the single-device frame) and the multi-device dry run
+(``entry.dryrun_multichip``) at a small size, writes the
 fixture tree and runs the three viewers on it with ``--device cpu``
 (``modelviewer`` with the joint overlay and with the archive world and
 its HUD, ``textureviewer``, ``sceneviewer``), serves a small frame
@@ -75,7 +78,8 @@ peeled = entry.demo_case("cpu", instances=12, width=256, height=128,
 eng = engine.FrameEngine(peeled.scene, peeled.batch, width=256, height=128,
                          peel=3, mipmap=True, lighting=True)
 color, depth = eng.render(peeled.view_proj(), peeled.bone_mats(0.4))
-assert (depth < 1.0).any() and (color != -1).any()
+assert not eng.packed and tuple(color.shape) == (128, 256, 4)
+assert (depth < 1.0).any() and (color != 255).any()
 
 world = entry.world_case("cpu", buildings=8, width=128, height=96,
                          characters=2, variants=3, terrain_subdiv=2,
@@ -109,6 +113,23 @@ from mt_renderer_tpu_torch import verify
 
 legs = verify.bench_legs("cpu", width=64, height=64, instances=4, subdiv=1)
 assert legs["passed"], legs
+
+import torch
+
+from mt_renderer_tpu_torch.parallel import tiles
+
+bands = entry.demo_case("cpu", instances=4, width=64, height=60, subdiv=1)
+bvp, bbones = bands.view_proj(), bands.bone_mats(0.7)
+want = device.render_frame(bands.scene, bvp, bbones, width=64, height=60,
+                           packed=True)
+for split in (tiles.render_frame_multichip, tiles.render_frame_geomsplit):
+    got = split(bands.scene, bvp, bbones, width=64, height=60, packed=True,
+                mesh=tiles.make_row_mesh(3, device="cpu"))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+dry = entry.dryrun_multichip(2, "cpu", width=128, height=64, instances=4,
+                             subdiv=1, buildings=8, world_width=64,
+                             world_height=32)
+assert dry["overflow_events"] == 0, dry
 
 import pathlib
 import tempfile

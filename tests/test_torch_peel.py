@@ -510,10 +510,15 @@ def test_unported_peel_options_raise(glass, kw, what):
 
 
 def test_unported_split_and_measure_options_raise(glass):
+    """Band sizing exists for the split peel only, as in the reference
+    (``tests/test_multichip.py::test_bands_requires_split_mode``)."""
     ts, vp = glass["ts"], glass["vp"]
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(ValueError, match="bands"):
         td.measure_live_tap_tiles(ts, vp, None, width=W, height=H,
-                                  layers=2, mode="split", bands=2)
+                                  layers=2, mode="ml", bands=2)
+    with pytest.raises(ValueError, match="bands"):
+        jd.measure_live_tap_tiles(glass["js"], vp, None, width=W, height=H,
+                                  layers=2, mode="ml", bands=2)
 
 
 # ------------------------------------------------------------------ (h)

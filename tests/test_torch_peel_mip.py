@@ -204,9 +204,10 @@ def test_peeled_engine_renders_the_mip_lit_frame(glass):
                     margin=eng.headroom)
             want, _ = td.render_frame_peeled(
                 ts, vp, bones, width=W, height=H, layers=3, maxc=eng.maxc,
-                peel_mode=peel_mode, packed=True, mipmap=True,
+                peel_mode=peel_mode, packed=False, mipmap=True,
                 lighting=True, tap_tiles=eng.tap_tiles,
                 check_overflow=False)
+            assert not eng.packed and got.dtype == torch.uint8
             assert torch.equal(got, want)
         eng.check()
         tr.flush_overflow_checks()
@@ -231,3 +232,44 @@ def test_frame_profile_runs_the_peeled_mip_lit_frame(capsys):
                  "composite_peeled_mtap_flat", "opaque trilinear shade"):
         assert head in out
     assert "idle share not measured" in out
+
+
+def test_engine_format_matches_jax():
+    """``FrameEngine(backend="pallas", ...)``'s ``packed`` equals the JAX
+    engine's (``mt_renderer_tpu/render/engine.py:91-98``) for the four
+    (peel, mipmap) combinations, and so do the shape and dtype of its
+    frame on a small glass scene with the tri pool against the frame the
+    JAX engine renders (``jax.eval_shape`` of its call): the (H, W)
+    packed frame, except the (H, W, 4) uint8 frame of a peel with
+    ``mipmap``. ``backend="scan"`` raises, by decision."""
+    import jax
+
+    from mt_renderer_tpu.render import engine as je
+
+    batch = demo.make_translucent(demo.build_demo_batch(
+        instances=4, skinned=True), 4, fraction=0.5)
+    vp = np.asarray(demo.demo_camera(4, 64, 64).view_proj())
+    bones = demo.demo_bone_mats(0.3)
+    ts = td.upload(batch, "tri", device="cpu")
+    js = jd.upload(batch, pool_mode="tri")
+    for peel, mipmap in ((0, False), (0, True), (3, False), (3, True)):
+        kw = dict(width=64, height=64, backend="pallas", peel=peel,
+                  mipmap=mipmap)
+        eng = te.FrameEngine(ts, batch, **kw)
+        jeng = je.FrameEngine(js, batch, **kw)
+        assert eng.packed == jeng.packed == (not (peel and mipmap))
+        got, _ = eng.render(vp, bones)
+        fkw = dict(width=64, height=64, backend="pallas", mipmap=mipmap,
+                   packed=jeng.packed, check_overflow=False)
+        if peel:
+            want = jax.eval_shape(lambda: jd.render_frame_peeled(
+                js, vp, bones, layers=peel, peel_mode="split", **fkw))[0]
+        else:
+            want = jax.eval_shape(lambda: jd.render_frame(js, vp, bones,
+                                                          **fkw))[0]
+        assert tuple(got.shape) == want.shape
+        assert got.element_size() == want.dtype.itemsize
+        assert (got.dtype == torch.uint8) == (want.dtype == np.uint8)
+    tr.flush_overflow_checks()
+    with pytest.raises(NotImplementedError, match="by decision"):
+        te.FrameEngine(ts, batch, **dict(kw, backend="scan"))

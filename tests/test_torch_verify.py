@@ -26,7 +26,7 @@ from mt_renderer_tpu_torch.render import raster as tr
 
 SMALL = dict(width=64, height=64, instances=4, subdiv=1)
 LEGS = ("pallas", "peel_pallas", "packed", "peel_packed", "mipmap_packed",
-        "peel_split")
+        "peel_split", "multichip_1dev")
 
 
 @pytest.fixture(scope="module")
@@ -67,6 +67,7 @@ PERTURB = {
     "peel_packed": ("peel_packed", "color"),
     "mipmap_packed": ("mipmap_packed", "depth"),
     "peel_split": ("peel_split", "color"),
+    "multichip_1dev": ("multichip_1dev", "depth"),
 }
 
 

@@ -334,6 +334,19 @@ def test_scan_backend_and_devices_are_refused(runs):
     with pytest.raises(NotImplementedError, match="by decision"):
         tsv.main([str(root), "fixture_scene", "--backend", "scan",
                   "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tsv.main([str(root), "fixture_scene", "--devices", "2",
-                  "--device", "cpu"])
+    # --devices N asks for N cards, and names the count it found
+    with pytest.raises(RuntimeError, match="0 visible"):
+        tsv.main([str(root), "fixture_scene", "--devices", "2"])
+
+
+def test_sceneviewer_devices_band_split_on_cpu_slots(runs, tmp_path):
+    """``--devices 3 --device cpu`` band-splits the frame over three CPU
+    slots: its PNG equals the single-device run's bit for bit."""
+    root = runs["torch"]["root"]
+    out = tmp_path / "scene3.png"
+    tsv.main([str(root), "fixture_scene", "--overlay", "--width", "96",
+              "--height", "48", "--out", str(out), "--devices", "3",
+              "--device", "cpu"])
+    np.testing.assert_array_equal(read_png(out),
+                                  read_png(runs["torch"]["out"]
+                                           / "scene.png"))
