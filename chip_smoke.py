@@ -17,10 +17,12 @@ lighting=True)`` (the ``peel4+mip+light`` row); the archive world (280
 buildings, 239,664 triangles, the tri pool, mipmapped, the characters
 posed on the card: the ``pallas world`` row); the two probe tools'
 paths, shortened: ``tools.raster_roofline`` on its ``default`` and
-``world`` presets and ``tools.bilin_ab``; and the split frames of
+``world`` presets and ``tools.bilin_ab``; the split frames of
 ``parallel``: the band split, the geometry split and two processes over
-gloo, each on slots of the one card. Phases, each of which raises on
-failure:
+gloo, each on slots of the one card; the multipass peel of the glass and
+the peeled mip+light headlines (K1's ``zlow`` and ``attrs`` variants,
+through ``render_frame_peeled`` and ``FrameEngine``); and the scan
+backend at 1920x1080. Phases, each of which raises on failure:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build K1 (``csrc/raster_fwd.cu``), K2 (``csrc/raster_fwd_ml.cu``),
@@ -64,6 +66,19 @@ failure:
    least one K1 and one K2 launch in every frame, no overflow, frame 0
    equal under the golden rule to the same frame through both plain
    rasters;
+   (p1) the glass headline's multipass peel, L = 4, through
+   ``render_frame_peeled(peel_mode="multipass")`` with the launch counts
+   set to 0 just before it: K1 launched 4 times (tap; tap + zlow on
+   passes 1-3); every pass of the same frame recorded and equal, bit for
+   bit, to K1's plain version on its own inputs; the frame against the
+   ml peel at L = 4 (coverage exact, the golden rule); the frame's ms
+   (``multipass_frame_ms``, CUDA events) beside the ml peel's; K1 + zlow
+   on pass 1's inputs timed against its plain version, with its
+   breakdown;
+   (p3) 20 frames of ``FrameEngine(peel=4, peel_mode="multipass")`` on
+   the glass headline as in phase 5: 4 K1 launches every frame, no
+   overflow, the unpacked frame, frame 0 equal to
+   ``render_frame_peeled``; ``multipass_peel_frame_ms``;
 9. K1's mtap + lit epilogues against their plain version at the
    mip+light headline (tri pool), and 20 frames of
    ``FrameEngine(mipmap=True, lighting=True)`` as in phase 5;
@@ -78,10 +93,14 @@ failure:
     peel_mode="split", mipmap=True, lighting=True)`` on the glass scene
     with the tri pool: K1 and K2 in every frame, no overflow, frame 0
     under the golden rule against both plain rasters;
+    (p2) the peeled mip+light headline's multipass peel as (p1): K1's
+    attrs epilogue (lit, + zlow on passes 1-3), ``shade_fwd``, the
+    plane-major composite; ``multipass_mip_frame_ms``;
 12. the world's verify legs (``verify.world_legs``: 256x144, 130
     buildings): the invariants, the packed and the characters' frames
-    against the NumPy oracle, the mipmapped frame against the plain
-    raster, the palette animating;
+    against the NumPy oracle, the mipmapped frame against the scan
+    backend's (the quad pool) and against the plain raster, the palette
+    animating;
 13. the world main path: 20 frames of the full world at 1920x1080 with
     the caps sized at frame 0 (as the reference bench sizes them), each
     frame's palette computed on the card by ``bone_mats_device``; frame
@@ -126,7 +145,19 @@ failure:
     against its plain version;
 22. (h) the reference bench's verify legs on the card
     (``verify.bench_legs``: 256x256, 9 instances at subdiv 2): every leg
-    passes, and each leg's readings are printed;
+    passes, and each leg's readings are printed; (c2) among them the
+    scan backend's ``scan`` and ``peel_scan`` legs against the NumPy
+    oracle and ``mipmap_packed`` held against the scan backend's
+    trilinear frame (the world's at phase 12 likewise);
+    (c1) the scan backend at 1920x1080 on the demo scene at 64
+    instances, subdiv 2 (3,072 triangles): single, ml-peeled (L = 4),
+    mipmapped and lit frames, each against ``render_frame(backend=
+    "pallas")`` (or its ml peel) under the golden rule with no coverage
+    mismatch off the edge; the bc1 and the bc7 pool's frames without
+    mipmap, each bit-equal to the scan frame of a quad pool of its
+    decoded chains; the scan band split over 8 slots and the scan
+    geometry split over 2 shards, each bit-equal to the scan frame;
+    ``scan_frame_ms`` beside the pallas frame's;
 23. the viewers at 1920x1080, each run through the CLI's ``main`` with
     the launch counts set to 0 just before it, every ``FrameEngine``
     frame watched (its K1 and K2 launches, the overflow its checks
@@ -212,9 +243,12 @@ on the bc1 and the bc7 world's loops, and a sixth, mtap on the viewer's
 (v1), and a seventh, tap on the served headline (s1), an eighth, a
 ninth and a tenth on the split frames: tap on the headline's 8-band
 frame (m1), mtap on the world's (m2), tap on the 4-shard geometry split
-(m4); and K2 a fourth and a fifth, mtap + lit on the bc1 and the bc7
-glass headline's split peel, and a sixth, tap on the 8-band split peel
-(m3)) as one JSON line before the last, and as
+(m4), and an eleventh and a twelfth on the multipass peel: tap + zlow
+((p1)'s pass 1, its launches those of (p3)'s 20 frames) and attrs +
+zlow + lit ((p2)'s pass 1, its launches (p2)'s frame's); and K2 a fourth
+and a fifth, mtap + lit on the bc1 and the bc7 glass headline's split
+peel, and a sixth, tap on the 8-band split peel (m3)) as one JSON line
+before the last, and as
 its last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
@@ -250,6 +284,7 @@ WORLD = dict(buildings=280, building_subdivs=(4, 6, 8, 10, 12),
              width=1920, height=1080)       # the bench's world row
 MICRO_REPS = 16             # reps of the timed probe against its twin
 VERIFY_LEG = dict(instances=9, subdiv=2, width=256, height=256)
+SCAN = dict(instances=64, subdiv=2, width=1920, height=1080)   # (c1)
 VIEWER = dict(width=1920, height=1080)
 VIEWER_WORLD = 280          # modelviewer --demo: the bench's world size
 VIEWER_SMALL_WORLD = 40     # the --events and --serve runs
@@ -451,7 +486,7 @@ def k1_breakdown(args, kw, got, what: str) -> dict:
     if n_bad:
         raise AssertionError(f"{what}: a winner the cull twin rejects")
     return dict(surviving=surviving, empty_ms=empty_ms, nowin_ms=nowin_ms,
-                **raster_bound(args[:4], got, None, surviving))
+                **raster_bound(args[:4], got, kw.get("zlow"), surviving))
 
 
 def k2_breakdown(args, kw, got, what: str) -> dict:
@@ -1620,6 +1655,10 @@ def phase_bench_legs(device) -> dict:
     if not r["passed"] or rs.OVERFLOW_EVENTS or rs.raster_fwd.launches < 1 \
             or rs.raster_fwd_ml.launches < 1:
         raise AssertionError("a bench verify leg failed")
+    # (c2) the scan backend's legs, and the mip leg held against scan
+    if not (r["scan"]["passed"] and r["peel_scan"]["passed"]
+            and r["mipmap_packed"]["scan_passed"]):
+        raise AssertionError("(c2) a scan verify leg is missing or failed")
     return r
 
 
@@ -2930,6 +2969,270 @@ def phase_dryrun(device, legs: dict) -> None:
         raise AssertionError("(m6) the multichip_1dev leg failed")
 
 
+# ------------------------------------- the multipass peel, the scan backend
+
+
+def bit_equal(got, want, what: str) -> float:
+    """Every output of a raster equal to its plain version's, bit for bit
+    (ids, z and every plane). Returns the max abs error (0.0)."""
+    import torch
+
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a.shape != b.shape or a.dtype != b.dtype
+           or not torch.equal(a.contiguous().view(torch.int32),
+                              b.contiguous().view(torch.int32))]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{what}: outputs {bad} differ from the plain "
+                             "version")
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(got, want))
+
+
+def phase_multipass(case: dict, what: str, mipmap: bool = False,
+                    lighting: bool = False) -> dict:
+    """(p1)/(p2) The multipass peel (L = LAYERS) on the case: one frame
+    through ``render_frame_peeled(peel_mode="multipass")`` with the
+    launch counts set to 0 just before it (K1 LAYERS times: the tap, or
+    mipmapped the attrs epilogue, with zlow on every pass but the first),
+    then every pass of the same frame recorded and held to its plain
+    version on its own inputs, bit for bit; the frame against the ml
+    peel at L = LAYERS (coverage exact, the golden rule); the frame's ms
+    by CUDA events; K1 on pass 1's inputs (a zlow pass) timed against its
+    plain version, with its breakdown → a record's readings."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = case["width"], case["height"]
+    kw = dict(width=w, height=h, layers=LAYERS, maxc=case["maxc"],
+              mipmap=mipmap, lighting=lighting)
+    args = (case["scene"], case["vp"], case["bones"])
+    rs.flush_overflow_checks()
+    reset_launches()
+    color, depth = dv.render_frame_peeled(*args, peel_mode="multipass", **kw)
+    launches = rs.raster_fwd.launches
+    rs.flush_overflow_checks()
+    if launches != LAYERS or rs.OVERFLOW_EVENTS:
+        raise AssertionError(f"{what}: {launches} K1 launches (want "
+                             f"{LAYERS}), overflow {rs.OVERFLOW_EVENTS}")
+
+    calls = []
+
+    def recording(*a, **k):
+        out = rs.raster_fwd(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    again, again_d, _ = dv._render_frame_peeled_core(
+        *args, clear_color=(255, 255, 255, 255), peel_mode="multipass",
+        tap_tiles=None, raster=recording, **kw)
+    if not (torch.equal(again.view(torch.uint8).reshape(h, w, 4), color)
+            and torch.equal(again_d, depth)):
+        raise AssertionError(f"{what}: the recorded frame differs")
+    err, modes = 0.0, []
+    for i, (a, k, out) in enumerate(calls):
+        modes.append(f"{k.get('mode', 'tap')}"
+                     f"{'+zlow' if k['zlow'] is not None else ''}"
+                     f"{'+lit' if k['light'] is not None else ''}")
+        err = max(err, bit_equal(out, rs.raster_fwd_reference(*a, **k),
+                                 f"{what}, pass {i}"))
+    torch.cuda.synchronize()
+    ml, ml_d = dv.render_frame_peeled(*args, peel_mode="ml", **kw)
+    n_cov = int(((depth < 1.0) != (ml_d < 1.0)).sum())
+    share, n_diff = golden_share(color.cpu().numpy(), ml.cpu().numpy())
+    cover = [float((c[2][1] >= 0).float().mean()) for c in calls]
+    log(f"{what}: L={LAYERS}, K1 launches {launches} ({', '.join(modes)}), "
+        f"each bit-equal to its plain version; coverage per pass "
+        f"{[round(c, 4) for c in cover]}; vs the ml peel: {n_cov} coverage "
+        f"mismatches, {share:.6f} of pixels off by > 1 ({n_diff} differ)")
+    if n_cov or share > GOLDEN_SHARE or not cover[0] > 0.0 \
+            or not bool(torch.isfinite(depth).all()):
+        raise AssertionError(f"{what}: the frame is wrong")
+    metric = "multipass_mip_frame_ms" if mipmap else "multipass_frame_ms"
+    frame_ms = cuda_ms(lambda: dv.render_frame_peeled(
+        *args, peel_mode="multipass", check_overflow=False, **kw),
+        warmup=1, reps=5)
+    log(f"{metric} {frame_ms!r} (CUDA events over 5 frames; the ml peel "
+        f"{cuda_ms(lambda: dv.render_frame_peeled(*args, peel_mode='ml', check_overflow=False, **kw), warmup=1, reps=5)!r})")
+
+    a, k, out = calls[1]
+    kernel_ms = graph_ms(lambda: rs.raster_fwd(*a, **k))
+    plain_ms = cuda_ms(lambda: rs.raster_fwd_reference(*a, **k), warmup=1,
+                       reps=3)
+    log(f"raster_{modes[1].replace('+', '_')}_kernel_ms {kernel_ms!r}")
+    log(f"raster_{modes[1].replace('+', '_')}_plain_ms {plain_ms!r}")
+    bnd = k1_breakdown(a, k, out, f"{what}, pass 1, {modes[1]}")
+    return dict(launches=launches, max_abs_err=err, ms=kernel_ms,
+                plain_ms=plain_ms, frame_ms=frame_ms, **bnd)
+
+
+def phase_multipass_main(glass: dict) -> dict:
+    """(p3) FRAMES frames of ``FrameEngine(peel=LAYERS,
+    peel_mode="multipass")`` on the glass headline, yaw and bones varying
+    as in phase 5, the launch counts set to 0 just before: LAYERS K1
+    launches every frame, no overflow, the unpacked frame, frame 0 equal
+    to ``render_frame_peeled`` at the engine's cap → the launches and
+    ``multipass_peel_frame_ms``."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import engine as en
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h, demo = glass["width"], glass["height"], glass["demo"]
+    cam = demo.camera
+    base_yaw = cam.yaw
+    eng = en.FrameEngine(demo.scene, demo.batch, width=w, height=h,
+                         peel=LAYERS, peel_mode="multipass")
+    rs.flush_overflow_checks()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(FRAMES + 1)]
+    per_frame = []
+    reset_launches()
+    ev[0].record()
+    for t in range(FRAMES):
+        before = rs.raster_fwd.launches
+        cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
+        vp, bones = demo.view_proj(), demo.bone_mats(0.3 * t)
+        color, depth = eng.render(vp, bones)
+        per_frame.append(rs.raster_fwd.launches - before)
+        if t == 0:
+            first = (color, depth, vp, bones, eng.maxc)
+        ev[t + 1].record()
+    ev[-1].synchronize()
+    launches = rs.raster_fwd.launches
+    cam.yaw = base_yaw
+    eng.check()
+    rs.flush_overflow_checks()
+    color0, depth0, vp0, bones0, maxc0 = first
+    want, want_d = dv.render_frame_peeled(
+        demo.scene, vp0, bones0, width=w, height=h, layers=LAYERS,
+        maxc=maxc0, peel_mode="multipass")
+    per = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+    frame_ms = ev[0].elapsed_time(ev[-1]) / FRAMES
+    log(f"multipass main path: {FRAMES} frames, K1 launches {launches} "
+        f"(per frame {sorted(set(per_frame))}), overflow events "
+        f"{rs.OVERFLOW_EVENTS}, maxc={eng.maxc}, packed {eng.packed}; frame "
+        f"0 equal to render_frame_peeled: "
+        f"{bool(torch.equal(color0, want) and torch.equal(depth0, want_d))}")
+    if set(per_frame) != {LAYERS} or rs.OVERFLOW_EVENTS or eng.packed \
+            or tuple(color0.shape) != (h, w, 4) \
+            or not (torch.equal(color0, want) and torch.equal(depth0, want_d)):
+        raise AssertionError("the multipass main path is wrong")
+    log(f"multipass_peel_frame_ms {frame_ms!r} (CUDA events over {FRAMES} "
+        f"frames); per frame: median {float(np.median(per))!r}, max "
+        f"{max(per)!r}, frame 0 {per[0]!r}")
+    return dict(launches=launches, frame_ms=frame_ms)
+
+
+def offedge_mismatch(depth, ref_depth) -> int:
+    """Coverage mismatches of two frames off ``ref_depth``'s coverage
+    edge (``verify.coverage_edge``)."""
+    from mt_renderer_tpu_torch import verify
+
+    a = (depth < 1.0).cpu().numpy()
+    b = (ref_depth < 1.0).cpu().numpy()
+    return int(((a != b) & ~verify.coverage_edge(b)).sum())
+
+
+def phase_scan(device, card: str) -> dict:
+    """(c1) The scan backend at 1920x1080 on the demo scene ``SCAN`` (64
+    instances at subdiv 2, 3,072 triangles): single, ``ml``-peeled (L =
+    LAYERS),
+    mipmapped, lit frames, each against ``render_frame(backend="pallas")``
+    (or its ml peel) under the golden rule with no coverage mismatch off
+    the edge; the bc1 and the bc7 pool's frames without mipmap (which the
+    binned raster refuses), each equal, bit for bit, to the scan frame of
+    a quad pool of its decoded chains; the scan band split over SLOTS
+    slots and the scan geometry split over 2 shards, each equal to the
+    scan frame bit for bit; the scan frame's ms beside the pallas
+    frame's → the readings."""
+    import torch
+
+    from mt_renderer_tpu_torch.parallel import tiles
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    t_all = time.perf_counter()
+    case = headline_case(device, **SCAN, phase=0.6)
+    w, h, scene = case["width"], case["height"], case["scene"]
+    args = (scene, case["vp"], case["bones"])
+    size = dict(width=w, height=h)
+    n_tris = scene.tri_valid.shape[0]
+    out = dict(tris=len(case["demo"].batch.tris), padded=n_tris)
+    lit = dv.upload(with_normals(case["demo"].batch), device=device)
+    frames = {}
+    for name, sc, kw in (("single", scene, {}), ("mipmap", scene,
+                                                 dict(mipmap=True)),
+                         ("lit", lit, dict(lighting=True))):
+        t0 = time.perf_counter()
+        frames[name] = dv.render_frame(sc, *args[1:], backend="scan", **size,
+                                       **kw)
+        torch.cuda.synchronize()
+        pallas = dv.render_frame(sc, *args[1:], maxc=case["maxc"], **size,
+                                 **kw)
+        share, n_diff = golden_share(frames[name][0].cpu().numpy(),
+                                     pallas[0].cpu().numpy())
+        n_off = offedge_mismatch(frames[name][1], pallas[1])
+        log(f"scan {name} frame {w}x{h}, {n_tris} tris "
+            f"({time.perf_counter() - t0:.2f} s with the pallas frame): vs "
+            f"pallas {share:.6f} of pixels off by > 1 ({n_diff} differ), "
+            f"{n_off} coverage mismatches off the edge; coverage "
+            f"{float((frames[name][1] < 1.0).float().mean()):.4f}")
+        if share > GOLDEN_SHARE or n_off \
+                or frames[name][0].dtype != torch.uint8 \
+                or not 0.0 < float((frames[name][1] < 1.0).float().mean()):
+            raise AssertionError(f"scan {name} frame is wrong")
+    t0 = time.perf_counter()
+    peel = dv.render_frame_peeled(*args, backend="scan", layers=LAYERS,
+                                  **size)
+    ml = dv.render_frame_peeled(*args, maxc=case["maxc"], layers=LAYERS,
+                                **size)
+    share, n_diff = golden_share(peel[0].cpu().numpy(), ml[0].cpu().numpy())
+    n_off = offedge_mismatch(peel[1], ml[1])
+    log(f"scan ml peel L={LAYERS} ({time.perf_counter() - t0:.2f} s with the "
+        f"pallas ml peel): vs pallas {share:.6f} off by > 1, {n_off} "
+        f"coverage mismatches off the edge")
+    if share > GOLDEN_SHARE or n_off:
+        raise AssertionError("scan peeled frame is wrong")
+    for mode in ("bc1", "bc7"):
+        bc = dv.upload(case["demo"].batch, mode, device=device)
+        quad = dv.upload(case["demo"].batch, device=device,
+                         mip_chains=decoded_chains(case["demo"].batch, mode))
+        got = dv.render_frame(bc, *args[1:], backend="scan", **size)
+        want = dv.render_frame(quad, *args[1:], backend="scan", **size)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        log(f"scan {mode} frame without mipmap vs the quad pool of its "
+            f"decoded chains: bit-equal {same}")
+        if not same:
+            raise AssertionError(f"scan {mode} frame differs")
+    single = frames["single"]
+    for split, n in ((tiles.render_frame_multichip, SLOTS),
+                     (tiles.render_frame_geomsplit, 2)):
+        t0 = time.perf_counter()
+        got = split(*args, mesh=tiles.make_row_mesh(n, device=device),
+                    backend="scan", **size)
+        same = torch.equal(got[0], single[0]) and torch.equal(got[1],
+                                                              single[1])
+        log(f"scan {split.__name__} over {n} slots "
+            f"({time.perf_counter() - t0:.2f} s): bit-equal to the scan "
+            f"frame {same}")
+        if not same:
+            raise AssertionError(f"scan {split.__name__} differs")
+    scan_ms = cuda_ms(lambda: dv.render_frame(*args, backend="scan", **size),
+                      warmup=1, reps=2)
+    pallas_ms = cuda_ms(lambda: dv.render_frame(*args, maxc=case["maxc"],
+                                                check_overflow=False,
+                                                **size), warmup=1, reps=5)
+    rs.flush_overflow_checks()
+    log(f"scan_frame_ms {scan_ms!r} ({out['tris']} tris, {n_tris} padded, "
+        f"{n_tris // dv.DEFAULT_CHUNK} steps of {dv.DEFAULT_CHUNK}, "
+        f"{w}x{h}, {card}); the pallas frame {pallas_ms!r} ms; phase "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return dict(out, frame_ms=scan_ms, pallas_ms=pallas_ms)
+
+
 def phase_split_frames(device, case: dict, legs: dict, card: str) -> dict:
     """(m1)-(m6) → each banded or sharded record's launches and
     readings."""
@@ -2963,6 +3266,8 @@ def main() -> int:
     k2 = phase_ml_kernel(glass, case)
     phase_split_vs_ml(device, case)
     peel_run = phase_peel_main(glass)
+    mp = phase_multipass(glass, "(p1) glass multipass")
+    mp_run = phase_multipass_main(glass)
     del glass
     mip = headline_case(device, **MIP)
     k1_mip = phase_mip_kernel(mip)
@@ -2972,6 +3277,8 @@ def main() -> int:
     full_launches = split_equals_ml(mip, LAYERS, "opaque mip+light headline",
                                     mipmap=True, lighting=True)
     peel_mip_run = phase_peel_main(glass_mip, mipmap=True, lighting=True)
+    mp_mip = phase_multipass(glass_mip, "(p2) peeled mip+light multipass",
+                             mipmap=True, lighting=True)
     del glass_mip, mip
     phase_world_legs(device)
     world_run = phase_world_main(device)
@@ -2986,6 +3293,7 @@ def main() -> int:
     phase_bc7_multimode(device)
     bc7_peel = phase_bcn_peel(device, "bc7")
     legs = phase_bench_legs(device)
+    phase_scan(device, dev_info["card"])
     viewer = phase_viewers(device, dev_info["card"])
     served_launches, k1_served = phase_serving(device, case,
                                                dev_info["card"])
@@ -3038,6 +3346,10 @@ def main() -> int:
         raster_record("raster_fwd", f"tap (headline geometry split, "
                       f"{SHARDS[-1]} shards)", split["geomsplit"]["launches"],
                       split["geomsplit"]),
+        raster_record("raster_fwd", f"tap+zlow (glass multipass, L={LAYERS})",
+                      mp_run["launches"], mp),
+        raster_record("raster_fwd", f"attrs+zlow+lit (peeled mip+light "
+                      f"multipass, L={LAYERS})", mp_mip["launches"], mp_mip),
         raster_record("raster_fwd_ml", "tap", peel_run["k2"], k2),
         raster_record("raster_fwd_ml", "mtap+lit", peel_mip_run["k2"],
                       k2_mip),

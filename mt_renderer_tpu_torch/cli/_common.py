@@ -32,11 +32,3 @@ def resolve_device(name: str) -> torch.device:
             "not fall back to the CPU (pass --device cpu to render there)")
     return dev
 
-
-def refuse_scan(backend: str) -> None:
-    """``--backend scan`` names the reference's scan raster, which the
-    port does not carry."""
-    if backend == "scan":
-        from ..render import device
-
-        raise device._by_decision("--backend scan", device._WHY_SCAN)

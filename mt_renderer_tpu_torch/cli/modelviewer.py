@@ -26,7 +26,7 @@ from ..render import device
 from ..resources import ResourceManager
 from ..scene.model import Model, merge_batches
 from ..scene.overlay import DebugOverlay
-from ._common import add_device_arg, load_shader2, refuse_scan, \
+from ._common import add_device_arg, load_shader2, \
     resolve_device
 
 
@@ -59,8 +59,10 @@ def _engine(app, mgr, scene, batch):
         # a translucency spike recovers within ONE displayed frame
         app._eng = e = FrameEngine(
             scene, batch, width=mgr.width, height=mgr.height,
-            mipmap=app.mipmap, lighting=app.lighting, peel=app.peel,
-            peel_mode="split", interactive=True)
+            backend=app.backend, mipmap=app.mipmap, lighting=app.lighting,
+            peel=app.peel,
+            peel_mode=("split" if app.backend == "pallas" else "ml"),
+            interactive=True)
     return e
 
 
@@ -82,6 +84,7 @@ def _tag(app, what: str) -> str:
 
 
 class ModelViewerApp(RendererApp):
+    backend = "pallas"
     show_hud = False
     hud_gmd = None
     hud_label = None
@@ -205,6 +208,7 @@ class DemoWorldApp(RendererApp):
     poses them."""
 
     interactive = False
+    backend = "pallas"
     mipmap = True
     lighting = False
     peel = 0
@@ -264,8 +268,9 @@ def main(argv=None):
     p.add_argument("--overlay", action="store_true",
                    help="draw joint debug cubes")
     p.add_argument("--backend", choices=["scan", "pallas"], default="pallas",
-                   help="pallas: the binned tile raster (the only one "
-                        "here; scan is not ported)")
+                   help="pallas: the binned tile raster; scan: every "
+                        "triangle against every pixel (the oracle, "
+                        "O(triangles x pixels); peels with 'ml')")
     p.add_argument("--sdl", default=None,
                    help="scheduler (.sdl) file animating the bone palette")
     p.add_argument("--mipmap", action="store_true",
@@ -298,11 +303,11 @@ def main(argv=None):
                    help="stop the server after N frames (smoke tests)")
     add_device_arg(p)
     args = p.parse_args(argv)
-    refuse_scan(args.backend)
     dev = resolve_device(args.device)
 
     if args.demo is not None:
         app = DemoWorldApp(buildings=args.demo, device=dev)
+        app.backend = args.backend
         app.peel = args.peel
     elif args.data_root is None or args.prp_path is None:
         p.error("data_root and prp_path are required (or use --demo)")
@@ -310,6 +315,7 @@ def main(argv=None):
         app = ModelViewerApp(args.data_root, args.prp_path,
                              overlay=args.overlay, sdl_path=args.sdl,
                              device=dev)
+        app.backend = args.backend
         app.mipmap = args.mipmap
         app.lighting = args.lighting
         app.peel = args.peel

@@ -29,7 +29,7 @@ from ..render import device
 from ..resources import ResourceManager
 from ..scene.model import build_draw_batch, merge_batches
 from ..scene.overlay import DebugOverlay
-from ._common import add_device_arg, load_shader2, refuse_scan, \
+from ._common import add_device_arg, load_shader2, \
     resolve_device
 
 
@@ -90,15 +90,14 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--overlay", action="store_true")
     p.add_argument("--backend", choices=["scan", "pallas"], default="pallas",
-                   help="pallas: the binned tile raster (the only one "
-                        "here; scan is not ported)")
+                   help="pallas: the binned tile raster; scan: every "
+                        "triangle against every pixel (the oracle)")
     p.add_argument("--devices", type=int, default=0,
                    help="band-split the frame over this many devices (0 = "
                         "one): the first N cards, or N slots on the CPU "
                         "with --device cpu")
     add_device_arg(p)
     args = p.parse_args(argv)
-    refuse_scan(args.backend)
     mesh = None
     if args.devices:
         from ..parallel.tiles import make_row_mesh
@@ -134,20 +133,22 @@ def main(argv=None):
 
         color, _ = render_frame_multichip(
             scene, vp, None, mesh=mesh, width=args.width,
-            height=args.height, packed=True)
+            height=args.height, backend=args.backend,
+            packed=args.backend == "pallas")
         raster.flush_overflow_checks()
         print(f"rendered band-split over {args.devices} devices")
     else:
         from ..render.engine import FrameEngine
 
         eng = FrameEngine(scene, batch, width=args.width,
-                          height=args.height)
+                          height=args.height, backend=args.backend)
         color, _ = eng.render(vp, None)
         eng.check(vp)
 
     from ..utils.png import write_png
 
-    write_png(args.out, device.unpack_rgba(color))
+    write_png(args.out, device.unpack_rgba(color) if args.backend == "pallas"
+              else color.cpu().numpy())
     print(f"wrote {args.out}")
 
 

@@ -108,9 +108,18 @@ __device__ __forceinline__ unsigned warp_cull(
 // -global id) over the candidates inside all three edges (e > bias) with
 // 0 <= z < inf: the reference's group-min-then-update rule, so the order
 // of groups and chunks is invisible.
+//
+// ZLOW (the multipass peel's exclusion, _sl_group_body's has_zlow): a
+// candidate must also lie behind the pixel's zlo[j] (z > zlo[j]; +inf
+// admits nothing, -inf everything). Only the per-pixel test reads it:
+// warp_cull tests edges alone and stays exact. With ZLOW false (the
+// default, which K1's tap and mtap paths, K2 and the probe K3 take)
+// zlo is never read and the body is the one without the exclusion.
+template <bool ZLOW = false>
 __device__ __forceinline__ void raster_group(
     const float (*__restrict__ st)[KG], int id0, const WarpPixels& w,
-    float (&zbest)[K1_PPT], int (&wid)[K1_PPT]) {
+    float (&zbest)[K1_PPT], int (&wid)[K1_PPT],
+    const float* __restrict__ zlo = nullptr) {
   unsigned live = warp_cull(st, w);
   while (live) {
     const int k = __ffs(live) - 1;
@@ -130,7 +139,8 @@ __device__ __forceinline__ void raster_group(
       const float e2 = ea2 * px + eb2 * py + ec2;
       const float z = za * px + zb * py + zc;
       const bool ok = (e0 > bi0) && (e1 > bi1) && (e2 > bi2) &&
-                      (z >= 0.0f) && (z < INFINITY);
+                      (z >= 0.0f) && (z < INFINITY) &&
+                      (!ZLOW || z > zlo[j]);
       if (ok && (z < zbest[j] || (z == zbest[j] && id > wid[j]))) {
         zbest[j] = z;
         wid[j] = id;

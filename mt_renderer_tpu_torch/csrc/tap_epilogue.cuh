@@ -1,20 +1,25 @@
 // Tile geometry and the raster epilogues shared by the raster kernels K1
 // (raster_fwd.cu) and K2 (raster_fwd_ml.cu).
 //
-// The epilogues are the tap and mtap branches of the TPU kernels'
-// _epilogue_rows (mt_renderer_tpu/render/pallas_raster.py:439), lit or
-// unlit. Each loads a kept triangle's coefficient columns by global id
-// from the column-major (ncol, Tp) setup matrix and evaluates them at the
-// pixel center:
-//   tap  -- the mip-0 quad-pool row of the bilinear tap, the tap fractions
-//           fx, fy and the C rgba columns (6 planes + the row);
-//   mtap -- perspective u, v, the texture constants (tex, off hi/lo, th,
-//           tw), C rgba and the winner's U/V/Q plane gradients divided by
-//           Q (17 planes), which the trilinear shade turns into an
-//           analytic LOD.
+// The epilogues are the three branches of the TPU kernels' _epilogue_rows
+// (mt_renderer_tpu/render/pallas_raster.py:439), lit or unlit. Each loads
+// a kept triangle's coefficient columns by global id from the
+// column-major (ncol, Tp) setup matrix and evaluates them at the pixel
+// center:
+//   tap   -- the mip-0 quad-pool row of the bilinear tap, the tap
+//            fractions fx, fy and the C rgba columns (6 planes + the row);
+//   mtap  -- perspective u, v, the texture constants (tex, off hi/lo, th,
+//            tw), C rgba and the winner's U/V/Q plane gradients divided by
+//            Q (17 planes), which the trilinear shade turns into an
+//            analytic LOD;
+//   attrs -- K1 only, the multipass peel's: the u/w, v/w and 1/w planes
+//            at the pixel, the texture constants and C rgba as stored
+//            (tex, C rgba, off hi/lo, th, tw), lit the nx/w, ny/w, nz/w
+//            planes, then the raw U/V/Q plane gradients (18 planes, 21
+//            lit); the shade (device.shade_fwd) divides by Q and lights.
 // The lit variants read 27 coefficient columns instead of 18 (the nx, ny,
-// nz over w planes follow) and scale C rgb by the lambert factor
-// 0.3 + 0.7 * max(n.l / max(|n|, 1e-6), 0); alpha stays unlit. An id < 0
+// nz over w planes follow); tap and mtap scale C rgb by the lambert factor
+// 0.3 + 0.7 * max(n.l / max(|n|, 1e-6), 0), alpha unlit. An id < 0
 // evaluates zero coefficients, as the reference does: tapidx 0, every
 // plane 0.
 
@@ -39,9 +44,13 @@ constexpr int TEX_ROW = NRAST + 9;   // tex column: integer = opaque
 constexpr int NTAP = 6;              // fx, fy, C rgba
 constexpr int NMTAP = 17;            // u, v, tex, off hi/lo, th, tw, C rgba,
                                      // U_x U_y V_x V_y Q_x Q_y over Q
+constexpr int NATTRS = 18;           // u/w v/w 1/w, tex, C rgba, off hi/lo,
+                                     // th, tw, U_x U_y V_x V_y Q_x Q_y
+constexpr int NATTRS_LIT = NATTRS + 3;  // + nx/w ny/w nz/w after tw
 
-// The epilogue modes: the bilinear tap, the trilinear mip tap.
-enum Mode { TAP = 0, MTAP = 1 };
+// The epilogue modes: the bilinear tap, the trilinear mip tap, the plain
+// attributes (K1 only).
+enum Mode { TAP = 0, MTAP = 1, ATTRS = 2 };
 
 // The unit light direction of the lit epilogues.
 struct Light {
@@ -175,6 +184,34 @@ __device__ __forceinline__ void mtap_epilogue(
   mtap_values<LIT>(cols, tp, id, px, py, w_eps, light, o);
 #pragma unroll
   for (int c = 0; c < NMTAP; ++c) ta[c * P] = o.v[c];
+}
+
+// Writes plane c of the pixel's attrs outputs (NATTRS or NATTRS_LIT
+// planes) to ta[c * P].
+template <bool LIT>
+__device__ __forceinline__ void attrs_epilogue(
+    const float* __restrict__ cols, int tp, int id, float px, float py,
+    float* __restrict__ ta) {
+  float a[LIT ? NCOEF_LIT : NCOEF];
+  load_coefs(cols, tp, id, a);
+  ta[0] = plane(a, 0, px, py);                 // u/w
+  ta[P] = plane(a, 3, px, py);                 // v/w
+  ta[2 * P] = plane(a, 6, px, py);             // 1/w
+#pragma unroll
+  for (int i = 0; i < 9; ++i)                  // tex, C rgba, off hi/lo,
+    ta[(3 + i) * P] = a[9 + i];                // th, tw
+  constexpr int G0 = LIT ? 15 : 12;            // first gradient plane
+  if constexpr (LIT) {
+    ta[12 * P] = plane(a, 18, px, py);         // nx/w, ny/w, nz/w
+    ta[13 * P] = plane(a, 21, px, py);
+    ta[14 * P] = plane(a, 24, px, py);
+  }
+  ta[G0 * P] = a[0];                           // U_x, U_y
+  ta[(G0 + 1) * P] = a[1];
+  ta[(G0 + 2) * P] = a[3];                     // V_x, V_y
+  ta[(G0 + 3) * P] = a[4];
+  ta[(G0 + 4) * P] = a[6];                     // Q_x, Q_y
+  ta[(G0 + 5) * P] = a[7];
 }
 
 }  // namespace mtr

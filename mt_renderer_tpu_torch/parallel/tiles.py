@@ -8,12 +8,15 @@ cut one frame over several devices:
   the whole scene (geometry and textures replicated), runs the vertex and
   setup stages for the whole frame (or, with ``setup_shard``, its own
   triangle range, the columns then gathered once), and rasterises and
-  shades only its own band: K1 (and, peeled, K2) at the band's origin.
-  Pixels never cross slots, so the bands compose with no merge;
+  shades only its own band: K1 (and, peeled, K2) at the band's origin,
+  or on the scan backend ``raster_stage`` and ``shade_stage`` over the
+  band's rows. Pixels never cross slots, so the bands compose with no
+  merge;
 * the **geometry split** (``render_frame_geomsplit``): each slot
-  rasterises a chunk-aligned shard of the triangles over the full frame,
+  rasterises a shard of the triangles over the full frame (chunk-aligned
+  on the binned raster, Tp / n of the scan setup on the scan backend),
   and the per-pixel depth contest resolves across shards: MIN of depth,
-  MAX of the winning global id among depth ties (the kernel's own
+  MAX of the winning global id among depth ties (the raster's own
   later-triangle rule), SUM of the shaded planes each slot masked to the
   pixels it won (exactly one slot contributes a pixel).
 
@@ -135,9 +138,17 @@ class _Slots:
 
 
 def _check_split_args(scene, backend: str, mipmap: bool, peel_layers: int,
-                      setup_shard: bool, tap_tiles) -> None:
+                      setup_shard: bool, tap_tiles, packed: bool) -> None:
+    if backend == "scan":
+        if packed:
+            raise ValueError("packed output requires the pallas backend")
+        if peel_layers:
+            raise ValueError("the split peel requires the pallas backend")
+        if setup_shard:
+            raise ValueError("setup_shard needs the pallas non-peel path")
+        return
     if backend != "pallas":
-        raise dev._by_decision(f"backend={backend!r}", dev._WHY_SCAN)
+        raise ValueError(f"unknown backend {backend!r}")
     dev._check_pool_path(scene, mipmap)
     if peel_layers and not 2 <= peel_layers <= rs.MAX_LAYERS:
         raise ValueError(f"peel_layers={peel_layers} out of range "
@@ -244,6 +255,24 @@ def _render_band(scene: dev.DeviceScene, setup, *, y0: int, band_h: int,
     return color, depth, n_over
 
 
+def _render_band_scan(scene: dev.DeviceScene, view_proj, bone_mats, *,
+                      y0: int, band_h: int, width: int, height: int,
+                      chunk: int, clear_color, mipmap: bool,
+                      lighting: bool):
+    """One band of the scan backend: ``raster_stage`` and
+    ``shade_stage`` over rows [y0, y0 + band_h) (past the frame's height
+    too, cropped by the caller) of the full frame's setup → (color
+    (band_h, width, 4) uint8, depth (band_h, width) f32)."""
+    setup = dev.setup_stage(scene, dev.vertex_stage(scene, view_proj,
+                                                    bone_mats),
+                            width, height, bone_mats=bone_mats,
+                            need_normals=lighting)
+    kw = dict(origin=(0, y0), band=(width, band_h))
+    zb, ib = dev.raster_stage(setup, width, height, chunk, **kw)
+    return dev.shade_stage(scene, setup, zb, ib, width, height, clear_color,
+                           mipmap=mipmap, lighting=lighting, **kw), zb
+
+
 def _sum_counts(slots: _Slots, counts) -> tuple:
     """The parts' (bins, taps or None) counts summed over every part (one
     reduction of the stacked pair; a dense shade's None stays None)."""
@@ -256,6 +285,7 @@ def _sum_counts(slots: _Slots, counts) -> tuple:
 def render_frame_multichip(scene: dev.DeviceScene, view_proj, bone_mats=None,
                            *, mesh: tuple | None = None, group=None,
                            width: int = 512, height: int = 512,
+                           chunk: int = dev.DEFAULT_CHUNK,
                            clear_color: tuple = (255, 255, 255, 255),
                            backend: str = "pallas", maxc: int | None = None,
                            mipmap: bool = False, lighting: bool = False,
@@ -287,12 +317,25 @@ def render_frame_multichip(scene: dev.DeviceScene, view_proj, bone_mats=None,
     assembles the column matrix; the frame keeps its bits.
 
     The bands' bins and tap overflow counts are summed and queued
-    (``check_overflow``), each against one band's cap."""
+    (``check_overflow``), each against one band's cap.
+
+    ``backend="scan"`` (single-layer, unpacked, ``chunk`` triangles a
+    step): each band runs ``raster_stage`` and ``shade_stage`` at its
+    origin, the same bits as ``render_frame(backend="scan")``; no
+    overflow counts."""
     _check_split_args(scene, backend, mipmap, peel_layers, setup_shard,
-                      tap_tiles)
+                      tap_tiles, packed)
     slots = _Slots(scene, mesh, group)
     band_h, pb = dev.band_rows(height, slots.n)
     pw, _ = dev._padded(width, height)
+    if backend == "scan":
+        outs = [_render_band_scan(s, view_proj, bone_mats, y0=r * band_h,
+                                  band_h=band_h, width=width, height=height,
+                                  chunk=chunk, clear_color=clear_color,
+                                  mipmap=mipmap, lighting=lighting)
+                for s, r in zip(slots.scenes, slots.ranks)]
+        return _assemble_bands(slots, outs, band_h, height, group,
+                               lambda c: c)
     if setup_shard:
         setups = _sharded_setup(slots, view_proj, bone_mats, width, height,
                                 lighting)
@@ -310,11 +353,15 @@ def render_frame_multichip(scene: dev.DeviceScene, view_proj, bone_mats=None,
     if check_overflow:
         dev._queue_frame_overflow(_sum_counts(slots, [o[2] for o in outs]),
                                   maxc, tap_tiles, width, pb)
+    return _assemble_bands(
+        slots, outs, band_h, height, group,
+        lambda c: c if packed else c.view(torch.uint8).reshape(*c.shape, 4))
 
-    def view(color):
-        return color if packed else color.view(torch.uint8).reshape(
-            *color.shape, 4)
 
+def _assemble_bands(slots: _Slots, outs, band_h: int, height: int, group,
+                    view):
+    """The bands' (color, depth) → the frame on slot 0's device (a mesh)
+    or this rank's rows as ``Band``s (a group), colors through ``view``."""
     if group is None:
         d0 = slots.devices[0]
         color = torch.cat([o[0].to(d0) for o in outs])[:height]
@@ -381,9 +428,67 @@ def _geom_shard(scene: dev.DeviceScene, view_proj, bone_mats, *, r: int,
     return z, ids, src, (n_bins, n_tap)
 
 
+def _geom_shard_scan(scene: dev.DeviceScene, view_proj, bone_mats, *,
+                     r: int, n: int, width: int, height: int, chunk: int,
+                     lighting: bool):
+    """Shard ``r`` of ``n`` on the scan backend: ``raster_stage`` over the
+    triangle range [r Tp/n, (r + 1) Tp/n) of the full frame's setup →
+    (z (H, W) f32 with +inf where it covers nothing, global winner ids or
+    -1, the full setup for the shade)."""
+    setup = dev.setup_stage(scene, dev.vertex_stage(scene, view_proj,
+                                                    bone_mats),
+                            width, height, bone_mats=bone_mats,
+                            need_normals=lighting)
+    tp = setup["ea"].shape[0]
+    size = tp // n
+    zb, ib = dev.raster_stage({k: v[r * size:(r + 1) * size]
+                               for k, v in setup.items()},
+                              width, height, chunk)
+    ids = torch.where(ib >= 0, ib + r * size, -1)
+    return torch.where(ids >= 0, zb, float("inf")), ids, setup
+
+
+def _geomsplit_scan(slots: _Slots, view_proj, bone_mats, *, width: int,
+                    height: int, chunk: int, clear_color, mipmap: bool,
+                    lighting: bool):
+    """The scan backend's geometry split: each slot rasters its shard,
+    the same MIN/MAX merge as the binned raster's, each slot shades the
+    pixels it won with ``shade_src`` and one SUM (as int32 views) gathers
+    them → (color (H, W, 4) uint8, depth (H, W) f32)."""
+    tp = slots.scenes[0].tri_valid.shape[0]
+    if tp % (slots.n * chunk):
+        raise ValueError(f"padded triangle count {tp} not divisible into "
+                         f"{slots.n} shards of whole {chunk}-triangle "
+                         "chunks")
+    parts = [_geom_shard_scan(s, view_proj, bone_mats, r=r, n=slots.n,
+                              width=width, height=height, chunk=chunk,
+                              lighting=lighting)
+             for s, r in zip(slots.scenes, slots.ranks)]
+    d0 = slots.devices[0]
+    zs = [p[0].to(d0) for p in parts]
+    ids = [p[1].to(d0) for p in parts]
+    zmin = slots.reduce(zs, "min")
+    tied = [(z == zmin) & (i >= 0) for z, i in zip(zs, ids)]
+    win = slots.reduce([torch.where(t, i, -1) for t, i in zip(tied, ids)],
+                       "max")
+    mine = [t & (i == win) for t, i in zip(tied, ids)]
+    srcs = []
+    for s, p, m in zip(slots.scenes, parts, mine):
+        src, _ = dev.shade_src(s, p[2], torch.where(m, win, -1).to(s.device),
+                               width, height, mipmap=mipmap,
+                               lighting=lighting)
+        srcs.append(torch.where(m[..., None], src.to(d0), 0.0))
+    src = slots.gather_sum(srcs)
+    covered = win >= 0
+    out = dev.blend_over(src, covered, dev._clear(clear_color, covered.shape,
+                                                  d0))
+    return dev._to_u8(out), torch.where(covered, zmin, 1.0)
+
+
 def render_frame_geomsplit(scene: dev.DeviceScene, view_proj, bone_mats=None,
                            *, mesh: tuple | None = None, group=None,
                            width: int = 512, height: int = 512,
+                           chunk: int = dev.DEFAULT_CHUNK,
                            clear_color: tuple = (255, 255, 255, 255),
                            backend: str = "pallas", maxc: int | None = None,
                            mipmap: bool = False, lighting: bool = False,
@@ -401,9 +506,20 @@ def render_frame_geomsplit(scene: dev.DeviceScene, view_proj, bone_mats=None,
     pixels it won, as int32 views. ``tap_tiles`` caps each shard's
     compacted taps (``device.auto_tap_tiles`` bounds every shard: a
     shard covers a subset of the frame). ``packed`` and the overflow
-    queue as in ``render_frame_multichip``."""
-    _check_split_args(scene, backend, mipmap, 0, False, tap_tiles)
+    queue as in ``render_frame_multichip``.
+
+    ``backend="scan"``: shard r rasters triangles [r Tp/n, (r + 1) Tp/n)
+    of the scan setup (``raster_stage``, ``chunk`` triangles a step; Tp /
+    n must be whole chunks), the same merge, each slot shading the
+    pixels it won with ``shade_src``: the same bits as
+    ``render_frame(backend="scan")``, unpacked."""
+    _check_split_args(scene, backend, mipmap, 0, False, tap_tiles, packed)
     slots = _Slots(scene, mesh, group)
+    if backend == "scan":
+        return _geomsplit_scan(slots, view_proj, bone_mats, width=width,
+                               height=height, chunk=chunk,
+                               clear_color=clear_color, mipmap=mipmap,
+                               lighting=lighting)
     pw, ph = dev._padded(width, height)
     parts = [_geom_shard(s, view_proj, bone_mats, r=r, n=slots.n, width=width,
                          height=height, maxc=maxc, tap_tiles=tap_tiles,

@@ -1,11 +1,16 @@
 """Device stages of a frame — vertex, setup, binning, raster, shade, pack.
 
-The counterpart of ``mt_renderer_tpu/render/device.py`` on the packed
-single-layer paths (``render_frame(backend="pallas", packed=True)``)
-and the peeled (order-independent transparency) paths
-(``render_frame_peeled``, ``peel_mode="split"`` and ``"ml"``), each
-bilinear tap or, with ``mipmap``, trilinear; lit or unlit. The
-single-layer frame runs:
+The counterpart of ``mt_renderer_tpu/render/device.py``: the
+single-layer frame (``render_frame``), packed or not, and the peeled
+(order-independent transparency) frame (``render_frame_peeled``,
+``peel_mode`` "split", "ml" or "multipass"), each bilinear tap or, with
+``mipmap``, trilinear; lit or unlit; on the binned tile raster
+(``backend="pallas"``, the port's default) or on the scan backend
+(``backend="scan"``, the reference's default and its independent
+oracle: ``setup_stage``, ``raster_stage`` or ``raster_multilayer``,
+``shade_src`` with the samplers ``sample_bilinear`` and
+``sample_trilinear``, ``blend_over``; plain PyTorch, as the reference's
+is plain XLA). The single-layer frame on the binned raster runs:
 
 1. ``vertex_stage`` — bone-palette skinning (a gather and a weighted
    sum) + MVP, written as elementwise fp32 ops;
@@ -32,7 +37,11 @@ through K1 and the translucent set through the multi-layer kernel K2
 and composites the translucent layers in front of it
 (``composite_peeled_tap_flat``; mipmapped, both kernels run the mtap
 epilogue and ``composite_peeled_mip_flat`` shades the layers
-trilinearly).
+trilinearly). The multipass peel bins once and runs K1 once per layer,
+each pass excluding depths at or in front of the previous layer +
+``PEEL_EPS`` (``raster_fwd(zlow=...)``): the tap epilogue and the dense
+tap shade, or mipmapped K1's plain-attributes epilogue and ``shade_fwd``;
+the passes blend back to front (``blend_over_planes``).
 
 Pixel rules (coverage at centers with the top-left rule and edge-snap
 band folded into a per-edge bias, back-face cull of area2 >= 0, the
@@ -73,21 +82,14 @@ logger = logging.getLogger("mt_renderer_tpu_torch.device")
 W_EPS = 1e-6
 SEG_PX = 2048          # tap-compaction row: one whole flattened tile
 TRI_PAD = 384          # triangle-count padding quantum: one raster chunk
-
-_WHY_SCAN = ("the port keeps only the binned tile raster; scan stays a "
-             "reference harness")
+DEFAULT_CHUNK = 16     # triangles per scan-backend step
+PEEL_EPS = 1e-6        # multipass peel layer separation (NDC depth units)
 
 POOL_MODES = ("quad", "narrow", "auto", "tri", "bc1", "bc7")
 # physical row bytes of each stored pool: "tri" and "bc1" pack two 64 B
 # logical rows into each 128 B row; a "bc7" row is one 128 B logical row
 POOL_ROW_BYTES = {"quad": 16, "narrow": 4, "tri": 128, "bc1": 128,
                   "bc7": 128}
-
-
-def _by_decision(what: str, why: str):
-    return NotImplementedError(
-        f"{what} is not ported, by decision: {why} (ROADMAP Queue 1, "
-        "'Not ported, by decision')")
 
 
 TENSOR_FIELDS = (
@@ -999,9 +1001,11 @@ def _tap_albedo_channels(pool, idx, fx, fy) -> list:
 
 
 def _check_pool_path(scene: DeviceScene, mipmap: bool) -> None:
-    """The bilinear tap paths address texel rows of a quad or tri pool:
-    a bc1 or bc7 pool (4x4 blocks) renders only through the mipmap path,
-    and a narrow pool too (its tap would need four gathers)."""
+    """The binned raster's bilinear tap paths address texel rows of a
+    quad or tri pool: a bc1 or bc7 pool (4x4 blocks) renders there only
+    through the mipmap path (the scan backend samples its blocks without
+    mipmap too), and a narrow pool too (its tap would need four
+    gathers)."""
     if mipmap:
         return
     if scene.pool_mode == "narrow":
@@ -1012,8 +1016,8 @@ def _check_pool_path(scene: DeviceScene, mipmap: bool) -> None:
     if scene.pool_mode in ("bc1", "bc7"):
         raise ValueError(
             f"{scene.pool_mode} pools render via the mipmap path "
-            f"(mipmap=True): the non-mip tap kernel addresses texel rows, "
-            f"not 4x4 blocks")
+            f"(mipmap=True) or the scan backend: the non-mip tap kernel "
+            f"addresses texel rows, not 4x4 blocks")
 
 
 def _blend_channels(src_channels, covered, clear_color) -> list:
@@ -1167,11 +1171,7 @@ def composite_peeled_tap_flat(scene: DeviceScene, tattrs, tapidx, il,
         src = [torch.where(textured[:, layer],
                            alb[c][:, layer] * a4[:, layer, 2 + c],
                            a4[:, layer, 2 + c]) for c in range(4)]
-        a = src[3] / 255.0
-        cov = covered[:, layer]
-        dst = ([torch.where(cov, src[c] * a + dst[c] * (1.0 - a), dst[c])
-                for c in range(3)]
-               + [torch.where(cov, src[3], dst[3])])
+        dst = blend_over_planes(src, covered[:, layer], dst)
     return dst, n_over_tap
 
 
@@ -1622,12 +1622,110 @@ def composite_peeled_mip_flat(scene: DeviceScene, mattrs, il, layers: int,
         src = [torch.where(textured[:, layer],
                            alb[c][:, layer] * a4[:, layer, 7 + c],
                            a4[:, layer, 7 + c]) for c in range(4)]
-        a = src[3] / 255.0
-        cov = covered[:, layer]
-        dst = ([torch.where(cov, src[c] * a + dst[c] * (1.0 - a), dst[c])
-                for c in range(3)]
-               + [torch.where(cov, src[3], dst[3])])
+        dst = blend_over_planes(src, covered[:, layer], dst)
     return dst, n_over_tap
+
+
+# ------------------------------------------------------- multipass peel
+
+
+def shade_fwd(scene: DeviceScene, attrs, ib, mipmap: bool = False,
+              lighting: bool = False):
+    """Shade from K1's plain-attributes planes (``raster_fwd(mode=
+    "attrs")``: attrs (n, 18 or 21 lit, X), ib (n, X)) → (src channels
+    [r, g, b, a] each (n, X) f32 0-255, covered (n, X) bool); elementwise
+    per pixel, so tile-major in, tile-major out.
+
+    Perspective u, v from the u/w, v/w and 1/w planes; the albedo is the
+    bilinear tap of mip 0 at the winner's off/th/tw columns, or with
+    ``mipmap`` the trilinear tap (``_trilinear_arith``, any pool) at the
+    analytic LOD of the winner's U/V/Q gradients divided by Q here (the
+    reference's ``device.shade_fwd``). ``lighting`` scales rgb by the
+    lambert factor of the normal planes: n = [nx, ny, nz]/w x w,
+    normalised, 0.3 + 0.7 max(n.l, 0); its square root runs in f64 (see
+    ``raster._lit_scale``)."""
+    covered = ib >= 0
+    w_ = attrs[:, 2]
+    inv = torch.reciprocal(torch.where(w_.abs() < W_EPS, W_EPS, w_))
+    u = attrs[:, 0] * inv
+    v = attrs[:, 1] * inv
+    textured = rs._trunc_i32(attrs[:, 3]) >= 0
+    off = rs._trunc_i32(attrs[:, 8]) * 4096 + rs._trunc_i32(attrs[:, 9])
+    th = rs._trunc_i32(attrs[:, 10])
+    tw = rs._trunc_i32(attrs[:, 11])
+    if mipmap:
+        g0 = attrs.shape[1] - 6
+        lod = _analytic_lod(u, v, *[attrs[:, g0 + i] * inv
+                                    for i in range(6)],
+                            attrs[:, 10], attrs[:, 11])
+        albedo = _trilinear_arith(scene.mip_pool, off, th, tw, lod, u, v,
+                                  scene.num_mips, mode=scene.pool_mode,
+                                  aux=scene.aux_pool,
+                                  bc7_modes=scene.bc7_modes)
+    else:
+        albedo = _quad_bilinear(scene.mip_pool, off, th, tw, u, v)
+    src = [torch.where(textured, albedo[c] * attrs[:, 4 + c],
+                       attrs[:, 4 + c]) for c in range(4)]
+    if lighting:
+        n = [attrs[:, 12 + i] * inv for i in range(3)]
+        ln = torch.sqrt((n[0] * n[0] + n[1] * n[1] + n[2] * n[2]).to(
+            torch.float64)).to(torch.float32).clamp(min=1e-6)
+        n = [c / ln for c in n]
+        light = _light_unit()
+        ndl = (light[0] * n[0] + light[1] * n[1] + light[2] * n[2]).clamp(
+            min=0.0)
+        shade = 0.3 + 0.7 * ndl
+        src = [src[0] * shade, src[1] * shade, src[2] * shade, src[3]]
+    return src, covered
+
+
+def blend_over_planes(src, covered, dst) -> list:
+    """src-alpha over ``dst``, channel lists [r, g, b, a] of one shape;
+    output alpha is src alpha (the reference blend state); ``dst`` where
+    not ``covered``."""
+    a = src[3] / 255.0
+    return ([torch.where(covered, src[c] * a + dst[c] * (1.0 - a), dst[c])
+             for c in range(3)]
+            + [torch.where(covered, src[3], dst[3])])
+
+
+def _multipass_flat(scene: DeviceScene, cols, bbox, *, pw: int, ph: int,
+                    layers: int, maxc: int, clear_color, mipmap: bool,
+                    light, raster=rs.raster_fwd):
+    """The multipass peel over the whole padded frame: bin once, then
+    ``layers`` passes of K1, each excluding every depth at or in front of
+    the previous pass's winner + PEEL_EPS (``zlow``; +inf where the
+    previous pass covered nothing, so nothing enters there). Each pass
+    shades: the tap epilogue and the dense ``shade_tap_flat_channels``,
+    or with ``mipmap`` the attrs epilogue and ``shade_fwd`` (lit under
+    ``light``); then the passes blend back to front over the clear color.
+
+    Returns (channels [r, g, b, a] each (n_tiles, P) f32 tile-major, z of
+    the first pass (n_tiles, P) with 1.0 where empty, the bins' overflow
+    count)."""
+    lists, glists, counts, n_over = rs.prebin(cols, bbox, 0, 0, width=pw,
+                                              height=ph, maxc=maxc)
+    kw = dict(width=pw, height=ph, w_eps=W_EPS, light=light)
+    passes = []
+    zlow = None
+    for _ in range(layers):
+        if mipmap:
+            zb, ib, attrs = raster(cols, lists, glists, counts, (0, 0),
+                                   mode="attrs", zlow=zlow, **kw)
+            src, covered = shade_fwd(scene, attrs, ib[:, 0], mipmap=True,
+                                     lighting=light is not None)
+        else:
+            zb, ib, tattrs, tapidx = raster(cols, lists, glists, counts,
+                                            (0, 0), zlow=zlow, **kw)
+            src, covered, _ = shade_tap_flat_channels(scene, tattrs, tapidx,
+                                                      ib)
+        passes.append((src, covered, zb[:, 0]))
+        zlow = torch.where(ib >= 0, zb + PEEL_EPS, float("inf"))
+    clear = np.asarray(clear_color, np.float32)
+    dst = [torch.full_like(passes[0][2], float(clear[c])) for c in range(4)]
+    for src, covered, _ in reversed(passes):
+        dst = blend_over_planes(src, covered, dst)
+    return dst, passes[0][2], n_over
 
 
 # ------------------------------------------------------- bilinear SWAR (K4)
@@ -1845,6 +1943,364 @@ def auto_tap_tiles(batch, view_proj, bone_mats=None, *,
                _seg_rows_of(pw, pb))
 
 
+# --------------------------------------------------------------- scan backend
+#
+# The reference's second renderer and its independent oracle: every
+# triangle against every pixel, DEFAULT_CHUNK triangles a step, z from
+# barycentrics and the shade from per-triangle tables (nothing of K1's
+# planes or packed columns). Plain PyTorch: the reference's is plain XLA,
+# with no Pallas kernel. It costs O(triangles x pixels).
+
+
+def setup_stage(scene: DeviceScene, clip, width: int, height: int,
+                bone_mats=None, need_normals: bool = False) -> dict:
+    """Per-triangle setup of the scan backend → a dict of (Tp, ...)
+    tensors: edge coefficients ea/eb/ec (Tp, 3), the top-left flags and
+    snap bands, the area, NDC depth sz and 1/w per corner, validity,
+    corner uvs (Tp, 3, 2) and, with ``need_normals``, the world normals
+    (Tp, 3, 3) under ``bone_mats``."""
+    c = clip.reshape(3, -1, 4).transpose(0, 1)            # (Tp, 3, 4)
+    w = c[..., 3]
+    inv_w = torch.reciprocal(torch.where(w.abs() < W_EPS, W_EPS, w))
+    ndc = c[..., :3] * inv_w[..., None]
+    sx = (ndc[..., 0] + 1.0) * (0.5 * width)              # (Tp, 3)
+    sy = (1.0 - ndc[..., 1]) * (0.5 * height)
+    area2 = (sx[:, 1] - sx[:, 0]) * (sy[:, 2] - sy[:, 0]) - (
+        sy[:, 1] - sy[:, 0]) * (sx[:, 2] - sx[:, 0])
+    valid = scene.tri_vis & (w > W_EPS).all(1) & (area2 < 0.0)
+    # edge i runs from corner i+1 to corner i+2; E = A px + B py + C is
+    # positive inside a front face (cpu_reference's convention)
+    ax = torch.stack([sx[:, 1], sx[:, 2], sx[:, 0]], 1)
+    ay = torch.stack([sy[:, 1], sy[:, 2], sy[:, 0]], 1)
+    bx = torch.stack([sx[:, 2], sx[:, 0], sx[:, 1]], 1)
+    by = torch.stack([sy[:, 2], sy[:, 0], sy[:, 1]], 1)
+    ea = by - ay
+    eb = -(bx - ax)
+    ec = ay * (bx - ax) - ax * (by - ay)
+    out = dict(
+        ea=ea, eb=eb, ec=ec,
+        topleft=((ay == by) & (bx < ax)) | (by > ay),
+        esnap=1e-6 * (ea.abs() * width + eb.abs() * height + ec.abs()),
+        area=-area2, sz=ndc[..., 2], inv_w=inv_w, valid=valid,
+        uv=scene.uvs.reshape(3, -1, 2).transpose(0, 1))
+    if need_normals:
+        out["nrm"] = world_normals(scene, bone_mats).reshape(
+            3, -1, 3).transpose(0, 1)
+    return out
+
+
+def _coverage(ch: dict, px, py):
+    """Edge coverage of a chunk of K triangles over a pixel grid (px, py
+    (H, W)) → (cov (K, H, W) bool, e (K, 3, H, W)): |e| within the snap
+    band counts as on the edge, where the top-left rule decides."""
+    e = (ch["ea"][:, :, None, None] * px + ch["eb"][:, :, None, None] * py
+         + ch["ec"][:, :, None, None])
+    on_edge = e.abs() <= ch["esnap"][:, :, None, None]
+    inside = (~on_edge & (e > 0.0)) | (on_edge
+                                       & ch["topleft"][:, :, None, None])
+    return inside.all(1) & ch["valid"][:, None, None], e
+
+
+def _band_grid(width: int, height: int, origin, band, dev):
+    """Pixel centers (px, py), each (bh, bw) f32, of the band ``band`` =
+    (bw, bh) (default the frame) whose top-left pixel is ``origin``."""
+    bw, bh = band if band is not None else (width, height)
+    x0, y0 = (int(o) for o in origin)
+    px = torch.arange(bw, dtype=torch.float32, device=dev) + (x0 + 0.5)
+    py = torch.arange(bh, dtype=torch.float32, device=dev) + (y0 + 0.5)
+    return px[None, :].expand(bh, bw), py[:, None].expand(bh, bw)
+
+
+def _chunk_depth(ch: dict, px, py):
+    """A chunk's (cov (K, H, W), z (K, H, W)): z = sum_i sz_i * bary_i."""
+    cov, e = _coverage(ch, px, py)
+    b = e * (1.0 / ch["area"])[:, None, None, None]
+    sz = ch["sz"][:, :, None, None]
+    return cov, sz[:, 0] * b[:, 0] + sz[:, 1] * b[:, 1] + sz[:, 2] * b[:, 2]
+
+
+def _chunks(setup: dict, chunk: int):
+    """The setup's triangle ranges of ``chunk`` → (ids (K,), their
+    setup dict), in order."""
+    tp = setup["ea"].shape[0]
+    if tp % chunk:
+        raise ValueError(f"{tp} triangles are not a multiple of chunk="
+                         f"{chunk}")
+    ids = torch.arange(tp, dtype=torch.int32, device=setup["ea"].device)
+    for lo in range(0, tp, chunk):
+        yield ids[lo:lo + chunk], {k: v[lo:lo + chunk]
+                                   for k, v in setup.items()
+                                   if k not in ("uv", "nrm")}
+
+
+def raster_stage(setup: dict, width: int, height: int, chunk: int,
+                 origin=(0, 0), band=None, zlow=None):
+    """Scan over triangle chunks → per-pixel (depth (bh, bw) f32 with 1.0
+    where uncovered, winner id (bh, bw) i32 or -1).
+
+    Candidates are inside with 0 <= z <= the running depth (and z >
+    ``zlow``, (bh, bw), when given); per chunk the nearest wins, the
+    larger id on exact ties (the argmin of the reversed chunk: argmin
+    returns the first minimum), and it replaces the running winner when
+    at least as near: later triangles win ties, as in the ordered CPU
+    path. ``origin``/``band`` select a screen rectangle; the viewport
+    transform keeps the full ``width`` x ``height``."""
+    px, py = _band_grid(width, height, origin, band, setup["ea"].device)
+    zbest = torch.full(px.shape, float("inf"), device=px.device)
+    ibest = torch.full(px.shape, -1, dtype=torch.int32, device=px.device)
+    for ids, ch in _chunks(setup, chunk):
+        cov, z = _chunk_depth(ch, px, py)
+        zok = cov & (z <= zbest) & (z >= 0.0)
+        if zlow is not None:
+            zok &= z > zlow
+        zr = torch.where(zok, z, float("inf")).flip(0)
+        k = torch.argmin(zr, 0)
+        zmin = torch.gather(zr, 0, k[None])[0]
+        upd = (zmin <= zbest) & torch.isfinite(zmin)
+        zbest = torch.where(upd, zmin, zbest)
+        ibest = torch.where(upd, ids.flip(0)[k], ibest)
+    return torch.where(ibest >= 0, zbest, 1.0), ibest
+
+
+def raster_multilayer(setup: dict, width: int, height: int, chunk: int,
+                      layers: int, origin=(0, 0), band=None):
+    """Single-pass L-layer visibility: the ``layers`` nearest fragments
+    per pixel in one scan over triangle chunks, each chunk's fragments
+    merged into the running list sorted on (z ascending, id descending):
+    a stable sort on the id, then a stable sort on z (the reference's
+    two-key ``lax.sort``). Returns (z (L, bh, bw) with 1.0 beyond the
+    last fragment, ids (L, bh, bw) i32 or -1), nearest first."""
+    px, py = _band_grid(width, height, origin, band, setup["ea"].device)
+    dev = px.device
+    zl = torch.full((layers,) + px.shape, float("inf"), device=dev)
+    il = torch.full((layers,) + px.shape, -1, dtype=torch.int32, device=dev)
+    for ids, ch in _chunks(setup, chunk):
+        cov, z = _chunk_depth(ch, px, py)
+        zm = torch.where(cov & (z >= 0.0), z, float("inf"))
+        allz = torch.cat([zl, zm])
+        allid = torch.cat([il, ids[:, None, None].expand(zm.shape)])
+        o = torch.sort(allid, dim=0, descending=True, stable=True).indices
+        allz = torch.gather(allz, 0, o)
+        allid = torch.gather(allid, 0, o)
+        o = torch.sort(allz, dim=0, stable=True).indices[:layers]
+        zl = torch.gather(allz, 0, o)
+        il = torch.gather(allid, 0, o)
+    il = torch.where(torch.isfinite(zl), il, -1)
+    return torch.where(il >= 0, zl, 1.0), il
+
+
+def _sample_mip_bilinear(pool, table, layer, mip, u, v) -> list:
+    """Bilinear tap of texture ``layer``'s level ``mip`` (each like u)
+    through the mip table (L, M, 3) → 4 channel tensors."""
+    t = table.reshape(-1, 3)[(layer * table.shape[1] + mip).long()]
+    return _quad_bilinear(pool, t[..., 0], t[..., 1], t[..., 2], u, v)
+
+
+def _bc1_bilinear(pool, off, hh, ww, u, v) -> list:
+    """Bilinear tap from the bc1 pool: one 64 B row, the block group at
+    (x0c >> 2, y0c >> 2) whose baked 2x2 blocks hold the whole footprint,
+    and four texel decodes. ``off`` is the level's block-row offset,
+    hh/ww its texel extents."""
+    x0c, y0c, x1c, y1c, fx, fy = _footprint(ww, hh, u, v)
+    bx = x0c >> 2
+    by = y0c >> 2
+    row = _pool_rows(pool, off + by * ((ww + 3) >> 2) + bx, 64)
+    c0s, c1s, bits = _bc1_words(row, n=4)
+    rx = ((x1c >> 2) - bx).clamp(0, 1)
+    ry = ((y1c >> 2) - by).clamp(0, 1)
+    return _contract_quad(_bc1_quad(
+        c0s, c1s, bits, 0, [(x0c, y0c, None, None), (x1c, y0c, rx, None),
+                            (x0c, y1c, None, ry), (x1c, y1c, rx, ry)]),
+        fx, fy)
+
+
+def _bc7_bilinear(pool, aux, modes, off, hh, ww, u, v) -> list:
+    """Bilinear tap from the bc7 pool: one 128 B row (and, where
+    ``modes`` holds a partitioned mode, its 64 B hint row from ``aux``)
+    and four texel decodes, addressed as ``_bc1_bilinear``."""
+    x0c, y0c, x1c, y1c, fx, fy = _footprint(ww, hh, u, v)
+    bx = x0c >> 2
+    by = y0c >> 2
+    idx = off + by * ((ww + 3) >> 2) + bx
+    words = _bc7_row_words(_pool_rows(pool, idx, 128), n=4)
+    hints = (_bc7_row_hints(_pool_rows(aux, idx, 64), n=4)
+             if _bc7_needs_hint(modes) else None)
+    rx = ((x1c >> 2) - bx).clamp(0, 1)
+    ry = ((y1c >> 2) - by).clamp(0, 1)
+    return _contract_quad(_bc7_quad(
+        words, hints, 0, [(x0c, y0c, None, None), (x1c, y0c, rx, None),
+                          (x0c, y1c, None, ry), (x1c, y1c, rx, ry)], modes),
+        fx, fy)
+
+
+def _level0(scene: DeviceScene, layer):
+    """Texture ``layer``'s (clamped) mip-0 (offset, h, w) from the table."""
+    lc = layer.clamp(0, scene.mip_table.shape[0] - 1).long()
+    t = scene.mip_table[:, 0][lc]
+    return t[..., 0], t[..., 1], t[..., 2]
+
+
+def sample_bilinear(scene: DeviceScene, layer, u, v) -> list:
+    """Bilinear clamp-to-edge tap of mip 0 of texture ``layer`` at (u,
+    v) (each (...)) from any pool → 4 channel tensors f32 0-255."""
+    if scene.pool_mode == "bc7":
+        return _bc7_bilinear(scene.mip_pool, scene.aux_pool,
+                             scene.bc7_modes, *_level0(scene, layer), u, v)
+    if scene.pool_mode == "bc1":
+        return _bc1_bilinear(scene.mip_pool, *_level0(scene, layer), u, v)
+    lc = layer.clamp(0, scene.mip_table.shape[0] - 1)
+    return _sample_mip_bilinear(scene.mip_pool, scene.mip_table, lc,
+                                torch.zeros_like(lc), u, v)
+
+
+def sample_trilinear(scene: DeviceScene, layer, u, v, lod) -> list:
+    """Trilinear tap (bilinear at two levels, lerped by the fraction of
+    ``lod``) of texture ``layer`` → 4 channel tensors. The tri, bc1 and
+    bc7 pools take the fused one-gather sampler (``_trilinear_arith``,
+    the expression every mipmapped path shares on such a pool); the quad
+    and narrow pools two table-addressed bilinear taps."""
+    if scene.pool_mode in ("bc1", "bc7") or scene.mip_pool.shape[-1] == 128:
+        return _trilinear_arith(scene.mip_pool, *_level0(scene, layer), lod,
+                                u, v, scene.num_mips, mode=scene.pool_mode,
+                                aux=scene.aux_pool,
+                                bc7_modes=scene.bc7_modes)
+    lc = layer.clamp(0, scene.mip_table.shape[0] - 1)
+    lod = lod.clamp(0.0, float(scene.num_mips - 1))
+    m0 = rs._trunc_i32(torch.floor(lod))
+    m1 = torch.clamp(m0 + 1, max=scene.num_mips - 1)
+    fm = lod - m0.to(torch.float32)
+    s0 = _sample_mip_bilinear(scene.mip_pool, scene.mip_table, lc, m0, u, v)
+    s1 = _sample_mip_bilinear(scene.mip_pool, scene.mip_table, lc, m1, u, v)
+    return [a * (1 - fm) + b * fm for a, b in zip(s0, s1)]
+
+
+def _debug_palette(dev) -> torch.Tensor:
+    """The 20 debug colors with alpha 255, (20, 4) f32."""
+    return torch.as_tensor(np.concatenate(
+        [DEBUG_PALETTE.astype(np.float32), np.full((20, 1), 255.0,
+                                                  np.float32)], 1),
+        device=dev)
+
+
+def _dot3(a, b) -> torch.Tensor:
+    """sum_i a[..., i] * b[..., i] over a last axis of 3, in order."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def shade_src(scene: DeviceScene, setup: dict, ib, width: int, height: int,
+              origin=(0, 0), band=None, mipmap: bool = False,
+              lighting: bool = False):
+    """Per-pixel source color of the winner ``ib`` (bh, bw) from the
+    per-triangle tables → (src (bh, bw, 4) f32 0-255, covered (bh, bw)
+    bool): barycentrics of the winner's edges at the pixel center,
+    perspective-correct uv, the bilinear tap of mip 0 (or with ``mipmap``
+    the trilinear tap at the analytic LOD of the winner's own U/V/Q
+    planes, rebuilt from its edges), the flat or debug color where
+    untextured, times the material color; ``lighting``: the lambert
+    factor of the perspective-correct normal."""
+    covered = ib >= 0
+    idx = ib.clamp(min=0).long()
+    px, py = _band_grid(width, height, origin, band, ib.device)
+    ea = setup["ea"][idx]                                 # (H, W, 3)
+    eb = setup["eb"][idx]
+    area = setup["area"][idx][..., None]
+    e = ea * px[..., None] + eb * py[..., None] + setup["ec"][idx]
+    bw_ = (e / area) * setup["inv_w"][idx]                # bary / w
+    pw = bw_[..., 0] + bw_[..., 1] + bw_[..., 2]
+    uv = setup["uv"][idx]                                 # (H, W, 3, 2)
+    u = _dot3(bw_, uv[..., 0]) / pw
+    v = _dot3(bw_, uv[..., 1]) / pw
+    layer = scene.tri_texture[idx]
+    if mipmap:
+        hw = scene.tex_size[layer.clamp(0, scene.tex_size.shape[0] - 1)
+                            .long()].to(torch.float32)
+        ax = (ea / area) * setup["inv_w"][idx]
+        ay = (eb / area) * setup["inv_w"][idx]
+        ipw = 1.0 / pw
+        lod = _analytic_lod(
+            u, v, _dot3(ax, uv[..., 0]) * ipw, _dot3(ay, uv[..., 0]) * ipw,
+            _dot3(ax, uv[..., 1]) * ipw, _dot3(ay, uv[..., 1]) * ipw,
+            (ax[..., 0] + ax[..., 1] + ax[..., 2]) * ipw,
+            (ay[..., 0] + ay[..., 1] + ay[..., 2]) * ipw,
+            hw[..., 0], hw[..., 1])
+        albedo = sample_trilinear(scene, layer, u, v, lod)
+    else:
+        albedo = sample_bilinear(scene, layer, u, v)
+    debug = _debug_palette(ib.device)[(scene.tri_debug_id[idx] % 20).long()]
+    flat = scene.tri_flat[idx]
+    untextured = torch.where(flat[..., 3:4] >= 0.0, flat, debug)
+    src = torch.where((layer >= 0)[..., None], torch.stack(albedo, -1),
+                      untextured)
+    src = src * scene.mat_color[scene.tri_material[idx].long()]
+    if lighting:
+        nv = setup["nrm"][idx]                            # (H, W, 3, 3)
+        n = torch.stack([_dot3(bw_, nv[..., c]) / pw for c in range(3)], -1)
+        ln = torch.sqrt((n * n).sum(-1, keepdim=True).to(torch.float64)).to(
+            torch.float32).clamp(min=1e-6)
+        n = n / ln
+        light = _light_unit()
+        ndl = (light[0] * n[..., 0] + light[1] * n[..., 1]
+               + light[2] * n[..., 2]).clamp(min=0.0)
+        src = torch.cat([src[..., :3] * (0.3 + 0.7 * ndl)[..., None],
+                         src[..., 3:]], -1)
+    return src, covered
+
+
+def blend_over(src, covered, dst):
+    """src-alpha / one-minus-src-alpha over ``dst`` (..., 4); output alpha
+    is src alpha (the reference blend state, model.rs:242-247); ``dst``
+    where not ``covered``. Float 0-255."""
+    a = src[..., 3:4] / 255.0
+    out = torch.cat([src[..., :3] * a + dst[..., :3] * (1.0 - a),
+                     src[..., 3:4]], -1)
+    return torch.where(covered[..., None], out, dst)
+
+
+def _to_u8(x):
+    """Float 0-255 → uint8, rounding half up (clip(x + 0.5) truncated)."""
+    return (x + 0.5).clamp(0.0, 255.0).to(torch.uint8)
+
+
+def _clear(clear_color, shape, dev):
+    return torch.as_tensor(np.asarray(clear_color, np.float32),
+                           device=dev).expand(*shape, 4)
+
+
+def shade_stage(scene: DeviceScene, setup: dict, zb, ib, width: int,
+                height: int, clear_color, origin=(0, 0), band=None,
+                mipmap: bool = False, lighting: bool = False):
+    """Winner-takes-all deferred shading blended over the clear color →
+    (bh, bw, 4) uint8."""
+    src, covered = shade_src(scene, setup, ib, width, height, origin, band,
+                             mipmap=mipmap, lighting=lighting)
+    return _to_u8(blend_over(src, covered,
+                             _clear(clear_color, ib.shape, ib.device)))
+
+
+def _render_frame_scan(scene: DeviceScene, view_proj, bone_mats=None, *,
+                       width: int, height: int, chunk: int,
+                       clear_color: tuple, mipmap: bool = False,
+                       lighting: bool = False, layers: int = 0):
+    """The scan backend's frame → (color (H, W, 4) uint8, depth (H, W)
+    f32): single-layer, or with ``layers`` the L nearest fragments of
+    ``raster_multilayer``, each shaded by ``shade_src`` and blended back
+    to front (depth: the nearest layer's)."""
+    clip = vertex_stage(scene, view_proj, bone_mats)
+    setup = setup_stage(scene, clip, width, height, bone_mats=bone_mats,
+                        need_normals=lighting)
+    if not layers:
+        zb, ib = raster_stage(setup, width, height, chunk)
+        return shade_stage(scene, setup, zb, ib, width, height, clear_color,
+                           mipmap=mipmap, lighting=lighting), zb
+    zl, il = raster_multilayer(setup, width, height, chunk, layers)
+    dst = _clear(clear_color, il.shape[1:], il.device)
+    for k in reversed(range(layers)):
+        src, covered = shade_src(scene, setup, il[k], width, height,
+                                 mipmap=mipmap, lighting=lighting)
+        dst = blend_over(src, covered, dst)
+    return _to_u8(dst), zl[0]
+
+
 # ------------------------------------------------------------------ frame
 
 
@@ -1923,6 +2379,7 @@ def count_covered_textured(scene: DeviceScene, view_proj, bone_mats=None,
 
 def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
                  width: int = 512, height: int = 512,
+                 chunk: int = DEFAULT_CHUNK,
                  clear_color: tuple = (255, 255, 255, 255),
                  backend: str = "pallas", maxc: int | None = None,
                  mipmap: bool = False, lighting: bool = False,
@@ -1930,12 +2387,18 @@ def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
                  tap_tiles: int | None = None):
     """Render one frame → (color, (H, W) f32 depth on the scene's device).
 
-    ``backend="pallas"`` names the binned tile raster (the name the
-    reference's production path uses): candidate chunks per tile are
-    capped at ``maxc``, sized with ``auto_maxc``. The tiles-over-cap
-    and tap-rows-over-cap counts go to the deferred overflow queue
+    ``backend="pallas"`` (the default; the reference's default is
+    "scan") names the binned tile raster (the name the reference's
+    production path uses): candidate chunks per tile are capped at
+    ``maxc``, sized with ``auto_maxc``. The tiles-over-cap and
+    tap-rows-over-cap counts go to the deferred overflow queue
     (``check_overflow``): overflow warns, or raises under
     MTR_STRICT_OVERFLOW, and is never dropped silently.
+    ``backend="scan"`` is the independent oracle: every triangle against
+    every pixel, ``chunk`` triangles a step (``raster_stage``,
+    ``shade_stage``), no caps, no overflow; it renders any pool, bc1 and
+    bc7 without ``mipmap`` too, and its color is always the (H, W, 4)
+    uint8 frame.
 
     ``mipmap``: trilinear minification (K1's mtap epilogue, then
     ``shade_mip_tap_flat_channels``), from the tri pool in one gather
@@ -1949,8 +2412,15 @@ def render_frame(scene: DeviceScene, view_proj, bone_mats=None, *,
     is the (H, W, 4) uint8 view of the same plane. As in the reference,
     the unpacked bilinear frame shades every tap row: it ignores
     ``tap_tiles`` and queues the bins count alone."""
+    if backend == "scan":
+        if packed:
+            raise ValueError("packed output requires the pallas backend")
+        return _render_frame_scan(
+            scene, view_proj, bone_mats, width=width, height=height,
+            chunk=chunk, clear_color=clear_color, mipmap=mipmap,
+            lighting=lighting)
     if backend != "pallas":
-        raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
+        raise ValueError(f"unknown backend {backend!r}")
     _check_pool_path(scene, mipmap)
     dense = not packed and not mipmap
     color, depth, n_over = _render_frame_core(
@@ -2147,15 +2617,24 @@ def _render_frame_peeled_core(scene: DeviceScene, view_proj, bone_mats=None,
                               raster=rs.raster_fwd,
                               raster_ml=rs.raster_fwd_ml):
     """Peeled frame body → (packed color (H, W) i32, nearest depth
-    (H, W) f32, (n_over, n_over_tap) device counts). ``raster`` and
-    ``raster_ml`` are the K1 and K2 stages; passing their plain versions
-    renders the same frame through them on any device."""
+    (H, W) f32, (n_over, n_over_tap) device counts; the multipass peel's
+    tap count is None: it shades densely). ``raster`` and ``raster_ml``
+    are the K1 and K2 stages; passing their plain versions renders the
+    same frame through them on any device."""
     pw, ph = _padded(width, height)
     mc = maxc or rs.MAXC_DEFAULT
     light = _light_unit() if lighting else None
     clip = vertex_stage(scene, view_proj, bone_mats)
     setup_kw = dict(bone_mats=bone_mats, lighting=lighting)
-    if peel_mode == "split":
+    if peel_mode == "multipass":
+        cols, bbox = setup_packed_cols(scene, clip, width, height,
+                                       **setup_kw)
+        dst, z0, nov = _multipass_flat(
+            scene, cols, bbox, pw=pw, ph=ph, layers=layers, maxc=mc,
+            clear_color=clear_color, mipmap=mipmap, light=light,
+            raster=raster)
+        n_over = (nov, None)
+    elif peel_mode == "split":
         setup_op, setup_tr = setup_packed_cols(scene, clip, width, height,
                                                opacity_split=True,
                                                **setup_kw)
@@ -2190,7 +2669,7 @@ def _render_frame_peeled_core(scene: DeviceScene, view_proj, bone_mats=None,
 
 def render_frame_peeled(scene: DeviceScene, view_proj, bone_mats=None, *,
                         width: int = 512, height: int = 512,
-                        layers: int = 4,
+                        layers: int = 4, chunk: int = DEFAULT_CHUNK,
                         clear_color: tuple = (255, 255, 255, 255),
                         backend: str = "pallas", maxc: int | None = None,
                         mipmap: bool = False, lighting: bool = False,
@@ -2216,24 +2695,46 @@ def render_frame_peeled(scene: DeviceScene, view_proj, bone_mats=None, *,
     the mtap epilogue and the trilinear shade (``composite_peeled_mip_
     flat``), and C is lit in the rasters' epilogues.
 
+    ``"multipass"`` (any ``layers`` >= 1) peels with K1 once per layer:
+    bin once, then each pass excludes depths at or in front of the
+    previous layer + PEEL_EPS (``zlow``), so surfaces closer than that
+    collapse into one layer; it equals "ml" on scenes whose surfaces
+    are separated by more. Each pass shades densely: the tap epilogue,
+    or mipmapped the attrs epilogue and ``shade_fwd`` (lighting there,
+    from the normal planes); the layers blend back to front. It ignores
+    an int ``tap_tiles`` and returns the (H, W, 4) uint8 frame.
+
+    ``backend="scan"`` (``peel_mode`` "ml" or "multipass", any
+    ``layers`` >= 1): ``raster_multilayer``'s L nearest fragments, each
+    shaded by ``shade_src``, blended back to front; the uint8 frame.
+
     ``packed``: color is (H, W) int32 holding RGBA8 bits; otherwise it
-    is the (H, W, 4) uint8 view of the same plane."""
+    is the (H, W, 4) uint8 view of the same plane. Only the pallas
+    backend's single-pass peels ("ml", "split") pack."""
     if peel_mode not in ("ml", "multipass", "split"):
         raise ValueError(f"unknown peel_mode {peel_mode!r}")
-    if peel_mode == "multipass":
-        raise _by_decision(
-            "peel_mode='multipass'", "it re-rasters the frame once per "
-            "layer and stays the reference's differential oracle for 'ml'")
-    if backend != "pallas":
-        raise _by_decision(f"backend={backend!r}", _WHY_SCAN)
-    if peel_mode == "split" and layers < 2:
-        raise ValueError("peel_mode='split' requires layers >= 2")
-    if not 2 <= layers <= rs.MAX_LAYERS:
+    if backend not in ("pallas", "scan"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if peel_mode == "split" and (backend != "pallas" or layers < 2):
+        raise ValueError("peel_mode='split' requires the pallas backend "
+                         "and layers >= 2")
+    if packed and (backend != "pallas" or peel_mode == "multipass"):
+        raise ValueError("packed peeled output requires the pallas "
+                         "backend's single-pass (ml/split) path")
+    if backend == "scan" or peel_mode == "multipass":
+        if layers < 1:
+            raise ValueError(f"layers={layers}: the peel needs >= 1")
+    elif not 2 <= layers <= rs.MAX_LAYERS:
         raise ValueError(f"layers={layers} out of range "
                          f"[2, {rs.MAX_LAYERS}]")
     if isinstance(tap_tiles, tuple) and peel_mode != "split":
         raise ValueError("tuple tap_tiles is the split peel's "
                          "(opaque, translucent) cap pair")
+    if backend == "scan":
+        return _render_frame_scan(
+            scene, view_proj, bone_mats, width=width, height=height,
+            chunk=chunk, clear_color=clear_color, mipmap=mipmap,
+            lighting=lighting, layers=layers)
     _check_pool_path(scene, mipmap)
     color, depth, n_over = _render_frame_peeled_core(
         scene, view_proj, bone_mats, width=width, height=height,

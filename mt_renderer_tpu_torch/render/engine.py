@@ -1,16 +1,19 @@
 """Production frame engine — sized caps + overflow recovery.
 
-The counterpart of ``mt_renderer_tpu/render/engine.py`` for the packed
+The counterpart of ``mt_renderer_tpu/render/engine.py``: the packed
 single-layer frame and the peeled frame (``peel`` layers, ``peel_mode``
-"split" or "ml"), each bilinear or, with ``mipmap``, trilinear, lit or
-not; the frame comes back in the reference engine's format (``packed``).
-``FrameEngine`` owns the frame loop's wiring:
+"split", "ml" or "multipass"), each bilinear or, with ``mipmap``,
+trilinear, lit or not, on the binned raster (``backend="pallas"``), or
+either frame on the scan backend (``backend="scan"``: no caps to size,
+the unpacked frame); the frame comes back in the reference engine's
+format (``packed``). ``FrameEngine`` owns the frame loop's wiring:
 
 * lazy sizing at the first rendered view: ``auto_maxc`` for the binning
   cap; for the single-layer frame ``auto_tap_tiles`` for the compacted
-  texture tap, for the peeled frame ``measure_live_tap_tiles`` (one run
-  of the rasters and one device→host transfer); a ``headroom`` factor
-  over the measured need;
+  texture tap, for the "split" and "ml" peels ``measure_live_tap_tiles``
+  (one run of the rasters and one device→host transfer; the multipass
+  peel shades densely and takes no tap cap); a ``headroom`` factor over
+  the measured need;
 * a per-frame host-side cap guard (no device sync): the binning need is
   predicted exactly (``predict_bin_counts`` mirrors ``bin_chunks``) and
   the single-layer tap liveness bounded from above
@@ -46,13 +49,8 @@ class FrameEngine:
                  peel_mode: str = "split", headroom: float = 1.5,
                  check_every: int | None = None,
                  interactive: bool = False):
-        if backend != "pallas":
-            raise device._by_decision(f"backend={backend!r}",
-                                      device._WHY_SCAN)
-        if peel and peel_mode == "multipass":
-            raise device._by_decision(
-                "FrameEngine(peel_mode='multipass')", "the engine runs the "
-                "single-pass peels, 'split' and 'ml'")
+        if backend not in ("pallas", "scan"):
+            raise ValueError(f"unknown backend {backend!r}")
         self.scene = scene
         self.backend = backend
         self.batch = batch
@@ -80,9 +78,20 @@ class FrameEngine:
     @property
     def packed(self) -> bool:
         """The frame format ``render`` returns, the reference engine's:
-        the (H, W) int32 packed frame, except for a peel with ``mipmap``,
-        whose frame is the (H, W, 4) uint8 view of the same bits."""
-        return not (self.peel and self.mipmap)
+        the (H, W) int32 packed frame of the pallas backend, except for
+        a peel with ``mipmap`` or ``peel_mode="multipass"``, whose frame
+        is the (H, W, 4) uint8 frame, as is every scan frame."""
+        if self.peel:
+            return (self.backend == "pallas" and not self.mipmap
+                    and self.peel_mode != "multipass")
+        return self.backend == "pallas"
+
+    @property
+    def _tap_caps(self) -> bool:
+        """Whether the frame compacts its texture taps to a measured cap
+        (the multipass peel and the scan backend shade densely)."""
+        return self.backend == "pallas" and not (
+            self.peel and self.peel_mode == "multipass")
 
     def _predict(self, fn, view_proj, bone_mats, **kw):
         """A host predictor at this view; a palette on the device (the
@@ -103,16 +112,21 @@ class FrameEngine:
 
     def size(self, view_proj, bone_mats=None) -> None:
         """Size the binning and compacted-tap caps for this view: host
-        NumPy only, plus one device run on the peeled frame."""
+        NumPy only, plus one device run on the "split" and "ml" peels.
+        The scan backend has no caps."""
+        self.sized = True
+        if self.backend != "pallas":
+            return
         self.maxc = self._predict(device.auto_maxc, view_proj, bone_mats,
                                   margin=self.headroom)
         self._tap_bound = self._predict(device.auto_tap_tiles, view_proj,
                                         bone_mats, margin=self.headroom)
-        if self.peel:
+        if not self._tap_caps:
+            self.tap_tiles = None
+        elif self.peel:
             self.tap_tiles = self._measure_peel(view_proj, bone_mats)
         else:
             self.tap_tiles = self._tap_bound
-        self.sized = True
         logger.info("FrameEngine sized: maxc=%s tap_tiles=%s (%dx%d%s)",
                     self.maxc, self.tap_tiles, self.width, self.height,
                     f" peel{self.peel}/{self.peel_mode}" if self.peel
@@ -126,21 +140,21 @@ class FrameEngine:
             # attributes overflow to this engine's frames only
             rs.flush_overflow_checks()
             self.size(view_proj, bone_mats)
-        else:
+        elif self.backend == "pallas":
             self._guard(view_proj, bone_mats)
         if self.peel:
             out = device.render_frame_peeled(
                 self.scene, view_proj, bone_mats, width=self.width,
-                height=self.height, layers=self.peel, maxc=self.maxc,
-                mipmap=self.mipmap, lighting=self.lighting,
+                height=self.height, layers=self.peel, backend=self.backend,
+                maxc=self.maxc, mipmap=self.mipmap, lighting=self.lighting,
                 peel_mode=self.peel_mode, packed=self.packed,
                 tap_tiles=self.tap_tiles)
         else:
             out = device.render_frame(
                 self.scene, view_proj, bone_mats, width=self.width,
-                height=self.height, maxc=self.maxc, mipmap=self.mipmap,
-                lighting=self.lighting, packed=self.packed,
-                tap_tiles=self.tap_tiles)
+                height=self.height, backend=self.backend, maxc=self.maxc,
+                mipmap=self.mipmap, lighting=self.lighting,
+                packed=self.packed, tap_tiles=self.tap_tiles)
         self._since_check += 1
         if self._since_check >= self.check_every:
             self.check(view_proj, bone_mats)
@@ -162,7 +176,7 @@ class FrameEngine:
                         need, old, self.maxc)
         bound = self._predict(device.auto_tap_tiles, view_proj, bone_mats,
                               margin=self.headroom)
-        if bound <= self._tap_bound:
+        if bound <= self._tap_bound or not self._tap_caps:
             return
         self._tap_bound = bound
         old = self.tap_tiles
@@ -197,7 +211,7 @@ class FrameEngine:
         counts = rs.flush_overflow_counts()
         if not any(n > 0 for n, _ in counts.values()):
             return counts
-        if view_proj is None:
+        if view_proj is None or self.backend != "pallas":
             for what, (n, cap) in counts.items():
                 rs._overflow_report(n, cap, what)
             return counts

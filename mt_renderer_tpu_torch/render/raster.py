@@ -1,9 +1,11 @@
 """Binned tile raster: binning, the raster kernels K1 and K2, K1's
 speed-of-light probe K3, the overflow queue.
 
-The counterpart of ``mt_renderer_tpu/render/pallas_raster.py`` on the
-tap and mtap paths: the single-layer raster K1 and the multi-layer
-(order-independent transparency) raster K2; and of
+The counterpart of ``mt_renderer_tpu/render/pallas_raster.py``: the
+single-layer raster K1 (its tap, mtap and plain-attributes epilogues,
+with or without the multipass peel's ``zlow`` exclusion) and the
+multi-layer (order-independent transparency) raster K2 on the tap and
+mtap paths; and of
 ``tools/bench/raster_roofline.py::_micro``, the probe K3 that runs K1's
 group body on one resident chunk. It keeps the reference's geometry
 (16x128-px tiles, 384-triangle chunks, 32-triangle culling groups), so
@@ -32,9 +34,9 @@ tensors' device: a CPU tensor runs the plain PyTorch version
 ``raster_micro_reference``); a CUDA tensor launches the hand-written
 kernel (``csrc/raster_fwd.cu``, ``csrc/raster_fwd_ml.cu``,
 ``csrc/raster_micro.cu``) or raises. ``raster_fwd`` dispatches through
-the ``torch.library`` custom ops ``mtr::raster_fwd_tap`` and
-``mtr::raster_fwd_mtap`` (``K1_OPS``), so that ``torch.export`` can
-trace a frame (``serving.export_render``).
+the ``torch.library`` custom ops ``mtr::raster_fwd_tap``,
+``mtr::raster_fwd_mtap`` and ``mtr::raster_fwd_attrs`` (``K1_OPS``), so
+that ``torch.export`` can trace a frame (``serving.export_render``).
 
 K1, K2 and K3 run ``PARTS`` CTAs per tile, each with ``WARPS // PARTS``
 warps of ``WARP_W`` x ``WARP_H`` pixels, and every warp culls each
@@ -75,9 +77,14 @@ ATTRS_MTAP = 17          # mtap epilogue output planes: u, v, tex, off
                          # hi/lo, th, tw, C rgba, then the winner's U/V/Q
                          # plane gradients over Q [U_x, U_y, V_x, V_y,
                          # Q_x, Q_y], the analytic LOD's inputs
+ATTRS_FWD = 18           # attrs epilogue output planes: u/w, v/w, 1/w, tex,
+                         # C rgba, off hi/lo, th, tw, then the raw U/V/Q
+                         # plane gradients [U_x, U_y, V_x, V_y, Q_x, Q_y]
+ATTRS_FWD_LIT = 21       # ... lit: [nx, ny, nz]/w after tw
 TEX_ROW = N_RAST + 9     # tex column: an integer value marks an opaque row
 MAX_LAYERS = 8           # K2 keeps 2..MAX_LAYERS fragments per pixel
-MODES = ("tap", "mtap")  # the raster kernels' epilogues
+MODES = ("tap", "mtap", "attrs")   # K1's epilogues (K2 runs the first two)
+ML_MODES = MODES[:2]
 PARTS = 4                # K1's and K3's CTAs per tile: 16x32 px each
 PART_W = TILE_W // PARTS
 WARP_W, WARP_H = 32, 8   # a K1 warp's pixel block; a lane owns a column
@@ -310,8 +317,32 @@ def _tap_epilogue(a, px, py, w_eps: float, light=None):
     return [fx, fy] + _lit_color(a, px, py, inv, light), tapidx
 
 
+def _attrs_epilogue(a, px, py, lit: bool) -> list:
+    """The winner's coefficients ``a`` (N_COEF or N_COEF_LIT, ...) → the
+    18 (21 lit) attrs planes as a list: the u/w, v/w and 1/w planes at
+    the pixel centers, tex, C rgba, off hi/lo, th, tw as stored, the
+    [nx, ny, nz]/w planes when ``lit``, then the raw U/V/Q plane
+    gradients (pallas_raster.py:518-529). Zero coefficients give zero
+    planes."""
+    rows = [_plane(a, 0, px, py), _plane(a, 3, px, py),
+            _plane(a, 6, px, py)] + [a[9 + i] for i in range(9)]
+    if lit:
+        rows += [_plane(a, 18, px, py), _plane(a, 21, px, py),
+                 _plane(a, 24, px, py)]
+    return rows + [a[0], a[1], a[3], a[4], a[6], a[7]]
+
+
 def _n_coef(light) -> int:
     return N_COEF if light is None else N_COEF_LIT
+
+
+def n_planes(mode: str, light=None) -> int:
+    """Output planes of K1's ``mode`` epilogue (lit when ``light``)."""
+    if mode == "tap":
+        return ATTRS_TAP
+    if mode == "mtap":
+        return ATTRS_MTAP
+    return ATTRS_FWD if light is None else ATTRS_FWD_LIT
 
 
 def _check_raster_args(cols, lists, glists, counts, width, height,
@@ -335,46 +366,62 @@ def _check_raster_args(cols, lists, glists, counts, width, height,
 
 
 def _check_fwd_args(cols, lists, glists, counts, width, height, mode,
-                    light):
+                    light, zlow=None):
     """The raster kernels' shared checks: the epilogue mode, the light,
-    the column matrix (33 rows, 42 lit) and the binning."""
+    the column matrix (33 rows, 42 lit), the binning and K1's ``zlow``
+    (tile-major (n_tiles, 1, P) f32 on the columns' device)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
     if light is not None and len(light) != 3:
         raise ValueError(f"light must be a unit 3-vector, got {light!r}")
     _check_raster_args(cols, lists, glists, counts, width, height,
                        _n_coef(light))
+    if zlow is not None:
+        shape = (counts.shape[0], 1, P)
+        if zlow.dtype != torch.float32 or tuple(zlow.shape) != shape:
+            raise ValueError(f"zlow must be f32 {shape}, got {zlow.dtype} "
+                             f"{tuple(zlow.shape)}")
+        if zlow.device != cols.device:
+            raise ValueError(f"zlow on {zlow.device}, cols on {cols.device}")
 
 
 def raster_fwd(cols, lists, glists, counts, origin, *, width: int,
-               height: int, w_eps: float, mode: str = "tap", light=None):
+               height: int, w_eps: float, mode: str = "tap", light=None,
+               zlow=None):
     """Binned single-layer raster over a band of ``width`` x ``height``
     px (tile-aligned) whose top-left pixel is ``origin`` = (x0, y0),
-    with the tap (``mode="tap"``) or the mip-tap (``"mtap"``) epilogue.
-    ``light`` (a unit 3-tuple; the lit column matrix of
-    ``device.setup_packed_cols(lighting=True)``) folds the lambert factor
-    into C rgb.
+    with the tap (``mode="tap"``), the mip-tap (``"mtap"``) or the
+    plain-attributes (``"attrs"``) epilogue. ``light`` (a unit 3-tuple;
+    the lit column matrix of ``device.setup_packed_cols(lighting=True)``)
+    folds the lambert factor into C rgb for "tap" and "mtap"; "attrs"
+    then emits the normal planes and leaves the lighting to the shade.
+    ``zlow`` (tile-major (n_tiles, 1, P) f32; the multipass peel's
+    exclusion) admits at a pixel only candidates with z > zlow: +inf
+    admits nothing, -inf everything.
 
     Returns tile-major tensors: zb (n_tiles, 1, P) f32 with 1.0 where
     uncovered, ib (n_tiles, 1, P) i32 winner id or -1, then for "tap"
     tattrs (n_tiles, 6, P) f32 [fx, fy, C rgba] and tapidx (n_tiles, 1,
     P) i32 quad-pool row or -1 for untextured winners; for "mtap" mattrs
-    (n_tiles, 17, P) f32 (see ATTRS_MTAP).
+    (n_tiles, 17, P) f32 (see ATTRS_MTAP); for "attrs" attrs (n_tiles,
+    18 or 21 lit, P) f32 (see ATTRS_FWD).
 
-    Every call goes through the custom op ``mtr::raster_fwd_tap`` or
-    ``mtr::raster_fwd_mtap`` (``K1_OPS``), which ``torch.export`` traces
+    Every call goes through the custom op ``mtr::raster_fwd_<mode>``
+    (``K1_OPS``), which ``torch.export`` traces
     (``serving.export_render``). On a CPU tensor the op runs
     ``raster_fwd_reference``; on a CUDA tensor it launches
     ``csrc/raster_fwd.cu`` (counted in ``raster_fwd.launches``) or
     raises."""
-    _check_fwd_args(cols, lists, glists, counts, width, height, mode, light)
+    _check_fwd_args(cols, lists, glists, counts, width, height, mode, light,
+                    zlow)
     if cols.device.type not in ("cpu", "cuda"):
         raise ValueError(f"raster_fwd runs on CPU or CUDA, not "
                          f"{cols.device}")
     return K1_OPS[mode](cols, lists, glists, counts,
                         [int(o) for o in origin], width, height,
                         float(w_eps),
-                        None if light is None else [float(c) for c in light])
+                        None if light is None else [float(c) for c in light],
+                        zlow)
 
 
 raster_fwd.launches = 0
@@ -382,7 +429,7 @@ raster_fwd.launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F,
-             _P, _P, _P, _P, _P]
+             _P, _P, _P, _P, _P, _P]
 _ML_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _I,
             _F, _F, _F, _P, _P, _P, _P, _P]
 _MICRO_ARGS = [_P, _I, _I, _I, _I, _P, _P, _P, _P]
@@ -404,7 +451,7 @@ def _check_layout(name: str) -> None:
 
 
 def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
-                     height, w_eps, mode, light):
+                     height, w_eps, mode, light, zlow=None):
     _check_layout("raster_fwd")
     fn = _build.fn("raster_fwd", "mtr_raster_fwd", _FWD_ARGS)
     cols = cols.contiguous()
@@ -413,14 +460,14 @@ def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
     lists = lists.contiguous()
     glists = glists.contiguous()
     counts = counts.contiguous()
+    zlow = None if zlow is None else zlow.contiguous()
     n_tx = width // TILE_W
     n_tiles = (height // TILE_H) * n_tx
     dev = cols.device
-    n_planes = ATTRS_TAP if mode == "tap" else ATTRS_MTAP
     zb = torch.empty((n_tiles, 1, P), dtype=torch.float32, device=dev)
     ib = torch.empty((n_tiles, 1, P), dtype=torch.int32, device=dev)
-    attrs = torch.empty((n_tiles, n_planes, P), dtype=torch.float32,
-                        device=dev)
+    attrs = torch.empty((n_tiles, n_planes(mode, light), P),
+                        dtype=torch.float32, device=dev)
     tapidx = (torch.empty((n_tiles, 1, P), dtype=torch.int32, device=dev)
               if mode == "tap" else None)
     lx, ly, lz = (0.0, 0.0, 0.0) if light is None else light
@@ -430,7 +477,8 @@ def _raster_fwd_cuda(cols, lists, glists, counts, origin, *, width,
         err = fn(cols.data_ptr(), cols.shape[1], lists.data_ptr(),
                  glists.data_ptr(), counts.data_ptr(), n_tiles,
                  lists.shape[1], n_tx, x0, y0, w_eps, MODES.index(mode),
-                 int(light is not None), lx, ly, lz, zb.data_ptr(),
+                 int(light is not None), lx, ly, lz,
+                 None if zlow is None else zlow.data_ptr(), zb.data_ptr(),
                  ib.data_ptr(), attrs.data_ptr(),
                  None if tapidx is None else tapidx.data_ptr(), stream)
     if err != 0:
@@ -454,15 +502,16 @@ def _pixel_centers(width: int, height: int, origin, dev):
     return px, py
 
 
-def _raster_winners(cols, lists, glists, counts, px, py):
+def _raster_winners(cols, lists, glists, counts, px, py, zlow=None):
     """The single-layer raster's visibility pass, plain PyTorch → (zbuf
     (n_tiles, P) f32 with +inf where uncovered, win (n_tiles, P) i32 or
     -1). Batches over the tiles that are live at each (list slot, group)
     step; reads no chunk beyond a tile's ``counts`` and skips groups
     whose mask bit is clear. Per pixel it keeps the lexicographic minimum
     of (z, -global id) over candidates inside all three edges with
-    0 <= z: each group's nearest (latest on ties) candidate replaces the
-    running winner if nearer, or equally near with a larger id."""
+    0 <= z (and z > ``zlow``, (n_tiles, P), when given): each group's
+    nearest (latest on ties) candidate replaces the running winner if
+    nearer, or equally near with a larger id."""
     dev = cols.device
     n_tiles = counts.shape[0]
     zbuf = torch.full((n_tiles, P), float("inf"), device=dev)
@@ -492,6 +541,8 @@ def _raster_winners(cols, lists, glists, counts, px, py):
             zb_a = zbuf[act]
             wn_a = win[act]
             zok = inside & (z >= 0.0) & (z <= zb_a[:, None, :])
+            if zlow is not None:
+                zok &= z > zlow[act][:, None, :]
             zm = torch.where(zok, z, float("inf"))
             zmin = zm.amin(1)                                 # (A, P)
             winner_k = torch.where(zok & (zm == zmin[:, None, :]),
@@ -506,14 +557,16 @@ def _raster_winners(cols, lists, glists, counts, px, py):
 
 def raster_fwd_reference(cols, lists, glists, counts, origin, *,
                          width: int, height: int, w_eps: float,
-                         mode: str = "tap", light=None):
+                         mode: str = "tap", light=None, zlow=None):
     """Plain PyTorch version of ``raster_fwd``, same contract: the
-    visibility pass of ``_raster_winners``, then the winner's
-    coefficient columns gathered by id (zero where uncovered) and the
-    epilogue evaluated at the pixel centers."""
-    _check_fwd_args(cols, lists, glists, counts, width, height, mode, light)
+    visibility pass of ``_raster_winners`` (with the ``zlow`` exclusion),
+    then the winner's coefficient columns gathered by id (zero where
+    uncovered) and the epilogue evaluated at the pixel centers."""
+    _check_fwd_args(cols, lists, glists, counts, width, height, mode, light,
+                    zlow)
     px, py = _pixel_centers(width, height, origin, cols.device)
-    zbuf, win = _raster_winners(cols, lists, glists, counts, px, py)
+    zbuf, win = _raster_winners(cols, lists, glists, counts, px, py,
+                                None if zlow is None else zlow[:, 0, :])
     covered = win >= 0
     nc = _n_coef(light)
     coef = cols[N_RAST:N_RAST + nc][:, win.clamp(min=0).long()]
@@ -522,13 +575,17 @@ def raster_fwd_reference(cols, lists, glists, counts, origin, *,
     if mode == "mtap":
         return (zb, win[:, None, :],
                 torch.stack(_mtap_epilogue(coef, px, py, w_eps, light), 1))
+    if mode == "attrs":
+        return (zb, win[:, None, :],
+                torch.stack(_attrs_epilogue(coef, px, py, light is not None),
+                            1))
     planes, tapidx = _tap_epilogue(coef, px, py, w_eps, light)
     return zb, win[:, None, :], torch.stack(planes, 1), tapidx[:, None, :]
 
 
 # ------------------------------------------------------- K1 as a custom op
 
-# K1's two epilogues as ``torch.library`` ops, so that ``torch.export``
+# K1's three epilogues as ``torch.library`` ops, so that ``torch.export``
 # sees the raster as one node (its fake kernel gives the output shapes)
 # and a loaded program dispatches to the same kernels as eager code: the
 # plain version on the CPU, the hand kernel (and its launch count) on
@@ -536,35 +593,35 @@ def raster_fwd_reference(cols, lists, glists, counts, origin, *,
 # them loads only where this module is imported.
 _K1_SCHEMA = ("(Tensor cols, Tensor lists, Tensor glists, Tensor counts, "
               "int[] origin, int width, int height, float w_eps, "
-              "float[]? light) -> ({})")
+              "float[]? light, Tensor? zlow=None) -> ({})")
 
 
-def _k1_kw(mode, width, height, w_eps, light) -> dict:
+def _k1_kw(mode, width, height, w_eps, light, zlow) -> dict:
     return dict(width=width, height=height, w_eps=w_eps, mode=mode,
-                light=None if light is None else tuple(light))
+                light=None if light is None else tuple(light), zlow=zlow)
 
 
 def _register_k1_op(mode: str):
     n_out = 4 if mode == "tap" else 3
 
     def cpu(cols, lists, glists, counts, origin, width, height, w_eps,
-            light):
+            light, zlow=None):
         return raster_fwd_reference(cols, lists, glists, counts, origin,
                                     **_k1_kw(mode, width, height, w_eps,
-                                             light))
+                                             light, zlow))
 
     def cuda(cols, lists, glists, counts, origin, width, height, w_eps,
-             light):
+             light, zlow=None):
         return _raster_fwd_cuda(cols, lists, glists, counts, origin,
-                                **_k1_kw(mode, width, height, w_eps, light))
+                                **_k1_kw(mode, width, height, w_eps, light,
+                                         zlow))
 
     def fake(cols, lists, glists, counts, origin, width, height, w_eps,
-             light):
+             light, zlow=None):
         n_tiles = (height // TILE_H) * (width // TILE_W)
-        n_planes = ATTRS_TAP if mode == "tap" else ATTRS_MTAP
         out = (cols.new_empty((n_tiles, 1, P)),
                cols.new_empty((n_tiles, 1, P), dtype=torch.int32),
-               cols.new_empty((n_tiles, n_planes, P)),
+               cols.new_empty((n_tiles, n_planes(mode, light), P)),
                cols.new_empty((n_tiles, 1, P), dtype=torch.int32))
         return out[:n_out]
 
@@ -760,6 +817,8 @@ def raster_micro_reference(chunk_cols, reps: int, n_coef: int):
 
 def _check_ml_args(cols, lists, glists, counts, width, height, layers, zhi,
                    mode, light):
+    if mode not in ML_MODES:
+        raise ValueError(f"unknown mode {mode!r}: K2 runs one of {ML_MODES}")
     _check_fwd_args(cols, lists, glists, counts, width, height, mode, light)
     if not 2 <= layers <= MAX_LAYERS:
         raise ValueError(f"layers={layers} out of range [2, {MAX_LAYERS}]")

@@ -20,6 +20,11 @@ as the reference's artifact is. Where it differs from the reference's:
   reference's artifact drops them (its queue is a no-op under tracing).
 * The graph holds its device. ``platforms`` may only name the scene's
   own device type, and an artifact runs tensors on that device only.
+* ``backend="scan"`` exports the scan frame with its chunk loop unrolled
+  (``torch.export`` traces Python loops out): the program holds one
+  step's ops per ``DEFAULT_CHUNK`` triangles, so its size grows with the
+  triangle count, where the reference's ``lax.scan`` stays one loop.
+  Its overflow counts are zeros: the scan backend has no caps.
 """
 
 from __future__ import annotations
@@ -47,16 +52,23 @@ class _RenderStep(torch.nn.Module):
     beside the frame instead of queueing them."""
 
     def __init__(self, statics: dict, width: int, height: int,
-                 mipmap: bool):
+                 mipmap: bool, backend: str):
         super().__init__()
         self.statics = statics
         self.width = width
         self.height = height
         self.mipmap = mipmap
+        self.backend = backend
 
     def forward(self, leaves, view_proj, bone_mats):
         scene = device.DeviceScene(**dict(zip(device.TENSOR_FIELDS, leaves)),
                                    **self.statics)
+        if self.backend == "scan":
+            color, depth = device.render_frame(
+                scene, view_proj, bone_mats, width=self.width,
+                height=self.height, backend="scan", mipmap=self.mipmap)
+            zero = torch.zeros((), dtype=torch.int32, device=depth.device)
+            return color, depth, zero, zero
         color, depth, (n_over, n_over_tap) = device._render_frame_core(
             scene, view_proj, bone_mats, width=self.width,
             height=self.height, clear_color=(255, 255, 255, 255),
@@ -74,18 +86,21 @@ def export_render(scene: device.DeviceScene, *, width: int, height: int,
     The program is traced on the scene's device and holds it:
     ``platforms`` may be None or name that device's type only
     (``["cuda"]`` for a card scene, ``["cpu"]`` for a CPU one); the
-    reference's cross-export to another platform raises ``ValueError``."""
-    if backend != "pallas":
-        raise device._by_decision(f"backend={backend!r}", device._WHY_SCAN)
+    reference's cross-export to another platform raises ``ValueError``.
+    ``backend="scan"`` exports the scan frame (any pool, mipmapped or
+    not), its chunk loop unrolled."""
+    if backend not in ("pallas", "scan"):
+        raise ValueError(f"unknown backend {backend!r}")
     dev = scene.device
     if platforms is not None and list(platforms) != [dev.type]:
         raise ValueError(
             f"platforms={platforms!r}: the program holds the scene's device "
             f"({dev}); export on that device with platforms=None or "
             f"[{dev.type!r}]")
-    device._check_pool_path(scene, mipmap)
+    if backend == "pallas":
+        device._check_pool_path(scene, mipmap)
     statics = {f: getattr(scene, f) for f in device.STATIC_FIELDS}
-    step = _RenderStep(statics, width, height, mipmap)
+    step = _RenderStep(statics, width, height, mipmap, backend)
     args = (scene_leaves(scene),
             torch.zeros((4, 4), dtype=torch.float32, device=dev),
             torch.zeros((scene.num_joints, 4, 4), dtype=torch.float32,

@@ -5,9 +5,15 @@ the skinned demo batch (256x256, 9 instances at subdiv 2, the demo
 camera, bones at phase 0.6) rendered by the port on a device, each
 production path held to its oracle:
 
-- ``pallas``: the packed single-layer frame (dense taps) against
-  ``render.cpu_reference`` (the NumPy oracle) under the reference's
-  bound (``oracle_bound``);
+- ``scan``: the scan backend's frame (``render_frame(backend="scan")``,
+  every triangle against every pixel, z from barycentrics, the shade
+  from per-triangle tables) against ``render.cpu_reference`` (the NumPy
+  oracle) under the reference's bound (``oracle_bound``);
+- ``pallas``: the packed single-layer frame (dense taps) against the
+  oracle under the same bound;
+- ``peel_scan``: the scan backend's peel at L = 3 against the oracle
+  under the same bound (the scene is opaque: its nearest layer is the
+  frame);
 - ``peel_pallas``: the ml peel at L = 3 (dense): its nearest layer
   reproduces the single-layer frame, with no coverage mismatch off the
   oracle's coverage edge and at most 0.3% of pixels with a channel off
@@ -17,12 +23,13 @@ production path held to its oracle:
 - ``peel_packed``: the ml peel compacted to ``measure_live_tap_tiles``
   rows equals the dense peel bit for bit, color and depth;
 - ``mipmap_packed``: the mipmapped frame (compacted trilinear shade, the
-  quad pool) covers exactly the ``pallas`` frame's pixels, and its color
-  is under the golden rule against the same frame through the plain
-  raster (``raster_fwd_reference``). This is weaker than the
-  reference's leg, which holds the frame against its scan backend's
-  trilinear (a second, independent sampler); the port keeps no scan
-  backend, by decision;
+  quad pool) against the scan backend's mipmapped frame (its
+  ``sample_trilinear``, an independent second sampler at an LOD rebuilt
+  from the winner's edges) as the reference holds it: no coverage
+  mismatch off the oracle's coverage edge, color under the golden rule;
+  and beside it, against the same frame through the plain raster
+  (``raster_fwd_reference``): coverage equal to the ``pallas`` frame's,
+  color under the golden rule;
 - ``peel_split``: the split peel, compacted to its measured (opaque,
   translucent) caps, equals the dense ml peel bit for bit, color and
   depth (the scene is opaque);
@@ -32,9 +39,6 @@ production path held to its oracle:
   frame under the golden rule: no coverage mismatch off the oracle's
   coverage edge and at most 0.3% of pixels with a channel off by more
   than 1 (``bench.py:251-266``).
-
-``scan`` and ``peel_scan`` (the scan backend) are not ported, by
-decision.
 
 ``world_legs`` is the counterpart of ``bench.py::verify_world``: the
 world's heterogeneous paths (more than 128 material slots, mixed mip
@@ -50,10 +54,11 @@ port on a device and held to an oracle at the reference's sizes:
   0.3% of pixels with a channel off by more than 1 and at most 0.3% of
   pixels with a coverage mismatch, on a view that covers something;
 - ``world_mipmap_packed``: the mipmapped frame from the tri pool against
-  the same frame through the plain raster (``raster_fwd_reference``) on
-  the same inputs: coverage equal, color under the golden rule (the
-  reference holds it against its scan backend, which the port does not
-  carry, by decision);
+  the scan backend's mipmapped frame of the quad pool (the reference's
+  leg: no coverage mismatch off the oracle's coverage edge, color under
+  the golden rule), and against the same frame through the plain raster
+  (``raster_fwd_reference``) on the same inputs (coverage equal, color
+  under the golden rule);
 - ``world_chars_packed``: the bird's-eye view of the character row
   against the oracle, under the same bound as ``world_packed``;
 - ``palette_animates``: the frames at scheduler frames 12 and 30 differ.
@@ -62,6 +67,7 @@ port on a device and held to an oracle at the reference's sizes:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .app.camera import Camera
 from .entry import world_case
@@ -110,6 +116,31 @@ def oracle_bound(got, got_d, want, want_d) -> dict:
                             and cov_mis.mean() <= SHARE and cover > 0.0))
 
 
+def _packed(color):
+    """A (H, W, 4) uint8 frame (the scan backend's) as the (H, W) int32
+    packed frame holding the same bytes."""
+    return color.contiguous().view(torch.int32)[..., 0]
+
+
+def _golden(got, ref) -> np.ndarray:
+    """Per-pixel largest channel difference of two packed frames."""
+    return np.abs(dv.unpack_rgba(got).astype(np.int32)
+                  - dv.unpack_rgba(ref).astype(np.int32)).max(-1)
+
+
+def _against_scan(got, got_d, scan, scan_d, edge) -> dict:
+    """A mipmapped packed frame against the scan backend's: coverage
+    mismatches off the oracle's coverage ``edge``, and the share of
+    pixels with a channel off by more than 1 (the reference's leg)."""
+    cov_mis = (got_d < 1.0).cpu().numpy() != (scan_d < 1.0).cpu().numpy()
+    share = float((_golden(got, scan) > 1).mean())
+    offedge = int((cov_mis & ~edge).sum())
+    return dict(scan_coverage_mismatch_px=int(cov_mis.sum()),
+                scan_offedge_mismatch_px=offedge,
+                scan_color_mismatch_share=share,
+                scan_passed=bool(offedge == 0 and share <= SHARE))
+
+
 def world_legs(device, *, width: int = 256, height: int = 144,
                **world_kw) -> dict:
     """Every leg on ``device`` → {leg: readings with ``passed``}, and
@@ -147,13 +178,18 @@ def world_legs(device, *, width: int = 256, height: int = 144,
         tri, vp, pal, width=width, height=height,
         clear_color=(255, 255, 255, 255), maxc=maxc, tap_tiles=taps,
         mipmap=True, raster=rs.raster_fwd_reference)
-    diff = np.abs(dv.unpack_rgba(got).astype(np.int32)
-                  - dv.unpack_rgba(plain).astype(np.int32)).max(-1)
+    diff = _golden(got, plain)
     n_cov = int(((got_d < 1.0) != (plain_d < 1.0)).sum())
+    scan, scan_d = dv.render_frame(case.scene, vp, pal, width=width,
+                                   height=height, backend="scan",
+                                   mipmap=True)
+    vs = _against_scan(got, got_d, _packed(scan), scan_d,
+                       coverage_edge(want_d < 1.0))
     out["world_mipmap_packed"] = dict(
         coverage_mismatch_px=n_cov,
-        color_mismatch_share=float((diff > 1).mean()),
-        passed=bool(n_cov == 0 and (diff > 1).mean() <= SHARE))
+        color_mismatch_share=float((diff > 1).mean()), **vs,
+        passed=bool(n_cov == 0 and (diff > 1).mean() <= SHARE
+                    and vs["scan_passed"]))
 
     # the bird's-eye camera over the character row (bench.py:369-372)
     side = int(np.ceil(np.sqrt(kw["buildings"])))
@@ -193,9 +229,17 @@ def bench_frames(device, *, width: int = 256, height: int = 256,
                                    **size)
     sps = dv.measure_live_tap_tiles(scene, vp, bones, layers=PEEL_LAYERS,
                                     mode="split", **size)
+    scan_frame = dv.render_frame(scene, vp, bones, backend="scan", **size)
+    scan_peel = dv.render_frame_peeled(scene, vp, bones, backend="scan",
+                                       layers=PEEL_LAYERS, **size)
+    scan_mip = dv.render_frame(scene, vp, bones, backend="scan", mipmap=True,
+                               **size)
     frames = {
         "oracle": cpu_reference.render(batch, vp, width, height,
                                        bone_mats=bones),
+        "scan": (_packed(scan_frame[0]), scan_frame[1]),
+        "peel_scan": (_packed(scan_peel[0]), scan_peel[1]),
+        "mipmap_scan": (_packed(scan_mip[0]), scan_mip[1]),
         "pallas": dv.render_frame(scene, vp, bones, **kw),
         "peel_pallas": dv.render_frame_peeled(scene, vp, bones, **peel),
         "packed": dv.render_frame(scene, vp, bones, tap_tiles=stt, **kw),
@@ -244,7 +288,8 @@ def judge_bench_legs(frames: dict, caps: dict) -> dict:
     ``passed`` over all."""
     want, want_d = frames["oracle"]
     edge = coverage_edge(want_d < 1.0)
-    out: dict = {"pallas": oracle_bound(*frames["pallas"], want, want_d)}
+    out: dict = {leg: oracle_bound(*frames[leg], want, want_d)
+                 for leg in ("scan", "pallas", "peel_scan")}
     for leg in ("peel_pallas", "multichip_1dev"):
         out[leg] = _frame_bound(*frames[leg], *frames["pallas"], edge)
     for leg, ref in (("packed", "pallas"), ("peel_packed", "peel_pallas"),
@@ -253,12 +298,12 @@ def judge_bench_legs(frames: dict, caps: dict) -> dict:
     got, got_d = frames["mipmap_packed"]
     plain, _ = frames["mipmap_plain"]
     n_cov = int(((got_d < 1.0) != (frames["pallas"][1] < 1.0)).sum())
-    diff = np.abs(dv.unpack_rgba(got).astype(np.int32)
-                  - dv.unpack_rgba(plain).astype(np.int32)).max(-1)
-    share = float((diff > 1).mean())
+    share = float((_golden(got, plain) > 1).mean())
+    vs = _against_scan(got, got_d, *frames["mipmap_scan"], edge)
     out["mipmap_packed"] = dict(coverage_mismatch_px=n_cov,
-                                color_mismatch_share=share,
-                                passed=bool(n_cov == 0 and share <= SHARE))
+                                color_mismatch_share=share, **vs,
+                                passed=bool(n_cov == 0 and share <= SHARE
+                                            and vs["scan_passed"]))
     out["passed"] = all(v["passed"] for v in out.values())
     return out
 

@@ -128,18 +128,22 @@ def _dense_frame(**kw):
     return td.render_frame(scene, vp, None, width=128, height=64, **kw)
 
 
-def test_bin_overflow_warns_loudly():
+def test_bin_overflow_warns_loudly(monkeypatch):
+    # the event count is the process's: restore it afterwards, so a later
+    # test in this worker that asserts no overflow reads its own
     before = tr.OVERFLOW_EVENTS
+    monkeypatch.setattr(tr, "OVERFLOW_EVENTS", before)
     with pytest.warns(RuntimeWarning, match="bin overflow"):
         _dense_frame(maxc=1)
         tr.flush_overflow_checks()
     assert tr.OVERFLOW_EVENTS > before
 
 
-def test_tap_overflow_warns_loudly():
+def test_tap_overflow_warns_loudly(monkeypatch):
     """The packed frame compacts its taps (the unpacked bilinear frame
     shades every row and ignores ``tap_tiles``, as the reference's)."""
     before = tr.OVERFLOW_EVENTS
+    monkeypatch.setattr(tr, "OVERFLOW_EVENTS", before)
     with pytest.warns(RuntimeWarning, match="tap overflow"):
         _dense_frame(tap_tiles=1, packed=True)
         tr.flush_overflow_checks()
@@ -148,6 +152,7 @@ def test_tap_overflow_warns_loudly():
 
 def test_strict_overflow_raises(monkeypatch):
     monkeypatch.setenv("MTR_STRICT_OVERFLOW", "1")
+    monkeypatch.setattr(tr, "OVERFLOW_EVENTS", tr.OVERFLOW_EVENTS)
     _dense_frame(maxc=1)
     with pytest.raises(RuntimeError, match="bin overflow"):
         tr.flush_overflow_checks()

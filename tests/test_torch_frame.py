@@ -202,9 +202,24 @@ def test_unaligned_resolution_pads_and_crops(case):
 
 @pytest.mark.parametrize("kw", [dict(backend="scan")])
 def test_unported_options_raise(case, kw):
-    _, vp, bones, _, ts, _, _ = case
-    with pytest.raises(NotImplementedError, match="not ported"):
-        td.render_frame(ts, vp, bones, width=W, height=H, **kw)
+    """``backend="scan"``, once refused, renders: the (H, W, 4) uint8
+    frame of the scan backend, against the JAX package's under the
+    golden rule with coverage exact; what the reference refuses with it
+    (a packed frame) and an unknown backend still raise."""
+    _, vp, bones, js, ts, _, _ = case
+    got, got_d = td.render_frame(ts, vp, bones, width=W, height=H, **kw)
+    want, want_d = jd.render_frame(js, jnp.asarray(vp), jnp.asarray(bones),
+                                   width=W, height=H, **kw)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (H, W, 4)
+    np.testing.assert_array_equal(got_d.numpy() < 1.0,
+                                  np.asarray(want_d) < 1.0)
+    diff = np.abs(got.numpy().astype(np.int32)
+                  - np.asarray(want).astype(np.int32)).max(-1)
+    assert (diff > 1).mean() <= 0.003
+    with pytest.raises(ValueError, match="packed output"):
+        td.render_frame(ts, vp, bones, width=W, height=H, packed=True, **kw)
+    with pytest.raises(ValueError, match="unknown backend"):
+        td.render_frame(ts, vp, bones, width=W, height=H, backend="zbuf")
 
 
 def test_frame_engine_renders_the_production_frame(case):
@@ -239,12 +254,21 @@ def test_frame_engine_recovers_from_overflow(case):
 
 
 def test_frame_engine_peel_raises(case):
-    """The peeled engine runs the single-pass peels; the multipass peel
-    is not ported, by decision."""
-    batch, _, _, _, ts, _, _ = case
-    with pytest.raises(NotImplementedError, match="by decision"):
-        te.FrameEngine(ts, batch, width=W, height=H, peel=2,
-                       peel_mode="multipass")
+    """The engine's multipass peel, once refused, renders: the unpacked
+    frame of ``render_frame_peeled(peel_mode="multipass")`` at the
+    engine's binning cap, with no tap cap (the multipass peel shades
+    densely); an unknown backend still raises."""
+    batch, vp, bones, _, ts, _, _ = case
+    eng = te.FrameEngine(ts, batch, width=W, height=H, peel=2,
+                         peel_mode="multipass")
+    got, got_d = eng.render(vp, bones)
+    assert not eng.packed and eng.tap_tiles is None
+    want, want_d = td.render_frame_peeled(ts, vp, bones, width=W, height=H,
+                                          layers=2, peel_mode="multipass",
+                                          maxc=eng.maxc)
+    assert torch.equal(got, want) and torch.equal(got_d, want_d)
+    with pytest.raises(ValueError, match="unknown backend"):
+        te.FrameEngine(ts, batch, width=W, height=H, backend="zbuf")
 
 
 def test_frame_profile_runs_at_a_small_size(capsys):

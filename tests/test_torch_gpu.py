@@ -25,7 +25,11 @@ launches K1 in every frame with no overflow, its frame under the golden
 rule against the CPU's. The frame served from ``serving.export_render``'s
 program equals ``render_frame`` bit for bit on the card, K1's two ops
 pass ``torch.library.opcheck`` on CUDA inputs, and a CPU artifact
-refuses card tensors.
+refuses card tensors. K1's zlow instantiations and its attrs epilogue
+equal the plain version bit for bit on the hard inputs; pass 0 of the
+multipass peel equals the single-layer frame bit for bit on the card;
+the scan backend's frames on the card lie under the golden rule against
+the CPU's (coverage exact, depth within 1e-5).
 """
 
 import os
@@ -516,6 +520,119 @@ def test_kernel_matches_plain_version_on_hard_inputs(cuda, scene, mode, lit):
             assert torch.equal(g, w)
         else:
             assert int(ulp_dist(g, w).max()) == 0
+
+
+def _hard_args(scene: str, lit: bool):
+    """The adversarial or heavy-tile raster inputs (lit: 9 more seeded
+    coefficient rows as the normal planes) → (args, kw)."""
+    if scene == "adversarial":
+        args = (*adversarial_cols(), (0, 0))
+        kw = dict(width=W, height=H)
+    else:
+        args, kw = heavy_tile_case()
+    cols = args[0]
+    if lit:
+        rng = np.random.default_rng(7)
+        normals = torch.from_numpy(rng.uniform(
+            -1, 1, (tr.N_COEF_LIT - tr.N_COEF, cols.shape[1])).astype(
+                np.float32))
+        cols = torch.cat([cols[:tr.N_RAST + tr.N_COEF], normals])
+    return (cols, *args[1:]), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["adversarial", "heavy_tile"])
+@pytest.mark.parametrize("mode,lit,zlow", [
+    ("tap", False, True), ("tap", True, True), ("mtap", False, True),
+    ("mtap", True, True), ("attrs", False, False), ("attrs", True, False),
+    ("attrs", False, True), ("attrs", True, True)])
+def test_kernel_zlow_and_attrs_match_plain_version(cuda, scene, mode, lit,
+                                                   zlow):
+    """K1's zlow instantiations and its attrs epilogue, bit for bit, on
+    the inputs built to break its cull and ring. ``zlow`` is the
+    multipass peel's: pass 0's depth + PEEL_EPS where it covered, +inf
+    where not, with one tile row at -inf (no exclusion)."""
+    args, kw = _hard_args(scene, lit)
+    kw.update(w_eps=td.W_EPS, light=td._light_unit() if lit else None)
+    if zlow:
+        zb, ib = tr.raster_fwd_reference(*args, **kw)[:2]
+        zl = torch.where(ib >= 0, zb + td.PEEL_EPS, float("inf"))
+        zl[:, :, :tr.TILE_W] = -float("inf")
+        kw["zlow"] = zl
+    kw["mode"] = mode
+    want = tr.raster_fwd_reference(*args, **kw)
+    dev_kw = dict(kw, zlow=None if not zlow else kw["zlow"].to(cuda))
+    dev_args = [x.to(cuda) if torch.is_tensor(x) else x for x in args]
+    before = tr.raster_fwd.launches
+    got = tr.raster_fwd(*dev_args, **dev_kw)
+    torch.cuda.synchronize()
+    assert tr.raster_fwd.launches == before + 1
+    assert float((want[1] >= 0).float().mean()) > (0.002 if zlow else 0.05)
+    assert len(got) == len(want) == (4 if mode == "tap" else 3)
+    assert got[2].shape[1] == tr.n_planes(mode, kw["light"])
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w)
+        else:
+            assert int(ulp_dist(g, w).max()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mipmap,lit", [(False, False), (False, True),
+                                        (True, False)])
+def test_multipass_pass0_on_card_equals_single_layer_frame(cuda, mipmap,
+                                                           lit):
+    """Pass 0 of the multipass peel (L = 1) is the single-layer frame on
+    the card, bit for bit; the L = 3 peel launches K1 three times and
+    lies under the golden rule against the same peel on the CPU."""
+    batch, vp, bones = _glass()
+    batch = with_normals(batch)
+    kw = dict(width=W, height=H, mipmap=mipmap, lighting=lit)
+    scene = td.upload(batch, "tri", device=cuda)
+    a, da = td.render_frame_peeled(scene, vp, bones, layers=1,
+                                   peel_mode="multipass", **kw)
+    b, db = td.render_frame(scene, vp, bones, **kw)
+    assert torch.equal(a, b) and torch.equal(da, db)
+    before = tr.raster_fwd.launches
+    got, got_d = td.render_frame_peeled(scene, vp, bones, layers=3,
+                                        peel_mode="multipass", **kw)
+    assert tr.raster_fwd.launches == before + 3
+    want, want_d = td.render_frame_peeled(td.upload(batch, "tri",
+                                                    device="cpu"), vp, bones,
+                                          layers=3, peel_mode="multipass",
+                                          **kw)
+    assert torch.equal(got_d.cpu() < 1.0, want_d < 1.0)
+    diff = (got.cpu().int() - want.int()).abs().amax(-1)
+    assert float((diff > 1).float().mean()) <= 0.003
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["single", "peeled", "mip_lit", "bc7"])
+def test_scan_frame_on_card_matches_cpu(cuda, what):
+    """The scan backend on the card against the same frame on the CPU:
+    coverage exact, depth within 1e-5, color under the golden rule."""
+    batch, vp, bones = _glass()
+    batch = with_normals(batch)
+    pool = "bc7" if what == "bc7" else "quad"
+    kw = dict(width=W, height=H, backend="scan",
+              mipmap=what == "mip_lit", lighting=what == "mip_lit")
+    frames = []
+    for dev in (cuda, "cpu"):
+        scene = td.upload(batch, pool, device=dev)
+        if what == "peeled":
+            frames.append(td.render_frame_peeled(scene, vp, bones, layers=3,
+                                                 **kw))
+        else:
+            frames.append(td.render_frame(scene, vp, bones, **kw))
+    (got, got_d), (want, want_d) = frames
+    got, got_d = got.cpu(), got_d.cpu()
+    assert torch.equal(got_d < 1.0, want_d < 1.0)
+    assert float((got_d - want_d).abs().max()) <= 1e-5
+    diff = (got.int() - want.int()).abs().amax(-1)
+    assert float((diff > 1).float().mean()) <= 0.003
+    assert bool((want_d < 1.0).any())
 
 
 @pytest.mark.gpu

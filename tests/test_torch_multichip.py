@@ -189,9 +189,10 @@ class TestMultichip:
             tiles.render_frame_multichip(glass["ts"], glass["vp"],
                                          glass["bones"], peel_layers=2,
                                          setup_shard=True, **kw)
-        with pytest.raises(NotImplementedError, match="by decision"):
+        with pytest.raises(ValueError, match="packed output requires"):
             tiles.render_frame_multichip(case["ts"], case["vp"],
-                                         case["bones"], backend="scan", **kw)
+                                         case["bones"], backend="scan",
+                                         packed=True, **kw)
         with pytest.raises(ValueError, match="mesh or a process group"):
             tiles.render_frame_multichip(case["ts"], case["vp"],
                                          case["bones"], width=64, height=64)

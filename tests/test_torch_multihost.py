@@ -89,6 +89,10 @@ part[rank] = -0.0 if rank == 0 else 2.5
 got = slots.gather_sum([part])
 assert got.signbit()[0] and got[1] == 2.5, got
 assert slots.reduce([torch.tensor([rank], dtype=torch.int32)], "max") == 1
+# tear the group down before exit: a gloo group left to the interpreter's
+# exit can abort the process ("terminate called without an active
+# exception") on a loaded machine
+torch.distributed.destroy_process_group()
 print("BITS OK", flush=True)
 """
 

@@ -5,7 +5,10 @@ A fresh interpreter makes ``import jax`` and ``import mt_renderer_tpu``
 imports the port and its two card tools, renders on the CPU its
 ``entry()`` frame, a small split-peel frame of the glass scene, a small
 mipmapped, lit frame from the tri pool, the same scene's peeled
-mipmapped, lit frame, a small archive-world frame whose palette
+mipmapped, lit frame, the glass scene's multipass peel (bilinear, and
+mipmapped and lit), scan frames (single, ``ml``-peeled, mipmapped and
+lit, a bc1 pool without mipmap, the scan band split equal to the scan
+frame), a small archive-world frame whose palette
 ``bone_mats_device`` computes, the same world's frames from the bc1
 texel pool (its textures BC1-encoded through the port's own native
 binding) and from the bc7 pool (mode-6 content), runs the reference
@@ -47,6 +50,8 @@ class Block(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Block())
 
+import torch
+
 import mt_renderer_tpu_torch
 from mt_renderer_tpu_torch import entry
 from mt_renderer_tpu_torch.render import device, engine, raster
@@ -80,6 +85,24 @@ eng = engine.FrameEngine(peeled.scene, peeled.batch, width=256, height=128,
 color, depth = eng.render(peeled.view_proj(), peeled.bone_mats(0.4))
 assert not eng.packed and tuple(color.shape) == (128, 256, 4)
 assert (depth < 1.0).any() and (color != 255).any()
+
+for kw in (dict(), dict(mipmap=True, lighting=True)):
+    color, depth = device.render_frame_peeled(
+        peeled.scene, peeled.view_proj(), peeled.bone_mats(0.4), width=256,
+        height=128, layers=3, peel_mode="multipass", **kw)
+    assert tuple(color.shape) == (128, 256, 4) and (depth < 1.0).any()
+
+scan = entry.demo_case("cpu", instances=4, width=64, height=48, subdiv=1,
+                       pool_mode="bc1")
+svp, sbones = scan.view_proj(), scan.bone_mats(0.2)
+scan_quad = device.upload(scan.batch, device="cpu")
+for sc, kw in ((scan_quad, dict()), (scan_quad, dict(layers=2)),
+               (scan_quad, dict(mipmap=True, lighting=True)),
+               (scan.scene, dict())):
+    fn = device.render_frame_peeled if "layers" in kw else device.render_frame
+    color, depth = fn(sc, svp, sbones, width=64, height=48, backend="scan",
+                      **kw)
+    assert color.dtype == torch.uint8 and (depth < 1.0).any()
 
 world = entry.world_case("cpu", buildings=8, width=128, height=96,
                          characters=2, variants=3, terrain_subdiv=2,
@@ -126,6 +149,12 @@ for split in (tiles.render_frame_multichip, tiles.render_frame_geomsplit):
     got = split(bands.scene, bvp, bbones, width=64, height=60, packed=True,
                 mesh=tiles.make_row_mesh(3, device="cpu"))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+want = device.render_frame(bands.scene, bvp, bbones, width=64, height=60,
+                           backend="scan")
+got = tiles.render_frame_multichip(bands.scene, bvp, bbones, width=64,
+                                   height=60, backend="scan",
+                                   mesh=tiles.make_row_mesh(3, device="cpu"))
+assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 dry = entry.dryrun_multichip(2, "cpu", width=128, height=64, instances=4,
                              subdiv=1, buildings=8, world_width=64,
                              world_height=32)

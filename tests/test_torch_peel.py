@@ -469,12 +469,14 @@ def test_measure_live_tap_tiles_matches_jax(glass, mode):
 # ------------------------------------------------------------------ (g)
 
 
-def test_split_tap_overflow_is_loud_not_silent():
+def test_split_tap_overflow_is_loud_not_silent(monkeypatch):
     """A cap pair of (8, 8) under a frame whose 16 opaque rows are all
     live and textured."""
     ts = td.upload(_textured_stack(128), device="cpu")
     tr.flush_overflow_checks()
     before = tr.OVERFLOW_EVENTS
+    # the event count is the process's: restore it afterwards
+    monkeypatch.setattr(tr, "OVERFLOW_EVENTS", before)
     with pytest.warns(RuntimeWarning, match="tap overflow"):
         td.render_frame_peeled(ts, _quad_vp(), None, width=W, height=H,
                                layers=2, peel_mode="split",
@@ -500,13 +502,21 @@ def test_peel_arguments_are_checked(glass):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(peel_mode="multipass"), "by decision"),
-    (dict(backend="scan"), "by decision"),
+    (dict(peel_mode="multipass"), "packed peeled output"),
+    (dict(backend="scan"), "packed peeled output"),
 ])
 def test_unported_peel_options_raise(glass, kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        td.render_frame_peeled(glass["ts"], glass["vp"], None, width=W,
-                               height=H, **kw)
+    """The multipass peel and the scan backend's peel, once refused,
+    render the glass scene: the (H, W, 4) uint8 frame, its coverage equal
+    to the ml peel's; a packed frame, which the reference refuses for
+    them, still raises."""
+    args = (glass["ts"], glass["vp"], None)
+    got, got_d = td.render_frame_peeled(*args, width=W, height=H, **kw)
+    _, want_d = td.render_frame_peeled(*args, width=W, height=H)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (H, W, 4)
+    assert torch.equal(got_d < 1.0, want_d < 1.0)
+    with pytest.raises(ValueError, match=what):
+        td.render_frame_peeled(*args, width=W, height=H, packed=True, **kw)
 
 
 def test_unported_split_and_measure_options_raise(glass):

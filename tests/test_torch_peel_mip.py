@@ -241,7 +241,8 @@ def test_engine_format_matches_jax():
     frame on a small glass scene with the tri pool against the frame the
     JAX engine renders (``jax.eval_shape`` of its call): the (H, W)
     packed frame, except the (H, W, 4) uint8 frame of a peel with
-    ``mipmap``. ``backend="scan"`` raises, by decision."""
+    ``mipmap``. The engines of the scan backend and of the multipass
+    peel take the JAX engine's format too: the uint8 frame."""
     import jax
 
     from mt_renderer_tpu.render import engine as je
@@ -271,5 +272,8 @@ def test_engine_format_matches_jax():
         assert got.element_size() == want.dtype.itemsize
         assert (got.dtype == torch.uint8) == (want.dtype == np.uint8)
     tr.flush_overflow_checks()
-    with pytest.raises(NotImplementedError, match="by decision"):
-        te.FrameEngine(ts, batch, **dict(kw, backend="scan"))
+    for extra in (dict(backend="scan", peel=0), dict(backend="scan"),
+                  dict(peel_mode="multipass")):
+        eng = te.FrameEngine(ts, batch, **dict(kw, **extra))
+        jeng = je.FrameEngine(js, batch, **dict(kw, **extra))
+        assert eng.packed == jeng.packed is False

@@ -199,9 +199,25 @@ def test_served_overflow_warns(served, monkeypatch):
 
 
 def test_export_refuses_scan_and_foreign_platforms(batch):
+    """``backend="scan"``, once refused, exports: on a bc1 pool without
+    mipmap (which the binned raster refuses) the served frame equals
+    ``render_frame(backend="scan")`` bit for bit. The chunk loop unrolls
+    into the program, so its size grows with the triangle count: at this
+    size (384 padded triangles, 24 chunks of 16) it stays under 128 KB a
+    chunk. Foreign platforms and the pallas bc1 tap frame still raise."""
     scene = td.upload(batch, device="cpu")
-    with pytest.raises(NotImplementedError, match="by decision"):
-        serving.export_render(scene, width=W, height=H, backend="scan")
+    bc1 = td.upload(batch, "bc1", device="cpu")
+    blob = serving.export_render(bc1, width=W, height=H, backend="scan")
+    chunks = bc1.tri_valid.shape[0] // td.DEFAULT_CHUNK
+    assert chunks == 24 and len(blob) < chunks * 128 * 1024
+    art = serving.load_render(blob)
+    for yaw, phase in VIEWS[:2]:
+        vp, bones = view(yaw, phase)
+        got = art(bc1, vp, bones)
+        want = td.render_frame(bc1, vp, bones, width=W, height=H,
+                               backend="scan")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool((want[1] < 1.0).any())
     for platforms in (["cuda"], ["tpu"], ["cpu", "cuda"]):
         with pytest.raises(ValueError, match="holds the scene's device"):
             serving.export_render(scene, width=W, height=H,

@@ -1,6 +1,8 @@
 """The reference bench's verify legs on the port (``verify.bench_legs``).
 
-On CPU tensors every leg runs through the plain versions of K1 and K2.
+On CPU tensors every leg runs through the plain versions of K1 and K2
+(the ``scan`` and ``peel_scan`` legs through the scan backend, plain
+PyTorch everywhere).
 - Every leg passes at a small size and at the reference's (256x256, 9
   instances at subdiv 2).
 - Each leg fails when its frame is perturbed: one pixel's color for the
@@ -25,8 +27,19 @@ from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 
 SMALL = dict(width=64, height=64, instances=4, subdiv=1)
-LEGS = ("pallas", "peel_pallas", "packed", "peel_packed", "mipmap_packed",
-        "peel_split", "multichip_1dev")
+LEGS = ("scan", "pallas", "peel_scan", "peel_pallas", "packed",
+        "peel_packed", "mipmap_packed", "peel_split", "multichip_1dev")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the scan legs run many small tensor ops,
+    which slow down by an order of magnitude when the parallel test
+    workers' threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +74,9 @@ def _interior_pixel(frames) -> tuple:
 
 # the frame each leg reads, and how it is perturbed
 PERTURB = {
+    "scan": ("scan", "depth"),
     "pallas": ("pallas", "depth"),
+    "peel_scan": ("peel_scan", "depth"),
     "peel_pallas": ("peel_pallas", "depth"),
     "packed": ("packed", "color"),
     "peel_packed": ("peel_packed", "color"),

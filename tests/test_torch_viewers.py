@@ -327,13 +327,34 @@ def test_viewers_refuse_cuda_without_a_card(runs, monkeypatch):
     assert _common.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_scan_backend_and_devices_are_refused(runs):
+def test_scan_backend_and_devices_are_refused(runs, tmp_path):
+    """``--backend scan``, once refused, renders in both viewers as the
+    reference's does: modelviewer's peel through the scan backend's "ml"
+    peel, sceneviewer's frame; each frame (the uint8 frame of the scan
+    backend) under the golden rule against the JAX viewer's, coverage
+    exact, and sceneviewer's PNG that frame. ``--devices N`` still asks
+    for N cards."""
+    frames = {}
+    for pkg, mv, sv, eng in (("jax", jmv, jsv, jengine.FrameEngine),
+                             ("torch", tmv, tsv, tengine.FrameEngine)):
+        root, dev = runs[pkg]["root"], ["--device", "cpu"] * (pkg == "torch")
+        with recording(eng) as got:
+            mv.main([str(root), str(root / SKINNED), "--backend", "scan",
+                     "--peel", "2", "--width", str(S), "--height", str(S),
+                     "--out", str(tmp_path / f"{pkg}_mv.png")] + dev)
+            sv.main([str(root), "fixture_scene", "--backend", "scan",
+                     "--width", "96", "--height", "48", "--out",
+                     str(tmp_path / f"{pkg}_sv.png")] + dev)
+        frames[pkg] = got
+    assert len(frames["torch"]) == len(frames["jax"]) == 2
+    for (gc, gz), (wc, wz) in zip(frames["torch"], frames["jax"]):
+        assert gc.dtype == np.uint8 and gc.shape == wc.shape
+        np.testing.assert_array_equal(gz < 1.0, wz < 1.0)
+        assert golden_share(gc, wc) <= GOLDEN_SHARE
+        assert (gz < 1.0).any()
+    np.testing.assert_array_equal(read_png(tmp_path / "torch_sv.png"),
+                                  frames["torch"][1][0])
     root = runs["torch"]["root"]
-    with pytest.raises(NotImplementedError, match="by decision"):
-        tmv.main(["--demo", "2", "--backend", "scan", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="by decision"):
-        tsv.main([str(root), "fixture_scene", "--backend", "scan",
-                  "--device", "cpu"])
     # --devices N asks for N cards, and names the count it found
     with pytest.raises(RuntimeError, match="0 visible"):
         tsv.main([str(root), "fixture_scene", "--devices", "2"])
