@@ -1,0 +1,86 @@
+"""Faults planted under the timed path, to show that the comparison
+catches them (``tests/test_portbench_correct.py`` on the CPU, and
+``calibrate.py --fault`` at a cell's own size on the card). The benchmark's
+own runs plant nothing.
+
+Each fault breaks the program where it produces its answer: the frame
+engine's frame (``device.render_frame``, the orbit cells) or the loaded
+artifact's request (``RenderArtifact.__call__``, the served cells); the
+shade faults break the trilinear tap's level of detail, which both paths
+reach through ``device._analytic_lod`` (so a served cell must be
+exported after the fault is planted).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# the frame faults any cell can have, and the shade faults of a
+# mipmapped cell
+FRAME = ("stale", "half", "altered")
+SHADE = ("lod_up", "mip_nearest")
+
+
+def _alter(color):
+    """Every pixel's red channel 8 levels off (bit 3 flipped), where it
+    is produced."""
+    if color.dtype == torch.int32:             # the packed frame
+        return color ^ 8
+    out = color.clone()
+    out[..., 0] ^= 8
+    return out
+
+
+def _half(scene):
+    """Every other triangle left out of the frame."""
+    keep = torch.arange(scene.tri_vis.shape[0]) % 2 == 0
+    return dataclasses.replace(scene, tri_vis=scene.tri_vis
+                               & keep.to(scene.tri_vis.device))
+
+
+def plant(setattr_, workload: str, fault: str) -> None:
+    """Plant ``fault`` with ``setattr_(obj, name, value)`` (pytest's
+    ``monkeypatch.setattr``, or ``setattr`` in a process that ends after
+    the run).
+
+    * ``stale``: the frame never moves on from the first;
+    * ``half``: every other triangle left out;
+    * ``altered``: every pixel's red channel 8 levels off;
+    * ``lod_up``: the trilinear tap one mip level too coarse;
+    * ``mip_nearest``: the nearer mip level alone, no blend between two.
+    """
+    from mt_renderer_tpu_torch import serving
+    from mt_renderer_tpu_torch.render import device
+
+    if fault in SHADE:
+        real_lod = device._analytic_lod
+
+        def lod(*a, **k):
+            got = real_lod(*a, **k)
+            return got + 1.0 if fault == "lod_up" else torch.floor(got)
+
+        setattr_(device, "_analytic_lod", lod)
+        return
+    if fault not in FRAME:
+        raise ValueError(f"unknown fault {fault!r}")
+    served = workload.endswith("served")
+    target = (serving.RenderArtifact, "__call__") if served else (
+        device, "render_frame")
+    real = getattr(*target)
+    last = {}
+
+    def broken(*args, **kw):
+        args = list(args)
+        if fault == "half":
+            k = 1 if served else 0            # the scene argument
+            args[k] = _half(args[k])
+        out = real(*args, **kw)
+        if fault == "stale":
+            out = last.setdefault("out", out)   # state never moves on
+        elif fault == "altered":
+            out = (_alter(out[0]),) + tuple(out[1:])
+        return out
+
+    setattr_(*target, broken)
