@@ -193,11 +193,13 @@ backend at 1920x1080. Phases, each of which raises on failure:
 25. (s2) the served mip headline (tri pool, ``export_render(mipmap=
     True)``, K1's mtap through ``mtr::raster_fwd_mtap``): 5 requests, each
     bit-equal to ``render_frame``;
-26. (s3) one headline frame and one ``stage_timer``-ed frame (vertex,
-    setup, prebin, raster, shade; each stage's ms printed) under
-    ``utils.profiling.trace``: the Chrome trace must hold K1's
-    ``raster_fwd_kernel`` twice as a CUDA kernel event with a duration
-    (printed beside K1's graph-replay ms) and each stage's range once;
+26. (s3) one headline ``render_frame`` under ``utils.profiling.trace``:
+    the Chrome trace must hold each ``frame.*`` span (vertex, setup,
+    prebin, raster, shade, unflatten; each span's host ms printed) once
+    as a ``user_annotation``, K1's ``raster_fwd_kernel`` once as a CUDA
+    kernel event with a duration (printed beside K1's graph-replay ms),
+    and K1's launching runtime call, matched by correlation id, inside
+    ``frame.raster``'s host range;
 27. (s4) ``makefixtures`` into a temporary directory, then the other nine
     dump/pack CLIs on that tree as processes started together, each
     exiting 0, and ``arctool pack`` and ``gmdtool rebuild`` giving back
@@ -2522,11 +2524,12 @@ def phase_served(case: dict, what: str, requests: int, card: str,
 
 
 def phase_profile(case: dict, k1_ms: float, card: str) -> None:
-    """(s3) One headline frame under ``utils.profiling.trace``: its
-    Chrome trace must hold K1's ``__global__`` as a CUDA kernel event
-    with a duration (beside K1's graph-replay ms); then one frame with
-    ``stage_timer`` around vertex, setup, prebin, raster and shade, each
-    stage's ms printed and its range found in the trace."""
+    """(s3) One headline ``render_frame`` under ``utils.profiling.trace``:
+    its Chrome trace must hold each ``frame.*`` span once as a
+    ``user_annotation``, K1's ``__global__`` once as a CUDA kernel event
+    with a duration (beside K1's graph-replay ms), and the runtime call
+    that launched it (matched by correlation id) inside ``frame.raster``'s
+    host range: the spans and the device trace share one clock."""
     import tempfile
 
     from mt_renderer_tpu_torch.render import device as dv
@@ -2534,57 +2537,53 @@ def phase_profile(case: dict, k1_ms: float, card: str) -> None:
     from mt_renderer_tpu_torch.utils import profiling
 
     w, h, scene = case["width"], case["height"], case["scene"]
-    pw, ph = dv._padded(w, h)
     vp, bones = case["vp"], case["bones"]
-    stages = ("vertex", "setup", "prebin", "raster", "shade")
+    spans = ("frame.vertex", "frame.setup", "frame.prebin", "frame.raster",
+             "frame.shade", "frame.unflatten")
 
-    def timed_frame(times):
-        with profiling.stage_timer(times, "vertex") as fence:
-            clip = fence(dv.vertex_stage(scene, vp, bones))
-        with profiling.stage_timer(times, "setup") as fence:
-            cols, bbox = fence(dv.setup_packed_cols(scene, clip, w, h))
-        with profiling.stage_timer(times, "prebin") as fence:
-            pre = fence(rs.prebin(cols, bbox, 0, 0, width=pw, height=ph,
-                                  maxc=case["maxc"]))
-        with profiling.stage_timer(times, "raster") as fence:
-            zb, ib, tattrs, tapidx = fence(rs.raster_fwd(
-                cols, *pre[:3], (0, 0), width=pw, height=ph,
-                w_eps=dv.W_EPS))
-        with profiling.stage_timer(times, "shade") as fence:
-            fence(dv.shade_finish_tap_flat(scene, tattrs, tapidx, ib,
-                                           (255, 255, 255, 255),
-                                           tap_tiles=case["taps"]))
-        return pre[3]
+    def frame():
+        return dv.render_frame(scene, vp, bones, width=w, height=h,
+                               maxc=case["maxc"], tap_tiles=case["taps"])
 
-    timed_frame({})                                   # warm-up
-    times = {}
+    frame()                                           # warm-up
+    rs.flush_overflow_checks()
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.trace(tmp) as log_dir:
-            dv.render_frame(scene, vp, bones, width=w, height=h,
-                            maxc=case["maxc"], tap_tiles=case["taps"])
-            n_over = timed_frame(times)
+            frame()
+        totals = profiling.span_totals()
         path = Path(log_dir) / profiling.TRACE_FILE
         events = json.loads(path.read_text())["traceEvents"]
         size = path.stat().st_size
-    rs.queue_overflow_check(n_over, case["maxc"])
     rs.flush_overflow_checks()
     kernels = [e for e in events if e.get("cat") == "kernel"
                and "raster_fwd" in e.get("name", "")
                and "raster_fwd_ml" not in e["name"]]
-    ranges = {s: sum(1 for e in events if e.get("name") == s
-                     and e.get("cat") == "user_annotation")
-              for s in stages}
+    found = {s: [e for e in events if e.get("name") == s
+                 and e.get("cat") == "user_annotation"] for s in spans}
+    ids = {e.get("args", {}).get("correlation") for e in kernels}
+    launch = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                    "cuda_driver")
+              and e.get("args", {}).get("correlation") in ids]
     log(f"(s3) trace: {len(events)} events, {size} bytes; K1 kernel events "
         f"{len(kernels)}: " + "; ".join(
             f"{e['name']!r} {e.get('dur', 0) / 1e3!r} ms" for e in kernels)
         + f"; K1 graph replay {k1_ms!r} ms ({card})")
-    log(f"(s3) stage_timer ms: " + ", ".join(
-        f"{s} {times[s] * 1e3!r}" for s in stages)
-        + f"; ranges in the trace {ranges} ({card})")
-    if len(kernels) != 2 or not all(e.get("dur", 0) > 0 for e in kernels):
-        raise AssertionError("(s3) the trace lacks K1's two kernel events")
-    if any(n != 1 for n in ranges.values()):
-        raise AssertionError(f"(s3) stage ranges in the trace: {ranges}")
+    log("(s3) spans (host ms): " + ", ".join(
+        f"{s} {totals.get(s, (0, 0.0))[1] * 1e3!r}" for s in spans)
+        + f"; user_annotation events {({s: len(v) for s, v in found.items()})}"
+        + "; K1's launch " + "; ".join(
+            f"{e['name']!r} at {e['ts']!r} us" for e in launch))
+    if len(kernels) != 1 or not kernels[0].get("dur", 0) > 0:
+        raise AssertionError("(s3) the trace lacks K1's one kernel event")
+    if any(len(v) != 1 for v in found.values()):
+        raise AssertionError("(s3) frame spans in the trace: "
+                             f"{({s: len(v) for s, v in found.items()})}")
+    raster = found["frame.raster"][0]
+    lo, hi = raster["ts"], raster["ts"] + raster["dur"]
+    if not launch or not all(lo <= e["ts"] and e["ts"] + e.get("dur", 0)
+                             <= hi for e in launch):
+        raise AssertionError(f"(s3) K1's launch {launch} lies outside "
+                             f"frame.raster [{lo}, {hi}] us")
 
 
 CLI_TOOLS = (

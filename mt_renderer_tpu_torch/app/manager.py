@@ -69,9 +69,6 @@ class RendererAppManager:
         self.frame_time = 0.0          # seconds, last frame (rs:64-66)
         self.frame_index = 0
         self._last = None
-        from ..utils.profiling import FrameStats
-
-        self.stats = FrameStats()
 
     @property
     def aspect(self) -> float:
@@ -84,7 +81,6 @@ class RendererAppManager:
         self.input.next_frame()
         self.app.post_render(self)
         self.frame_time = time.perf_counter() - t0
-        self.stats.push(self.frame_time)
         self.frame_index += 1
         self._last = frame
         return frame

@@ -73,6 +73,7 @@ import torch
 
 from .. import _build, native
 from ..scene.model import DEBUG_PALETTE, DrawBatch
+from ..utils.profiling import span
 from . import bcn
 from . import cpu_reference as cr
 from . import raster as rs
@@ -1831,37 +1832,41 @@ def _chunk_bboxes(batch, view_proj, bone_mats=None, *,
     (C,) f32, textured (C,) bool), in NumPy from the host batch: mirrors
     ``upload``'s padding and the group bboxes of ``setup_packed_cols``
     at chunk granularity."""
-    pos = cr.skin_positions(batch, bone_mats)
-    homo = np.concatenate([pos, np.ones((len(pos), 1), np.float32)], axis=1)
-    clip = homo @ np.asarray(view_proj, np.float32).T
-    c = clip[batch.tris]                                  # (T, 3, 4)
-    w = c[..., 3]
-    ndc = c[..., :3] / np.where(np.abs(w) < W_EPS, W_EPS, w)[..., None]
-    sx = (ndc[..., 0] + 1.0) * (0.5 * width)
-    sy = (1.0 - ndc[..., 1]) * (0.5 * height)
-    area2 = (sx[:, 1] - sx[:, 0]) * (sy[:, 2] - sy[:, 0]) - (
-        sy[:, 1] - sy[:, 0]) * (sx[:, 2] - sx[:, 0])
-    valid = (w > W_EPS).all(axis=1) & (area2 < 0.0)
+    with span("predict.skin"):
+        pos = cr.skin_positions(batch, bone_mats)
+    with span("predict.project"):
+        homo = np.concatenate([pos, np.ones((len(pos), 1), np.float32)],
+                              axis=1)
+        clip = homo @ np.asarray(view_proj, np.float32).T
+        c = clip[batch.tris]                              # (T, 3, 4)
+        w = c[..., 3]
+        ndc = c[..., :3] / np.where(np.abs(w) < W_EPS, W_EPS,
+                                    w)[..., None]
+        sx = (ndc[..., 0] + 1.0) * (0.5 * width)
+        sy = (1.0 - ndc[..., 1]) * (0.5 * height)
+        area2 = (sx[:, 1] - sx[:, 0]) * (sy[:, 2] - sy[:, 0]) - (
+            sy[:, 1] - sy[:, 0]) * (sx[:, 2] - sx[:, 0])
+        valid = (w > W_EPS).all(axis=1) & (area2 < 0.0)
 
-    t = len(batch.tris)
-    tp = max(TRI_PAD, -(-t // TRI_PAD) * TRI_PAD)
-    big = np.float32(1e30)
-    xmin = np.full(tp, big, np.float32)
-    xmax = np.full(tp, -big, np.float32)
-    ymin = np.full(tp, big, np.float32)
-    ymax = np.full(tp, -big, np.float32)
-    xmin[:t] = np.where(valid, sx.min(1), big)
-    xmax[:t] = np.where(valid, sx.max(1), -big)
-    ymin[:t] = np.where(valid, sy.min(1), big)
-    ymax[:t] = np.where(valid, sy.max(1), -big)
-    cc = tp // rs.CT
-    tex = np.full(tp, -1, np.int32)
-    tex[:t] = batch.tri_texture
-    return (xmin.reshape(cc, rs.CT).min(1),
-            xmax.reshape(cc, rs.CT).max(1),
-            ymin.reshape(cc, rs.CT).min(1),
-            ymax.reshape(cc, rs.CT).max(1),
-            (tex.reshape(cc, rs.CT) >= 0).any(1))
+        t = len(batch.tris)
+        tp = max(TRI_PAD, -(-t // TRI_PAD) * TRI_PAD)
+        big = np.float32(1e30)
+        xmin = np.full(tp, big, np.float32)
+        xmax = np.full(tp, -big, np.float32)
+        ymin = np.full(tp, big, np.float32)
+        ymax = np.full(tp, -big, np.float32)
+        xmin[:t] = np.where(valid, sx.min(1), big)
+        xmax[:t] = np.where(valid, sx.max(1), -big)
+        ymin[:t] = np.where(valid, sy.min(1), big)
+        ymax[:t] = np.where(valid, sy.max(1), -big)
+        cc = tp // rs.CT
+        tex = np.full(tp, -1, np.int32)
+        tex[:t] = batch.tri_texture
+        return (xmin.reshape(cc, rs.CT).min(1),
+                xmax.reshape(cc, rs.CT).max(1),
+                ymin.reshape(cc, rs.CT).min(1),
+                ymax.reshape(cc, rs.CT).max(1),
+                (tex.reshape(cc, rs.CT) >= 0).any(1))
 
 
 def predict_bin_counts(batch, view_proj, bone_mats=None, *,
@@ -1875,12 +1880,13 @@ def predict_bin_counts(batch, view_proj, bone_mats=None, *,
     pw, ph = _padded(width, height)
     xmin, xmax, ymin, ymax, _ = _chunk_bboxes(
         batch, view_proj, bone_mats, width=width, height=height)
-    n_ty, n_tx = (grid_rows or ph) // rs.TILE_H, pw // rs.TILE_W
-    ty0 = np.arange(n_ty, dtype=np.float32) * rs.TILE_H + y0
-    tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
-    ovy = (ymax[:, None] >= ty0) & (ymin[:, None] <= ty0 + rs.TILE_H)
-    ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
-    return (ovy[:, :, None] & ovx[:, None, :]).sum(axis=0)
+    with span("predict.bins"):
+        n_ty, n_tx = (grid_rows or ph) // rs.TILE_H, pw // rs.TILE_W
+        ty0 = np.arange(n_ty, dtype=np.float32) * rs.TILE_H + y0
+        tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
+        ovy = (ymax[:, None] >= ty0) & (ymin[:, None] <= ty0 + rs.TILE_H)
+        ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
+        return (ovy[:, :, None] & ovx[:, None, :]).sum(axis=0)
 
 
 def predict_live_rows(batch, view_proj, bone_mats=None, *,
@@ -1892,16 +1898,18 @@ def predict_live_rows(batch, view_proj, bone_mats=None, *,
     pw, ph = _padded(width, height)
     xmin, xmax, ymin, ymax, tex = _chunk_bboxes(
         batch, view_proj, bone_mats, width=width, height=height)
-    xmin, xmax = xmin[tex], xmax[tex]
-    ymin, ymax = ymin[tex], ymax[tex]
-    seg_h = SEG_PX // rs.TILE_W     # pixel rows per compaction segment
-    n_tx = pw // rs.TILE_W
-    tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
-    ys = np.arange((grid_rows or ph) // seg_h, dtype=np.float32) * seg_h + y0
-    ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
-    ovy = (ymax[:, None] >= ys) & (ymin[:, None] <= ys + float(seg_h))
-    live = (ovy.astype(np.float32).T @ ovx.astype(np.float32)) > 0.0
-    return int(live.sum())
+    with span("predict.rows"):
+        xmin, xmax = xmin[tex], xmax[tex]
+        ymin, ymax = ymin[tex], ymax[tex]
+        seg_h = SEG_PX // rs.TILE_W     # pixel rows per compaction segment
+        n_tx = pw // rs.TILE_W
+        tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
+        ys = (np.arange((grid_rows or ph) // seg_h, dtype=np.float32) * seg_h
+              + y0)
+        ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
+        ovy = (ymax[:, None] >= ys) & (ymin[:, None] <= ys + float(seg_h))
+        live = (ovy.astype(np.float32).T @ ovx.astype(np.float32)) > 0.0
+        return int(live.sum())
 
 
 def auto_maxc(batch, view_proj, bone_mats=None, *,
@@ -2314,21 +2322,26 @@ def _single_layer_flat(scene: DeviceScene, cols, bbox, *, y0: int, pw: int,
     ``parallel.tiles``), from the full frame's setup ``cols``/``bbox``
     → (packed (n_tiles, P) i32 and z (n_tiles, P) f32, both tile-major,
     (n_over, n_over_tap) device counts)."""
-    lists, glists, counts, n_over = rs.prebin(
-        cols, bbox, 0, y0, width=pw, height=ph,
-        maxc=maxc or rs.MAXC_DEFAULT)
+    with span("frame.prebin"):
+        lists, glists, counts, n_over = rs.prebin(
+            cols, bbox, 0, y0, width=pw, height=ph,
+            maxc=maxc or rs.MAXC_DEFAULT)
     kw = dict(width=pw, height=ph, w_eps=W_EPS, light=light)
     if mipmap:
-        zb, ib, mattrs = raster(cols, lists, glists, counts, (0, y0),
-                                mode="mtap", **kw)
-        src, covered, n_over_tap = shade_mip_tap_flat_channels(
-            scene, mattrs, ib, tap_tiles=tap_tiles)
-        colort = _blend_pack_u32(src, covered, clear_color)
+        with span("frame.raster"):
+            zb, ib, mattrs = raster(cols, lists, glists, counts, (0, y0),
+                                    mode="mtap", **kw)
+        with span("frame.shade"):
+            src, covered, n_over_tap = shade_mip_tap_flat_channels(
+                scene, mattrs, ib, tap_tiles=tap_tiles)
+            colort = _blend_pack_u32(src, covered, clear_color)
     else:
-        zb, ib, tattrs, tapidx = raster(cols, lists, glists, counts,
-                                        (0, y0), **kw)
-        colort, _, n_over_tap = shade_finish_tap_flat(
-            scene, tattrs, tapidx, ib, clear_color, tap_tiles=tap_tiles)
+        with span("frame.raster"):
+            zb, ib, tattrs, tapidx = raster(cols, lists, glists, counts,
+                                            (0, y0), **kw)
+        with span("frame.shade"):
+            colort, _, n_over_tap = shade_finish_tap_flat(
+                scene, tattrs, tapidx, ib, clear_color, tap_tiles=tap_tiles)
     return colort, zb[:, 0, :], (n_over, n_over_tap)
 
 
@@ -2342,16 +2355,19 @@ def _render_frame_core(scene: DeviceScene, view_proj, bone_mats=None, *,
     passing ``raster.raster_fwd_reference`` renders the same frame
     through the plain version on any device."""
     pw, ph = _padded(width, height)
-    clip = vertex_stage(scene, view_proj, bone_mats)
-    cols, bbox = setup_packed_cols(scene, clip, width, height,
-                                   bone_mats=bone_mats, lighting=lighting)
+    with span("frame.vertex"):
+        clip = vertex_stage(scene, view_proj, bone_mats)
+    with span("frame.setup"):
+        cols, bbox = setup_packed_cols(scene, clip, width, height,
+                                       bone_mats=bone_mats, lighting=lighting)
     colort, zt, n_over = _single_layer_flat(
         scene, cols, bbox, y0=0, pw=pw, ph=ph, maxc=maxc,
         tap_tiles=tap_tiles, clear_color=clear_color, mipmap=mipmap,
         light=_light_unit() if lighting else None, raster=raster)
-    color = rs.unflatten_tiles(colort, ph, pw)[:height, :width]
-    depth = rs.unflatten_tiles(zt, ph, pw)[:height, :width]
-    return color.contiguous(), depth.contiguous(), n_over
+    with span("frame.unflatten"):
+        color = rs.unflatten_tiles(colort, ph, pw)[:height, :width]
+        depth = rs.unflatten_tiles(zt, ph, pw)[:height, :width]
+        return color.contiguous(), depth.contiguous(), n_over
 
 
 def count_covered_textured(scene: DeviceScene, view_proj, bone_mats=None,

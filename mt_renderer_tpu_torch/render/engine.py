@@ -36,6 +36,7 @@ import logging
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import device
 from . import raster as rs
 
@@ -97,7 +98,8 @@ class FrameEngine:
         """A host predictor at this view; a palette on the device (the
         world's ``bone_mats_device``) is read back for it."""
         if isinstance(bone_mats, torch.Tensor):
-            bone_mats = bone_mats.cpu().numpy()
+            with span("predict.palette"):
+                bone_mats = bone_mats.cpu().numpy()
         return fn(self.batch, np.asarray(view_proj), bone_mats,
                   width=self.width, height=self.height, **kw)
 
@@ -141,23 +143,28 @@ class FrameEngine:
             rs.flush_overflow_checks()
             self.size(view_proj, bone_mats)
         elif self.backend == "pallas":
-            self._guard(view_proj, bone_mats)
-        if self.peel:
-            out = device.render_frame_peeled(
-                self.scene, view_proj, bone_mats, width=self.width,
-                height=self.height, layers=self.peel, backend=self.backend,
-                maxc=self.maxc, mipmap=self.mipmap, lighting=self.lighting,
-                peel_mode=self.peel_mode, packed=self.packed,
-                tap_tiles=self.tap_tiles)
-        else:
-            out = device.render_frame(
-                self.scene, view_proj, bone_mats, width=self.width,
-                height=self.height, backend=self.backend, maxc=self.maxc,
-                mipmap=self.mipmap, lighting=self.lighting,
-                packed=self.packed, tap_tiles=self.tap_tiles)
+            with span("engine.guard"):
+                self._guard(view_proj, bone_mats)
+        with span("engine.frame"):
+            if self.peel:
+                out = device.render_frame_peeled(
+                    self.scene, view_proj, bone_mats, width=self.width,
+                    height=self.height, layers=self.peel,
+                    backend=self.backend, maxc=self.maxc,
+                    mipmap=self.mipmap, lighting=self.lighting,
+                    peel_mode=self.peel_mode, packed=self.packed,
+                    tap_tiles=self.tap_tiles)
+            else:
+                out = device.render_frame(
+                    self.scene, view_proj, bone_mats, width=self.width,
+                    height=self.height, backend=self.backend,
+                    maxc=self.maxc, mipmap=self.mipmap,
+                    lighting=self.lighting, packed=self.packed,
+                    tap_tiles=self.tap_tiles)
         self._since_check += 1
         if self._since_check >= self.check_every:
-            self.check(view_proj, bone_mats)
+            with span("engine.check"):
+                self.check(view_proj, bone_mats)
         return out
 
     def _guard(self, view_proj, bone_mats) -> None:

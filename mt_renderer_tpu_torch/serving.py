@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .render import device
+from .utils.profiling import span
 
 _META = "mtr_render.json"
 
@@ -148,15 +149,25 @@ class RenderArtifact:
         ``scene_leaves``; ``view_proj`` (4, 4) and ``bone_mats`` (J, 4,
         4), NumPy or tensors, go to the artifact's device. The frame's
         overflow counts go to the deferred queue with the reference's
-        default caps (``MAXC_DEFAULT`` chunks, every tap row)."""
-        leaves = self._leaves(scene)
-        color, depth, n_over, n_over_tap = self._step(
-            leaves, device._f32(view_proj, self.device),
-            device._f32(bone_mats, self.device))
-        device._queue_frame_overflow((n_over, n_over_tap), None, None,
-                                     self.meta["width"],
-                                     self.meta["height"])
-        return color, depth
+        default caps (``MAXC_DEFAULT`` chunks, every tap row).
+
+        Under a profiler the request is the span ``serve.request``, around
+        ``serve.inputs``, ``serve.step`` (the loaded program's call: the
+        host issuing every launch; the graph itself holds no span) and
+        ``serve.queue``."""
+        with span("serve.request"):
+            with span("serve.inputs"):
+                leaves = self._leaves(scene)
+                vp = device._f32(view_proj, self.device)
+                bones = device._f32(bone_mats, self.device)
+            with span("serve.step"):
+                color, depth, n_over, n_over_tap = self._step(leaves, vp,
+                                                              bones)
+            with span("serve.queue"):
+                device._queue_frame_overflow((n_over, n_over_tap), None,
+                                             None, self.meta["width"],
+                                             self.meta["height"])
+            return color, depth
 
 
 def load_render(blob: bytes) -> RenderArtifact:

@@ -1,11 +1,11 @@
 """Port vs reference: the app layer — input state, fly camera, frame
-driver, frame-stream server, PNG encoder, frame statistics and the
-engine's interactive knob.
+driver, frame-stream server, PNG encoder and the engine's interactive
+knob.
 
 The same seeded inputs and scripted events go through the JAX package's
 ``app`` and ``utils`` modules and the port's. Tolerances:
 - input state, camera trajectory and view-projection (NumPy f32 in both),
-  PNG bytes and frame statistics: equal;
+  PNG bytes: equal;
 - frames the manager drives through the binned raster (the JAX side in
   Pallas interpret mode): coverage exact, color under the golden rule
   (at most 0.3% of pixels with a channel off by more than 1; XLA
@@ -31,7 +31,6 @@ from mt_renderer_tpu.app import manager as jman
 from mt_renderer_tpu.render import device as jd
 from mt_renderer_tpu.scene import demo as jdemo
 from mt_renderer_tpu.utils import png as jpng
-from mt_renderer_tpu.utils import profiling as jprof
 from mt_renderer_tpu_torch.app import camera as tcam
 from mt_renderer_tpu_torch.app import input_state as tinput
 from mt_renderer_tpu_torch.app import manager as tman
@@ -40,7 +39,6 @@ from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render.engine import FrameEngine
 from mt_renderer_tpu_torch.scene import demo as tdemo
 from mt_renderer_tpu_torch.utils import png as tpng
-from mt_renderer_tpu_torch.utils import profiling as tprof
 
 S = 64
 GOLDEN_SHARE = 0.003
@@ -191,7 +189,7 @@ def test_manager_frames_match_jax(jax_frames, how):
         np.testing.assert_array_equal(gz < 1.0, wz < 1.0)
         assert golden_share(g, w) <= GOLDEN_SHARE
     assert (got[0] != got[-1]).any()        # the camera moved
-    assert mgr.stats.frames == len(got)
+    assert mgr.frame_index == len(got)
 
 
 def test_to_rgba_unpacks_the_packed_frame():
@@ -233,22 +231,6 @@ def test_headless_png_output_matches_jax(tmp_path):
     for f in ("f_0.png", "f_1.png", "last.png"):
         assert (tmp_path / "t" / f).read_bytes() == \
             (tmp_path / "j" / f).read_bytes()
-
-
-def test_frame_stats_match_jax():
-    rng = np.random.default_rng(5)
-    t, j = tprof.FrameStats(window=7), jprof.FrameStats(window=7)
-    assert (t.fps, t.frame_time_ms, t.summary()) == \
-        (j.fps, j.frame_time_ms, j.summary())
-    for _ in range(20):
-        dt = float(rng.uniform(0.001, 0.05))
-        tris, tex = int(rng.integers(0, 10**6)), int(rng.integers(0, 10**7))
-        t.push(dt, triangles=tris, texels=tex)
-        j.push(dt, triangles=tris, texels=tex)
-        assert (t.fps, t.frame_time_ms, t.mtri_per_s, t.mtexel_per_s,
-                t.frames, t.summary()) == \
-            (j.fps, j.frame_time_ms, j.mtri_per_s, j.mtexel_per_s,
-             j.frames, j.summary())
 
 
 @pytest.mark.parametrize("shape", [(9, 13, 4), (16, 5, 3), (7, 11)])

@@ -1,16 +1,10 @@
-"""The port's profiling tools on the CPU: ``utils.profiling.trace`` and
-``stage_timer``.
-
-``trace`` around a frame writes a Chrome trace that names K1's op
-(``mtr::raster_fwd_tap``) with a duration; ``stage_timer`` accumulates
-seconds under each stage's name, fences what it is given (a CUDA tensor
-synchronises its device; CPU tensors need nothing) and marks the stage
-as a ``record_function`` range that a trace shows under its name. The
-card's half (K1's ``__global__`` kernel in the trace) runs in
-``chip_smoke.py`` (s3)."""
+"""The port's profiling trace on the CPU: ``utils.profiling.trace``
+around a frame writes a Chrome trace that names K1's op
+(``mtr::raster_fwd_tap``) with a duration. The spans are
+``test_torch_spans.py``'s; the card's half (K1's ``__global__`` kernel
+in the trace, inside ``frame.raster``) runs in ``chip_smoke.py`` (s3)."""
 
 import json
-import time
 from pathlib import Path
 
 import numpy as np
@@ -61,48 +55,3 @@ def test_trace_defaults_to_the_temporary_directory(tmp_path, monkeypatch):
         torch.ones(4).sum()
     assert log_dir == str(tmp_path / "mtr_trace")
     assert trace_events(log_dir)
-
-
-def test_stage_timer_accumulates_and_marks_its_range(tmp_path, case):
-    scene, vp, bones = case
-    times = {}
-    with profiling.trace(str(tmp_path)) as log_dir:
-        for _ in range(2):
-            with profiling.stage_timer(times, "vertex") as fence:
-                clip = fence(td.vertex_stage(scene, vp, bones))
-            with profiling.stage_timer(times, "setup") as fence:
-                fence(td.setup_packed_cols(scene, clip, W, H))
-    assert set(times) == {"vertex", "setup"}
-    assert all(t > 0.0 for t in times.values())
-    names = [e.get("name") for e in trace_events(log_dir)]
-    assert names.count("vertex") == 2 and names.count("setup") == 2
-    before = dict(times)
-    with profiling.stage_timer(times, "vertex") as fence:
-        time.sleep(0.01)
-    assert times["vertex"] >= before["vertex"] + 0.01
-
-
-def test_stage_timer_fences_the_devices_of_what_it_is_given(monkeypatch):
-    """Every CUDA device among the fenced tensors (nested in tuples,
-    lists and dicts) is synchronised once before the clock stops; CPU
-    tensors synchronise nothing."""
-    nested = (torch.ones(2), [torch.zeros(3)], {"a": torch.ones(1), "b": 4})
-    assert len(list(profiling._tensors([nested]))) == 3
-    synced = []
-    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
-    times = {}
-    with profiling.stage_timer(times, "cpu") as fence:
-        assert fence(nested) is nested
-    assert synced == [] and "cpu" in times
-    monkeypatch.setattr(profiling, "_tensors",
-                        lambda fenced: iter([_Card(0), _Card(1), _Card(0)]))
-    with profiling.stage_timer(times, "cuda") as fence:
-        fence(nested)
-    assert sorted(str(d) for d in synced) == ["cuda:0", "cuda:1"]
-
-
-class _Card:
-    """Stands in for a tensor on CUDA device ``index``."""
-
-    def __init__(self, index: int):
-        self.device = torch.device("cuda", index)

@@ -1,0 +1,192 @@
+"""The port's named spans (``utils.profiling.span``) on the CPU, at small
+sizes.
+
+Off (no profiler recording), ``span`` hands back one shared null
+context and records nothing. Under ``profiling.trace``:
+
+- the eager single-layer frame's Chrome trace holds each ``frame.*``
+  stage once, with K1's op inside ``frame.raster``;
+- a guarded ``FrameEngine`` frame records ``engine.guard``,
+  ``engine.frame`` and ``engine.check`` once, ``predict.skin`` and
+  ``predict.project`` twice (the guard's two bounding-box passes), the
+  overlap tests once each, and ``predict.palette`` twice where the
+  palette is a tensor; the ``predict.*`` leaves sum to no more than
+  ``engine.guard``;
+- a served request records ``serve.request`` around ``serve.inputs``,
+  ``serve.step`` and ``serve.queue``, once each.
+
+The exported graph holds no profiler op, even when exported under a
+profiler. The card's half (K1's kernel launched inside ``frame.raster``
+on the profiler's clock) runs in ``chip_smoke.py`` (s3).
+"""
+
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mt_renderer_tpu_torch import serving
+from mt_renderer_tpu_torch.render import device as td
+from mt_renderer_tpu_torch.render import raster as tr
+from mt_renderer_tpu_torch.render.engine import FrameEngine
+from mt_renderer_tpu_torch.scene import demo
+from mt_renderer_tpu_torch.utils import profiling
+
+W, H = 128, 64
+FRAME_SPANS = ("frame.vertex", "frame.setup", "frame.prebin",
+               "frame.raster", "frame.shade", "frame.unflatten")
+SERVE_SPANS = ("serve.request", "serve.inputs", "serve.step", "serve.queue")
+LEAVES = ("predict.palette", "predict.skin", "predict.project",
+          "predict.bins", "predict.rows")
+
+
+@pytest.fixture(scope="module")
+def case():
+    batch = demo.build_demo_batch(instances=4, skinned=True, subdiv=1)
+    return (batch, td.upload(batch, device="cpu"),
+            np.asarray(demo.demo_camera(4, W, H).view_proj()),
+            demo.demo_bone_mats(0.4))
+
+
+@pytest.fixture(autouse=True)
+def _clean():
+    profiling.reset_spans()
+    yield
+    profiling.reset_spans()
+    tr.flush_overflow_checks()
+
+
+def trace_events(log_dir) -> list:
+    path = Path(log_dir) / profiling.TRACE_FILE
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def annotations(events, name: str) -> list:
+    return [e for e in events if e.get("name") == name
+            and e.get("cat") == "user_annotation"]
+
+
+def inside(inner: dict, outer: dict) -> bool:
+    return (outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+def test_off_it_is_one_shared_null_context():
+    assert not torch.autograd.profiler._is_profiler_enabled
+    a, b = profiling.span("engine.guard"), profiling.span("frame.raster")
+    assert a is b
+    with a as got:
+        assert got is None
+    assert profiling.span_totals() == {}
+
+
+def test_off_no_frame_records_a_span(case):
+    batch, scene, vp, bones = case
+    eng = FrameEngine(scene, batch, width=W, height=H, interactive=True)
+    for _ in range(2):
+        eng.render(vp, bones)
+    td.render_frame(scene, vp, bones, width=W, height=H)
+    assert profiling.span_totals() == {}
+
+
+def test_on_the_table_counts_calls_and_host_seconds(tmp_path):
+    profiling._TOTALS["stale"] = [3, 10**9]
+    with profiling.trace(str(tmp_path)):
+        for _ in range(2):
+            with profiling.span("engine.check"):
+                time.sleep(0.01)
+        with profiling.span("predict.bins"):
+            pass
+    got = profiling.span_totals()
+    assert set(got) == {"engine.check", "predict.bins"}   # reset on entry
+    assert got["engine.check"][0] == 2 and got["engine.check"][1] >= 0.02
+    assert got["predict.bins"][0] == 1
+    assert len(annotations(trace_events(tmp_path), "engine.check")) == 2
+    profiling.reset_spans()
+    assert profiling.span_totals() == {}
+
+
+@pytest.mark.parametrize("mipmap", [False, True])
+def test_an_eager_frame_holds_each_stage_once(tmp_path, case, mipmap):
+    batch, scene, vp, bones = case
+    if mipmap:
+        scene = td.upload(batch, "tri", device="cpu")
+    with profiling.trace(str(tmp_path)) as log_dir:
+        td.render_frame(scene, vp, bones, width=W, height=H, mipmap=mipmap)
+    events = trace_events(log_dir)
+    spans = {s: annotations(events, s) for s in FRAME_SPANS}
+    assert {s: len(v) for s, v in spans.items()} == dict.fromkeys(
+        FRAME_SPANS, 1)
+    op = "mtr::raster_fwd_mtap" if mipmap else "mtr::raster_fwd_tap"
+    k1 = [e for e in events if e.get("name") == op]
+    assert len(k1) == 1 and inside(k1[0], spans["frame.raster"][0])
+    assert not inside(k1[0], spans["frame.shade"][0])
+    assert set(profiling.span_totals()) == set(FRAME_SPANS)
+
+
+@pytest.mark.parametrize("palette", ["host", "device"])
+def test_a_guarded_engine_frame(tmp_path, case, palette):
+    batch, scene, vp, bones = case
+    if palette == "device":
+        bones = torch.as_tensor(bones)
+    eng = FrameEngine(scene, batch, width=W, height=H, interactive=True)
+    eng.render(vp, bones)                     # sizes; no guard
+    with profiling.trace(str(tmp_path)) as log_dir:
+        eng.render(vp, bones)
+    got = profiling.span_totals()
+    calls = {k: n for k, (n, _) in got.items()}
+    assert calls["engine.guard"] == calls["engine.frame"] == 1
+    assert calls["engine.check"] == 1
+    assert calls["predict.skin"] == calls["predict.project"] == 2
+    assert calls["predict.bins"] == calls["predict.rows"] == 1
+    assert calls.get("predict.palette", 0) == (2 if palette == "device"
+                                               else 0)
+    leaves = sum(got[k][1] for k in LEAVES if k in got)
+    assert 0.0 < leaves <= got["engine.guard"][1]
+    events = trace_events(log_dir)
+    guard = annotations(events, "engine.guard")[0]
+    for k in LEAVES:
+        assert all(inside(e, guard) for e in annotations(events, k))
+    frame = annotations(events, "engine.frame")[0]
+    assert inside(annotations(events, "frame.raster")[0], frame)
+
+
+@pytest.fixture(scope="module")
+def artifact(case):
+    _, scene, _, _ = case
+    return serving.load_render(serving.export_render(scene, width=W,
+                                                     height=H))
+
+
+def test_a_served_request_holds_its_four_spans(tmp_path, case, artifact):
+    _, scene, vp, bones = case
+    artifact(scene, vp, bones)                # first call outside the trace
+    with profiling.trace(str(tmp_path)) as log_dir:
+        artifact(scene, vp, bones)
+    got = profiling.span_totals()
+    assert {k: got[k][0] for k in SERVE_SPANS} == dict.fromkeys(
+        SERVE_SPANS, 1)
+    assert not any(k.startswith("frame.") for k in got)   # in the graph
+    events = trace_events(log_dir)
+    request = annotations(events, "serve.request")[0]
+    parts = [annotations(events, k)[0] for k in SERVE_SPANS[1:]]
+    assert all(inside(p, request) for p in parts)
+    assert [p["ts"] for p in parts] == sorted(p["ts"] for p in parts)
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_the_exported_graph_holds_no_profiler_op(tmp_path, case, profiled):
+    _, scene, _, _ = case
+    if profiled:
+        with profiling.trace(str(tmp_path)):
+            blob = serving.export_render(scene, width=W, height=H)
+    else:
+        blob = serving.export_render(scene, width=W, height=H)
+    graph = serving.load_render(blob)._program.graph
+    targets = [str(n.target) for n in graph.nodes
+               if n.op == "call_function"]
+    assert any("raster_fwd_tap" in t for t in targets)
+    assert not [t for t in targets if "profiler" in t]
