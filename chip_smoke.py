@@ -1480,7 +1480,7 @@ def phase_bcn_world(device, mode: str, earlier: dict | None = None) -> dict:
     per = [x.elapsed_time(y) for x, y in zip(ev[:-1], ev[1:])]
     frame_ms = ev[0].elapsed_time(ev[-1]) / FRAMES
     log(f"{mode}_world_frame_ms {frame_ms!r} (CUDA events over {FRAMES} "
-        f"frames, host guard included; host clock {wall_ms!r} ms/frame); "
+        f"frames, cap guard included; host clock {wall_ms!r} ms/frame); "
         f"per frame: median {float(np.median(per))!r}, max {max(per)!r}, "
         f"frame 0 {per[0]!r}")
     return dict(launches=launches, frame_ms=frame_ms, max_abs_err=err,

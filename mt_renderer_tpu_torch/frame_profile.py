@@ -34,8 +34,9 @@ subdivisions (4, 6, 8): the bench's ``bigtex`` rows with ``--buildings
 
 * the texel pool's ``pool_stats`` and, for the tri, bc1 and bc7 pools,
   the device time of their build at upload;
-* the host predictors ``FrameEngine`` runs before each frame
-  (``predict_bin_counts`` + ``auto_tap_tiles``), and ``auto_maxc`` and
+* the host predictors (``predict_bin_counts`` + ``auto_tap_tiles``, the
+  band split's sizing; ``FrameEngine``'s guard counts on the device
+  instead, ``device.guard_counts``), and ``auto_maxc`` and
   ``skin_positions`` they are built on, in ms over ``--views`` views;
 * the frame with the caps fixed (no host guard): view and bones sent
   from the host each frame, then already on the device;

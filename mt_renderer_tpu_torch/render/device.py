@@ -51,7 +51,9 @@ oracle).
 
 Tensors live on the scene's device; every function takes its device from
 its inputs. The host sizing helpers (``auto_maxc``, ``auto_tap_tiles``)
-run in NumPy on the host ``DrawBatch`` and never touch the device.
+run in NumPy on the host ``DrawBatch`` and never touch the device; the
+frame engine's guard counts the same needs on the device instead
+(``guard_counts``).
 
 The packed frame is an int32 tensor holding the RGBA8 bits (PyTorch has
 few uint32 ops); ``unpack_rgba`` views it as (H, W, 4) uint8 on the
@@ -849,6 +851,43 @@ def _light_unit() -> tuple:
     return tuple(float(c) for c in light)
 
 
+def _screen(scene: DeviceScene, clip, width: int, height: int):
+    """The screen transform of every triangle's corners → (cc (3, Tp, 4)
+    corner-planar clip coords, inv_w, sx, sy (three (Tp,) f32 each, one
+    per corner), area2 (Tp,), valid (Tp,) bool: visible, in front of the
+    eye at every corner, front-facing). ``setup_packed_cols`` and
+    ``guard_counts`` both take it, so the guard's boxes are the frame's
+    bit for bit."""
+    tp = scene.tri_valid.shape[0]
+    cc = clip.reshape(3, tp, 4)                           # corner-planar
+    w = [cc[i, :, 3] for i in range(3)]
+    inv_w = [torch.reciprocal(torch.where(wi.abs() < W_EPS, W_EPS, wi))
+             for wi in w]
+    sx = [(cc[i, :, 0] * inv_w[i] + 1.0) * (0.5 * width) for i in range(3)]
+    sy = [(1.0 - cc[i, :, 1] * inv_w[i]) * (0.5 * height) for i in range(3)]
+    area2 = (sx[1] - sx[0]) * (sy[2] - sy[0]) - (sy[1] - sy[0]) * (
+        sx[2] - sx[0])
+    valid = (scene.tri_vis & (w[0] > W_EPS) & (w[1] > W_EPS)
+             & (w[2] > W_EPS) & (area2 < 0.0))
+    return cc, inv_w, sx, sy, area2, valid
+
+
+_BIG = 1e30               # an empty group's box: never overlaps a tile
+
+
+def _group_min(vals, v) -> torch.Tensor:
+    """(Tp/KG,) least of the three corner values over each KG-triangle
+    group's triangles where ``v``."""
+    m = torch.minimum(torch.minimum(vals[0], vals[1]), vals[2])
+    return torch.where(v, m, _BIG).reshape(-1, rs.KG).amin(1)
+
+
+def _group_max(vals, v) -> torch.Tensor:
+    """(Tp/KG,) greatest of the three corner values, as ``_group_min``."""
+    m = torch.maximum(torch.maximum(vals[0], vals[1]), vals[2])
+    return torch.where(v, m, -_BIG).reshape(-1, rs.KG).amax(1)
+
+
 def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int,
                       opacity_split: bool = False, bone_mats=None,
                       lighting: bool = False):
@@ -869,18 +908,8 @@ def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int,
     set's group bboxes (never binned). The split peel rasters the
     opaque set single-layer and only the translucent set multi-layer."""
     tp = scene.tri_valid.shape[0]
-    cc = clip.reshape(3, tp, 4)                           # corner-planar
-    w = [cc[i, :, 3] for i in range(3)]
-    inv_w = [torch.reciprocal(torch.where(wi.abs() < W_EPS, W_EPS, wi))
-             for wi in w]
-    sx = [(cc[i, :, 0] * inv_w[i] + 1.0) * (0.5 * width) for i in range(3)]
-    sy = [(1.0 - cc[i, :, 1] * inv_w[i]) * (0.5 * height) for i in range(3)]
+    cc, inv_w, sx, sy, area2, valid = _screen(scene, clip, width, height)
     sz = [cc[i, :, 2] * inv_w[i] for i in range(3)]
-
-    area2 = (sx[1] - sx[0]) * (sy[2] - sy[0]) - (sy[1] - sy[0]) * (
-        sx[2] - sx[0])
-    valid = (scene.tri_vis & (w[0] > W_EPS) & (w[1] > W_EPS)
-             & (w[2] > W_EPS) & (area2 < 0.0))
     area = -area2
     inv_area = torch.where(
         area != 0.0,
@@ -935,21 +964,11 @@ def setup_packed_cols(scene: DeviceScene, clip, width: int, height: int,
         for ch in range(3):
             tail += plane3(*[nc[i, :, ch] * inv_w[i] for i in range(3)])
 
-    big = 1e30
-    cg = tp // rs.KG
-
-    def cmin(vals, v):
-        m = torch.minimum(torch.minimum(vals[0], vals[1]), vals[2])
-        return torch.where(v, m, big).reshape(cg, rs.KG).amin(1)
-
-    def cmax(vals, v):
-        m = torch.maximum(torch.maximum(vals[0], vals[1]), vals[2])
-        return torch.where(v, m, -big).reshape(cg, rs.KG).amax(1)
-
     def finish(bias0, v):
         cols = torch.stack(ea + eb + ec + [bias0] + bias[1:] + tail, 0)
-        return cols, (cmin(sx, v), cmax(sx, v), cmin(sy, v), cmax(sy, v),
-                      cmin(sz, v))                    # (33 or 42, Tp), bbox
+        return cols, (_group_min(sx, v), _group_max(sx, v),
+                      _group_min(sy, v), _group_max(sy, v),
+                      _group_min(sz, v))          # (33 or 42, Tp), bbox
 
     if opacity_split:
         return (finish(torch.where(opq, bias[0], rs.REJECT), valid & opq),
@@ -1949,6 +1968,44 @@ def auto_tap_tiles(batch, view_proj, bone_mats=None, *,
                for i in range(bands))
     return min(max(8, -(-int(np.ceil(live * margin)) // 8) * 8),
                _seg_rows_of(pw, pb))
+
+
+# ------------------------------------------------ the cap guard, on device
+
+
+def guard_counts(scene: DeviceScene, view_proj, bone_mats=None, *,
+                 width: int, height: int) -> torch.Tensor:
+    """The cap guard's two counts for this view, on the scene's device →
+    (2,) int32: [0] the bin need, the frame's largest per-tile
+    candidate-chunk count (``raster.bin_chunks``' ``counts_true.max()``
+    on the frame's own group boxes: exact, not a prediction); [1] an
+    upper bound on the live SEG_PX-px tap rows, the rows (one tile each:
+    SEG_PX is a tile's pixels) that a group holding a valid textured
+    triangle overlaps.
+
+    The frame's own vertex stage (a palette on the device stays there)
+    and screen transform (``_screen``), the group boxes of
+    ``setup_packed_cols``, and no setup rows. Nothing is read back: the
+    caller reads both counts in one transfer."""
+    pw, ph = _padded(width, height)
+    clip = vertex_stage(scene, view_proj, bone_mats)
+    _, _, sx, sy, _, valid = _screen(scene, clip, width, height)
+    xmin, xmax = _group_min(sx, valid), _group_max(sx, valid)
+    ymin, ymax = _group_min(sy, valid), _group_max(sy, valid)
+    dev = xmin.device
+    ty0 = torch.arange(ph // rs.TILE_H, dtype=torch.float32,
+                       device=dev) * rs.TILE_H
+    tx0 = torch.arange(pw // rs.TILE_W, dtype=torch.float32,
+                       device=dev) * rs.TILE_W
+    ovy = (ymax[:, None] >= ty0) & (ymin[:, None] <= ty0 + rs.TILE_H)
+    ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
+    ov = ovy[:, :, None] & ovx[:, None, :]           # (groups, n_ty, n_tx)
+    need = ov.reshape(-1, rs.G, ov.shape[1] * ov.shape[2]).any(1).sum(
+        0, dtype=torch.int32).amax()
+    textured = (valid & (scene.cols_const[0] >= 0.0)).reshape(
+        -1, rs.KG).any(1)
+    rows = (ov & textured[:, None, None]).any(0).sum(dtype=torch.int32)
+    return torch.stack([need, rows])
 
 
 # --------------------------------------------------------------- scan backend

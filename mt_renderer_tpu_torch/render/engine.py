@@ -8,39 +8,50 @@ either frame on the scan backend (``backend="scan"``: no caps to size,
 the unpacked frame); the frame comes back in the reference engine's
 format (``packed``). ``FrameEngine`` owns the frame loop's wiring:
 
-* lazy sizing at the first rendered view: ``auto_maxc`` for the binning
-  cap; for the single-layer frame ``auto_tap_tiles`` for the compacted
-  texture tap, for the "split" and "ml" peels ``measure_live_tap_tiles``
-  (one run of the rasters and one device→host transfer; the multipass
-  peel shades densely and takes no tap cap); a ``headroom`` factor over
-  the measured need;
-* a per-frame host-side cap guard (no device sync): the binning need is
-  predicted exactly (``predict_bin_counts`` mirrors ``bin_chunks``) and
-  the single-layer tap liveness bounded from above
-  (``predict_live_rows``), so the engine grows a cap before a frame that
-  would overflow it. When that row bound grows past the one seen at
-  sizing, the peeled caps are measured again and grow element by
-  element;
+* lazy sizing at the first rendered view: the binning cap and, for the
+  single-layer frame, the compacted texture tap's cap from the two
+  counts of ``device.guard_counts``; for the "split" and "ml" peels
+  the tap caps from ``measure_live_tap_tiles`` (one run of the rasters;
+  the multipass peel shades densely and takes no tap cap); a
+  ``headroom`` factor over the need, rounded up to a multiple of 8;
+* a per-frame cap guard on the scene's device: ``guard_counts`` counts
+  the frame's bin need exactly (``bin_chunks``' uncapped count on the
+  frame's own group boxes) and bounds the single-layer tap liveness
+  from above, and the engine reads both in one device→host transfer a
+  frame, then grows a cap before a frame that would overflow it. When
+  the row bound grows past the one seen at sizing, the peeled caps are
+  measured again and grow element by element;
 * overflow recovery as the backstop: every ``check_every`` frames the
   deferred overflow queue flushes (one device→host transfer; every
   frame for an ``interactive`` loop, 16 frames otherwise); any
   overflow re-sizes the affected cap at the current view (never below 2x
   the overflowed cap) and logs. This is the only recovery of the peeled
-  caps from a spike in translucent depth, which has no cheap host bound.
+  caps from a spike in translucent depth, which the row bound does not
+  see.
+
+The host predictors (``device.auto_maxc``, ``auto_tap_tiles``) are not on
+this path: they serve the band split, the verify legs and the tools.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 
 import numpy as np
-import torch
 
 from ..utils.profiling import span
 from . import device
 from . import raster as rs
 
 logger = logging.getLogger("mt_renderer_tpu_torch.render")
+
+
+def _cap(count: int, margin: float, hi: int | None = None) -> int:
+    """A cap over a measured ``count``: ``count`` x ``margin``, rounded
+    up to a multiple of 8, at least 8 and at most ``hi``."""
+    cap = max(8, -(-math.ceil(count * margin) // 8) * 8)
+    return cap if hi is None else min(cap, hi)
 
 
 class FrameEngine:
@@ -74,7 +85,8 @@ class FrameEngine:
         self.sized = False
         self.recoveries = 0            # cap bumps taken so far
         self._since_check = 0
-        self._tap_bound = 0            # host row bound seen at sizing
+        self._tap_bound = 0            # largest tap row cap counted yet
+        self._rows = device._seg_rows_of(*device._padded(width, height))
 
     @property
     def packed(self) -> bool:
@@ -94,14 +106,15 @@ class FrameEngine:
         return self.backend == "pallas" and not (
             self.peel and self.peel_mode == "multipass")
 
-    def _predict(self, fn, view_proj, bone_mats, **kw):
-        """A host predictor at this view; a palette on the device (the
-        world's ``bone_mats_device``) is read back for it."""
-        if isinstance(bone_mats, torch.Tensor):
-            with span("predict.palette"):
-                bone_mats = bone_mats.cpu().numpy()
-        return fn(self.batch, np.asarray(view_proj), bone_mats,
-                  width=self.width, height=self.height, **kw)
+    def _caps(self, view_proj, bone_mats) -> tuple[int, int, int]:
+        """(bin need, binning cap, tap row cap) at this view: the two
+        counts of ``device.guard_counts``, read back in one transfer,
+        with the engine's headroom over each."""
+        need, live = device.guard_counts(
+            self.scene, view_proj, bone_mats, width=self.width,
+            height=self.height).tolist()
+        return (need, _cap(need, self.headroom),
+                _cap(live, self.headroom, self._rows))
 
     def _measure_peel(self, view_proj, bone_mats):
         """The peeled frame's tap caps at this view (one device run)."""
@@ -113,16 +126,13 @@ class FrameEngine:
             margin=self.headroom)
 
     def size(self, view_proj, bone_mats=None) -> None:
-        """Size the binning and compacted-tap caps for this view: host
-        NumPy only, plus one device run on the "split" and "ml" peels.
-        The scan backend has no caps."""
+        """Size the binning and compacted-tap caps for this view: the
+        guard's counts, plus one run of the rasters on the "split" and
+        "ml" peels. The scan backend has no caps."""
         self.sized = True
         if self.backend != "pallas":
             return
-        self.maxc = self._predict(device.auto_maxc, view_proj, bone_mats,
-                                  margin=self.headroom)
-        self._tap_bound = self._predict(device.auto_tap_tiles, view_proj,
-                                        bone_mats, margin=self.headroom)
+        _, self.maxc, self._tap_bound = self._caps(view_proj, bone_mats)
         if not self._tap_caps:
             self.tap_tiles = None
         elif self.peel:
@@ -168,38 +178,38 @@ class FrameEngine:
         return out
 
     def _guard(self, view_proj, bone_mats) -> None:
-        """Pre-render host-side cap guard (no device sync, except the
-        peel caps' re-measurement): grow the caps before a frame that
-        would overflow them."""
-        need = int(self._predict(device.predict_bin_counts, view_proj,
-                                 bone_mats).max())
+        """Pre-render cap guard: count this view's needs on the device,
+        read them back once, and grow the caps before a frame that would
+        overflow them (the peeled caps by a fresh measurement, when the
+        row bound grew). ``guard.grow`` opens for each growth step."""
+        with span("guard.count"):
+            need, maxc, bound = self._caps(view_proj, bone_mats)
         if need > (self.maxc or 0):
-            old = self.maxc
-            self.maxc = self._predict(device.auto_maxc, view_proj,
-                                      bone_mats, margin=self.headroom)
-            self.recoveries += 1
-            logger.info("FrameEngine guard: view needs %d candidate chunks "
-                        "> maxc=%s — grew to %s before rendering",
-                        need, old, self.maxc)
-        bound = self._predict(device.auto_tap_tiles, view_proj, bone_mats,
-                              margin=self.headroom)
+            with span("guard.grow"):
+                old, self.maxc = self.maxc, maxc
+                self.recoveries += 1
+                logger.info("FrameEngine guard: view needs %d candidate "
+                            "chunks > maxc=%s — grew to %s before "
+                            "rendering", need, old, self.maxc)
         if bound <= self._tap_bound or not self._tap_caps:
             return
-        self._tap_bound = bound
-        old = self.tap_tiles
-        if self.peel:
-            fresh = self._measure_peel(view_proj, bone_mats)
-            if isinstance(old, tuple):
-                self.tap_tiles = tuple(max(o, n) for o, n in zip(old, fresh))
+        with span("guard.grow"):
+            self._tap_bound = bound
+            old = self.tap_tiles
+            if self.peel:
+                fresh = self._measure_peel(view_proj, bone_mats)
+                if isinstance(old, tuple):
+                    self.tap_tiles = tuple(max(o, n)
+                                           for o, n in zip(old, fresh))
+                else:
+                    self.tap_tiles = max(old or 0, fresh)
             else:
-                self.tap_tiles = max(old or 0, fresh)
-        else:
-            self.tap_tiles = max(old or 0, bound)
-        if self.tap_tiles != old:
-            self.recoveries += 1
-            logger.info("FrameEngine guard: tap row bound grew past the "
-                        "sized caps — %s -> %s before rendering", old,
-                        self.tap_tiles)
+                self.tap_tiles = max(old or 0, bound)
+            if self.tap_tiles != old:
+                self.recoveries += 1
+                logger.info("FrameEngine guard: tap row bound grew past "
+                            "the sized caps — %s -> %s before rendering",
+                            old, self.tap_tiles)
 
     def _grow(self, old, new):
         """Monotone cap growth, element by element for the split pair: at
@@ -222,35 +232,28 @@ class FrameEngine:
             for what, (n, cap) in counts.items():
                 rs._overflow_report(n, cap, what)
             return counts
+        _, maxc, taps = self._caps(view_proj, bone_mats)
         for what, (n, cap) in counts.items():
             if n <= 0:
                 continue
             self.recoveries += 1
             if what.startswith("bin"):
                 old = self.maxc
-                self.maxc = self._grow(old, self._predict(
-                    device.auto_maxc, view_proj, bone_mats,
-                    margin=self.headroom))
+                self.maxc = self._grow(old, maxc)
                 logger.warning(
                     "FrameEngine: bin overflow on %d tile-frame(s) at "
                     "maxc=%s — recovered to maxc=%s", n, old, self.maxc)
             else:
                 old = self.tap_tiles
-                if self.peel:
-                    need = self._measure_peel(view_proj, bone_mats)
-                else:
-                    need = self._predict(device.auto_tap_tiles, view_proj,
-                                         bone_mats, margin=self.headroom)
+                need = (self._measure_peel(view_proj, bone_mats)
+                        if self.peel else taps)
                 grown = self._grow(old, need) if old else need
                 # a cap past "every row live" buys nothing
-                pw, ph = device._padded(self.width, self.height)
-                nrows = (pw // rs.TILE_W) * (ph // (device.SEG_PX
-                                                    // rs.TILE_W))
                 if isinstance(grown, tuple):
-                    grown = (min(grown[0], nrows),
-                             min(grown[1], nrows * self.peel))
+                    grown = (min(grown[0], self._rows),
+                             min(grown[1], self._rows * self.peel))
                 else:
-                    grown = min(grown, nrows * max(self.peel, 1))
+                    grown = min(grown, self._rows * max(self.peel, 1))
                 self.tap_tiles = grown
                 logger.warning(
                     "FrameEngine: tap overflow on %d row(s) at "

@@ -263,7 +263,7 @@ def test_interactive_engine_checks_every_frame():
 
 def test_translucency_spike_recovers_within_one_frame():
     """An interactive engine flushes the overflow queue every frame: a
-    translucency spike its host guard cannot see (it bounds only the
+    translucency spike its cap guard cannot see (it bounds only the
     single-layer liveness) drops translucent texture for one displayed
     frame, and the next frame equals the dense-tap frame bit for bit
     (the JAX package's tests/test_engine.py holds its engine to the

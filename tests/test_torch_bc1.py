@@ -415,8 +415,8 @@ def test_bc1_world_frame_equals_decoded_chains():
     want, depth = td.render_frame(quad, vp, pal, **kw)
     assert case.scene.pool_mode == "bc1" and len(case.batch.textures) > 2
     assert torch.equal(got, want) and bool((depth < 1.0).any())
-    # FrameEngine with the palette computed on the device (its host
-    # guard reads a copy back)
+    # FrameEngine with the palette computed on the device (its guard
+    # counts there too)
     pal_dev = case.bone_mats_device(6.0)
     assert isinstance(pal_dev, torch.Tensor)
     eng = te.FrameEngine(case.scene, case.batch, width=W, height=96,

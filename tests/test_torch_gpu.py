@@ -29,7 +29,9 @@ refuses card tensors. K1's zlow instantiations and its attrs epilogue
 equal the plain version bit for bit on the hard inputs; pass 0 of the
 multipass peel equals the single-layer frame bit for bit on the card;
 the scan backend's frames on the card lie under the golden rule against
-the CPU's (coverage exact, depth within 1e-5).
+the CPU's (coverage exact, depth within 1e-5). The frame engine's cap
+guard, counted on the card, holds a 20-frame headline orbit at 1920x1080
+with no overflow, each frame ``render_frame``'s at the engine's caps.
 """
 
 import os
@@ -1079,6 +1081,49 @@ def test_served_headline_on_card_equals_render_frame(cuda, mipmap):
         assert color.device.type == "cuda"
         assert torch.equal(color, want) and torch.equal(depth, wdepth)
     assert all(n == 0 for n, _ in tr.flush_overflow_counts().values())
+
+
+@pytest.mark.gpu
+def test_headline_orbit_guard_on_card(cuda):
+    """The headline scene (1024 instances at subdiv 4) at 1920x1080
+    through ``FrameEngine(interactive=True)`` for 20 frames of an orbit:
+    the guard's bin need on the card equals ``bin_chunks``' count on the
+    frame's own boxes, no overflow is queued, and every frame equals
+    ``render_frame`` at the engine's caps bit for bit."""
+    from mt_renderer_tpu_torch.render import engine as te
+
+    w, h = 1920, 1080
+    case = entry.demo_case(cuda, instances=1024, subdiv=4, width=w,
+                           height=h)
+    eng = te.FrameEngine(case.scene, case.batch, width=w, height=h,
+                         interactive=True)
+    over = []
+    check = eng.check
+
+    def counted(*a, **k):
+        counts = check(*a, **k)
+        over.extend(n for n, _ in counts.values() if n > 0)
+        return counts
+
+    eng.check = counted
+    pw, ph = td._padded(w, h)
+    for t in range(20):
+        case.camera.yaw += 1.5
+        vp, bones = case.view_proj(), case.bone_mats(t / 60.0)
+        got, got_d = eng.render(vp, bones)
+        want, want_d = td.render_frame(case.scene, vp, bones, width=w,
+                                       height=h, packed=True, maxc=eng.maxc,
+                                       tap_tiles=eng.tap_tiles,
+                                       check_overflow=False)
+        assert got.device.type == "cuda"
+        assert torch.equal(got, want) and torch.equal(got_d, want_d), t
+        need = td.guard_counts(case.scene, vp, bones, width=w, height=h)
+        clip = td.vertex_stage(case.scene, vp, bones)
+        _, bbox = td.setup_packed_cols(case.scene, clip, w, h)
+        counts_true = tr.bin_chunks(bbox, ph // tr.TILE_H, pw // tr.TILE_W,
+                                    1, 0, 0)[3]
+        assert int(need[0]) == int(counts_true.max()) <= eng.maxc
+    assert over == []
 
 
 @pytest.mark.gpu

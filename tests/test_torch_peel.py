@@ -24,6 +24,8 @@ Tolerances:
   caps against JAX's: bit for bit.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -539,8 +541,9 @@ def test_peeled_engine_sizes_guards_and_recovers(glass):
     reference engine's rules: the engine sizes the cap pair at the first
     view as ``measure_live_tap_tiles`` measures it (held to JAX's by
     ``test_measure_live_tap_tiles_matches_jax``); before a view whose
-    single-layer row bound grew it measures again and grows the pair
-    element by element; it renders the frame ``render_frame_peeled``
+    single-layer row bound (``guard_counts``' second count, with the
+    engine's headroom, rounded up to 8 and clamped to the grid's rows)
+    grew it measures again and grows the pair element by element; it renders the frame ``render_frame_peeled``
     renders with its caps; and when a frame overflowed a cap anyway (the
     peeled caps have no host bound), the next check grows each cap to at
     least twice its size and the fresh need, clamped to (rows,
@@ -553,8 +556,9 @@ def test_peeled_engine_sizes_guards_and_recovers(glass):
     grew_by = []
     for scale in (2.0, 1.5, 1.0, 0.3):
         vp = _glass_view(scale)
-        bound = td.auto_tap_tiles(batch, vp, bones, width=W, height=H,
-                                  margin=eng.headroom)
+        live = int(td.guard_counts(ts, vp, bones, width=W, height=H)[1])
+        bound = min(max(8, -(-math.ceil(live * eng.headroom) // 8) * 8),
+                    nrows)
         old, old_bound = eng.tap_tiles, eng._tap_bound
         got, _ = eng.render(vp, bones)
         fresh = td.measure_live_tap_tiles(

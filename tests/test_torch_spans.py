@@ -7,11 +7,11 @@ context and records nothing. Under ``profiling.trace``:
 - the eager single-layer frame's Chrome trace holds each ``frame.*``
   stage once, with K1's op inside ``frame.raster``;
 - a guarded ``FrameEngine`` frame records ``engine.guard``,
-  ``engine.frame`` and ``engine.check`` once, ``predict.skin`` and
-  ``predict.project`` twice (the guard's two bounding-box passes), the
-  overlap tests once each, and ``predict.palette`` twice where the
-  palette is a tensor; the ``predict.*`` leaves sum to no more than
-  ``engine.guard``;
+  ``engine.frame`` and ``engine.check`` once, and ``guard.count`` (the
+  counts on the device and their one readback) once inside
+  ``engine.guard``, with a host or a device palette; ``guard.grow``
+  opens only when the guard grows a cap, and no host predictor's
+  ``predict.*`` span opens;
 - a served request records ``serve.request`` around ``serve.inputs``,
   ``serve.step`` and ``serve.queue``, once each.
 
@@ -39,8 +39,7 @@ W, H = 128, 64
 FRAME_SPANS = ("frame.vertex", "frame.setup", "frame.prebin",
                "frame.raster", "frame.shade", "frame.unflatten")
 SERVE_SPANS = ("serve.request", "serve.inputs", "serve.step", "serve.queue")
-LEAVES = ("predict.palette", "predict.skin", "predict.project",
-          "predict.bins", "predict.rows")
+LEAVES = ("guard.count", "guard.grow")
 
 
 @pytest.fixture(scope="module")
@@ -140,10 +139,9 @@ def test_a_guarded_engine_frame(tmp_path, case, palette):
     calls = {k: n for k, (n, _) in got.items()}
     assert calls["engine.guard"] == calls["engine.frame"] == 1
     assert calls["engine.check"] == 1
-    assert calls["predict.skin"] == calls["predict.project"] == 2
-    assert calls["predict.bins"] == calls["predict.rows"] == 1
-    assert calls.get("predict.palette", 0) == (2 if palette == "device"
-                                               else 0)
+    assert calls["guard.count"] == 1
+    assert "guard.grow" not in calls          # the sized view: no growth
+    assert not [k for k in calls if k.startswith("predict.")]
     leaves = sum(got[k][1] for k in LEAVES if k in got)
     assert 0.0 < leaves <= got["engine.guard"][1]
     events = trace_events(log_dir)
