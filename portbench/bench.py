@@ -3,7 +3,8 @@
 Everything a cell is made of is found by name under ``portbench/``:
 ``BENCHMARK.json`` (beside the folder) names the cell's configuration
 and traffic; ``configs/<config>.json`` holds the configuration's sizes
-and names its scene builder (``scenes/<builder>.py``);
+and names its scene builder (``scenes/<builder>.py``, under the
+``Bench``'s root);
 ``traffic/<mix>.json`` the mix (``loops``); ``metrics/<metric>.py`` each
 per-layer metric's reader (``read(ctx) -> float | None``), or, for a
 metric split by the end-to-end metric it moves (``idle_share.frame``,
@@ -110,7 +111,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     torch.manual_seed(seed)
 
     marks = [("start", t_start), ("imports", time.perf_counter())]
-    arrays = builder(cfg["builder"]).build(cfg, seed)
+    arrays = builder(cfg["builder"], bench.root).build(cfg, seed)
     marks.append(("scene arrays", time.perf_counter()))
     loop = loops.Loop(cfg, traffic, arrays, dev, seed)
     marks.append(("upload and program", time.perf_counter()))
@@ -172,7 +173,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     metrics = {}
     if traced:
         ctx = dict(cfg=cfg, workload=workload, trace=traced_sum,
-                   guard_ms=guard_ms)
+                   guard_ms=guard_ms, item_ms=win["ms"])
         for m in bench.per_layer(workload):
             v = bench.reader(m["name"])(ctx)
             if v is not None:

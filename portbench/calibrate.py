@@ -40,7 +40,8 @@ def main(argv=None) -> int:
                    help="read the control on the first N seeds")
     p.add_argument("--seconds", type=float, default=4.0)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--fault", choices=faults.FRAME + faults.SHADE,
+    p.add_argument("--fault",
+                   choices=faults.FRAME + faults.SHADE + faults.BLOCK,
                    help="plant this fault under the timed path")
     args = p.parse_args(argv)
     seeds = [int(s) for s in args.seeds.split(",")]

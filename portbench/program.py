@@ -77,12 +77,24 @@ class ProgramPalette:
 
 
 def upload(arrays, cfg: dict, device):
-    """(host batch, the scene on ``device``)."""
+    """(host batch, the scene on ``device``). A compressed pool takes the
+    builder's chains as a viewer takes a ``.tex`` asset's
+    (``bc1_chains=`` or ``bc7_chains=``), so the program's own encoder
+    never runs in a cell: a ``bc1`` or ``bc7`` pool without chains of its
+    format, or chains under another pool, raises ``ValueError``."""
     from mt_renderer_tpu_torch.render import device as dv
 
+    pool, fmt = cfg["pool"], arrays.chain_format
+    if arrays.chains is None and pool in ("bc1", "bc7"):
+        raise ValueError(f"a {pool} pool needs the builder's {pool} "
+                         "chains; the scene arrays have none")
+    if arrays.chains is not None and fmt != pool:
+        raise ValueError(f"{fmt} chains need pool {fmt!r}, not {pool!r}")
+    chains = {} if arrays.chains is None else {
+        f"{pool}_chains": arrays.chains}
     batch = draw_batch(arrays)
-    return batch, dv.upload(batch, cfg["pool"], device=device,
-                            mipmap=cfg["mipmap"])
+    return batch, dv.upload(batch, pool, device=device,
+                            mipmap=cfg["mipmap"], **chains)
 
 
 def frame_engine(scene, batch, cfg: dict):

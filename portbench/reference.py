@@ -17,7 +17,9 @@ and importing nothing of the program:
 * perspective-correct uv; bilinear clamp-to-edge texel taps; with
   ``mipmap`` a trilinear tap at the analytic LOD (log2 of the largest
   texel-space derivative of u or v), both levels clamped to the
-  texture's last, over 2x2 box-filtered mip chains built here;
+  texture's last, over 2x2 box-filtered mip chains built here, or, for
+  a scene that ships compressed chains, over those chains' levels as
+  ``reference_bcn`` decodes them;
 * albedo times the slot's material color, blended src-alpha over the
   clear color, rounded half up to RGBA8.
 
@@ -35,6 +37,8 @@ import math
 
 import numpy as np
 import torch
+
+from . import reference_bcn
 
 W_EPS = 1e-6
 _NONE = torch.iinfo(torch.int64).max
@@ -145,8 +149,14 @@ class Scene:
         self.tri_texture, self.tri_material = (
             i(arrays.tri_texture), i(arrays.tri_material))
         self.mat_color = f(arrays.mat_color)
-        chains = [mip_chain(t) if self.mipmap else [t]
-                  for t in arrays.textures]
+        if arrays.chains is not None:
+            decode = {"bc1": reference_bcn.decode_bc1,
+                      "bc7": reference_bcn.decode_bc7}[arrays.chain_format]
+            chains = [[decode(*lvl) for lvl in c[:None if self.mipmap else 1]]
+                      for c in arrays.chains]
+        else:
+            chains = [mip_chain(t) if self.mipmap else [t]
+                      for t in arrays.textures]
         self.num_mips = max(len(c) for c in chains)
         offs = np.zeros((len(chains), self.num_mips), np.int64)
         flat, n = [], 0

@@ -9,10 +9,13 @@ the program.
 
 from __future__ import annotations
 
-import importlib
+import importlib.util
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
+
+_HERE = Path(__file__).resolve().parent
 
 
 @dataclass
@@ -33,15 +36,27 @@ class SceneArrays:
     animation: dict = field(default_factory=dict)
     # extra arrays a builder keeps for the program's own animator
     extra: dict = field(default_factory=dict)
+    # an asset's compressed mip chains, or None: per texture its levels
+    # as (blocks (nb, k) u8, h, w) down to 1x1, nb = ceil(h/4) ceil(w/4);
+    # ``textures`` then holds each chain's level 0, decoded
+    chains: list | None = None
+    chain_format: str | None = None   # "bc1" (k = 8) or "bc7" (k = 16)
 
     @property
     def num_triangles(self) -> int:
         return len(self.tris)
 
 
-def builder(name: str):
-    """The builder module ``portbench.scenes.<name>``."""
-    return importlib.import_module(f"portbench.scenes.{name}")
+def builder(name: str, root: Path | None = None):
+    """The builder module ``<root>/scenes/<name>.py``, ``root`` being
+    this package's folder or a copy of it with files of its own; its
+    relative imports resolve in this package."""
+    path = Path(root or _HERE.parent) / "scenes" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"portbench.scenes.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def strip_tris(index: np.ndarray, restart: int = 0xFFFF) -> np.ndarray:

@@ -47,6 +47,10 @@ def test_idle_share_and_busy_readers():
     assert b.reader("guard_ms")(ctx) is None
     assert b.reader("k1_roofline.frame")(dict(ctx, cfg=b.config("headline"))) is None
     assert b.reader("guard_ms")(dict(ctx, guard_ms=[300.0, 310.0])) == 305.0
+    assert b.reader("traced_p95_ms.served")(ctx) is None
+    assert b.reader("traced_p95_ms.served")(dict(
+        ctx, item_ms=[float(i) for i in range(100, 0, -1)])) == pytest.approx(
+            95.05)
 
 
 @pytest.mark.parametrize("config, nbytes, ops", [

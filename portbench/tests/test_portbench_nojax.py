@@ -22,8 +22,9 @@ print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 
 _REFERENCE = """
 import json, sys
-import portbench.reference, portbench.check, portbench.views
-import portbench.scenes.demo, portbench.scenes.world
+import portbench.reference, portbench.reference_bcn, portbench.check
+import portbench.views
+import portbench.scenes.demo, portbench.scenes.world, portbench.scenes.bcn
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
