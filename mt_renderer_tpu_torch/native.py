@@ -1,14 +1,14 @@
-"""ctypes binding of the native host runtime (``native/mtr_native.cpp``).
+"""ctypes binding of the port's native host codecs (``csrc/bcn_native.cpp``).
 
-The port's own binding of the repository's shared C++ file, for its BC1
-and BC7 entry points: ``decode_bc1`` and ``encode_bc1`` (the bc1 pool's
-content pipeline and asset decoding) and ``decode_bc7`` (``.tex``
-decoding, and the bc7 pool's bookkeeping of an asset's blocks). The
-library is built with ``g++`` at first use into ``<repo>/build/native/``,
-keyed by a hash of the source and the flags; a host without a compiler,
-or where the build fails, takes the NumPy path (``render.bcn``) instead.
-``available()`` reports which path is live. This is host code at load
-time, no device kernel.
+The port's own C++ source, holding only the BC1 and BC7 entry points
+bound here: ``decode_bc1`` and ``encode_bc1`` (the bc1 pool's content
+pipeline and asset decoding) and ``decode_bc7`` (``.tex`` decoding, and
+the bc7 pool's bookkeeping of an asset's blocks), each to the format's
+specification. The library is built with ``g++`` at first use into
+``<repo>/build/native/``, keyed by a hash of the source and the flags; a
+host without a compiler, or where the build fails, takes the NumPy path
+(``render.bcn``) instead. ``available()`` reports which path is live.
+This is host code at load time, no device kernel.
 """
 
 from __future__ import annotations
@@ -21,11 +21,11 @@ from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent.parent
-SRC = ROOT / "native" / "mtr_native.cpp"
-BUILD_DIR = ROOT / "build" / "native"
+PKG_DIR = Path(__file__).resolve().parent
+SRC = PKG_DIR / "csrc" / "bcn_native.cpp"
+BUILD_DIR = PKG_DIR.parent / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
-LIBS = ("-lz", "-pthread")
+LIBS = ("-pthread",)
 
 _lib = None
 _tried = False
@@ -34,7 +34,7 @@ _tried = False
 def _target() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
     h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libmtr_native-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libbcn_native-{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> bool:

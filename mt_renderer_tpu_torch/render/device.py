@@ -75,7 +75,7 @@ import torch
 
 from .. import _build, native
 from ..scene.model import DEBUG_PALETTE, DrawBatch
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import bcn
 from . import cpu_reference as cr
 from . import raster as rs
@@ -1355,10 +1355,17 @@ def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int,
     return [a * (1 - fm) + b * fm for a, b in zip(s0, s1)]
 
 
+# texels a trilinear tap decodes from a bc7 pool: the 2x2 footprint at
+# each of its two levels
+TRILINEAR_TEXELS = 8
+
+
 def _mip_albedo_channels(scene: DeviceScene, m) -> list:
     """Trilinear albedo from mtap planes ``m`` (..., 17, X) → 4 channel
     tensors (..., X): analytic LOD, arithmetic mip addressing; elementwise
-    per pixel, so it runs on compacted rows as on dense ones."""
+    per pixel, so it runs on compacted rows as on dense ones. A bc7
+    pool's sampling opens the span ``shade.bc7`` and counts the texels it
+    decodes, from the shapes, in ``bc7.texels``."""
     u = m[..., 0, :]
     v = m[..., 1, :]
     off0 = rs._trunc_i32(m[..., 3, :]) * 4096 + rs._trunc_i32(m[..., 4, :])
@@ -1366,9 +1373,18 @@ def _mip_albedo_channels(scene: DeviceScene, m) -> list:
     tw = rs._trunc_i32(m[..., 6, :])
     lod = _analytic_lod(u, v, *[m[..., 11 + i, :] for i in range(6)],
                         m[..., 5, :], m[..., 6, :])
-    return _trilinear_arith(scene.mip_pool, off0, th, tw, lod, u, v,
-                            scene.num_mips, mode=scene.pool_mode,
-                            aux=scene.aux_pool, bc7_modes=scene.bc7_modes)
+
+    def sample():
+        return _trilinear_arith(scene.mip_pool, off0, th, tw, lod, u, v,
+                                scene.num_mips, mode=scene.pool_mode,
+                                aux=scene.aux_pool,
+                                bc7_modes=scene.bc7_modes)
+
+    if scene.pool_mode != "bc7":
+        return sample()
+    with span("shade.bc7"):
+        count("bc7.texels", u.numel() * TRILINEAR_TEXELS)
+        return sample()
 
 
 # ------------------------------------------------- bc1-resident sampling

@@ -11,6 +11,10 @@ The reference's only instrumentation is an unused per-frame ``Duration``
   profiler's clock beside the kernels it launched, and adds one call and
   its host time to a process-wide table (``span_totals``,
   ``reset_spans``). Off, it costs one flag test;
+* ``count(name, n)`` — adds ``n`` to a process-wide counter table beside
+  the spans' (``count_totals``; ``reset_spans`` clears it too), on the
+  same terms: only while a ``torch.profiler`` records, one flag test
+  off. A caller counts from tensor shapes, never from a readback;
 * ``trace(...)`` — a context manager around ``torch.profiler``; the
   Chrome trace it writes opens in Perfetto (or ``chrome://tracing``) and
   shows the spans, the CUDA kernels (K1 under its ``__global__`` name,
@@ -44,6 +48,8 @@ def setup_logging(default: str = "WARNING") -> None:
 _OFF = contextlib.nullcontext()
 # name -> [calls, host nanoseconds], spans recorded under a profiler
 _TOTALS: dict = {}
+# name -> sum of ``count``'s n under a profiler
+_COUNTS: dict = {}
 
 
 @contextlib.contextmanager
@@ -66,14 +72,28 @@ def span(name: str):
     return _recorded(name)
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to counter ``name`` while a ``torch.profiler`` records;
+    off, nothing."""
+    if _profiler._is_profiler_enabled:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
 def span_totals() -> dict:
     """``{name: (calls, host seconds)}`` of the spans closed since the
     last ``reset_spans``."""
     return {k: (n, ns / 1e9) for k, (n, ns) in _TOTALS.items()}
 
 
+def count_totals() -> dict:
+    """``{name: total}`` of the counters since the last ``reset_spans``."""
+    return dict(_COUNTS)
+
+
 def reset_spans() -> None:
+    """Clear the span and the counter tables."""
     _TOTALS.clear()
+    _COUNTS.clear()
 
 
 TRACE_FILE = "trace.json"
@@ -84,8 +104,8 @@ def trace(log_dir: str | None = None):
     """``torch.profiler`` trace of the block: CPU activity, plus CUDA
     activity when a card is visible. On exit it writes a Chrome trace to
     ``log_dir``/``TRACE_FILE`` (default ``log_dir``: ``mtr_trace`` in the
-    temporary directory). Resets the span table on entry. Yields
-    ``log_dir``."""
+    temporary directory). Resets the span and counter tables on entry.
+    Yields ``log_dir``."""
     log_dir = str(Path(tempfile.gettempdir()) / "mtr_trace"
                   if log_dir is None else log_dir)
     activities = [torch.profiler.ProfilerActivity.CPU]

@@ -1,7 +1,7 @@
 """Port vs reference: the bc1-resident texel pool and its host pieces.
 
 ``render/bcn.py`` (the BC1 half of the reference's), ``native.py`` (the
-port's binding of ``native/mtr_native.cpp``), the bc1 pool build
+port's binding of ``csrc/bcn_native.cpp``), the bc1 pool build
 (``_build_bc1_pool``), ``upload(pool_mode="bc1", bc1_chains=)``, the bc1
 trilinear sampler (one 64 B row gather and eight BC1 texel decodes), the
 frames it feeds through the plain K1 and K2 (single-layer mip, lit and
@@ -143,7 +143,7 @@ def test_decode_bc1_device_matches_reference(h, w):
 
 
 def test_native_binding_matches_numpy_and_reference():
-    """The port's own build of ``native/mtr_native.cpp`` (under
+    """The port's own build of ``csrc/bcn_native.cpp`` (under
     ``build/native/``) encodes and decodes BC1 exactly as the NumPy
     path and the JAX package's binding do."""
     assert tnative.available()

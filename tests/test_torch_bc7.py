@@ -18,15 +18,25 @@ Tolerance: none, every comparison bit for bit.
   exactly, and the sample once JAX's einsum contraction is the port's
   sequential sum (as ``test_torch_bc1.py`` holds the bc1 sampler).
 - Frames: the bc7 frame equals the frame of a pool of its decoded chains.
+
+The JAX package reads BC7 two-subset partition 63 as 0100 0100 1101 1101
+(``render/bcn.py`` ``_P2``, ``native/mtr_native.cpp`` ``kP2``); the
+specification, and the port, read 0100 0100 0111 0111. So in this
+process only, while these tests run, the JAX package decodes with the
+specification's row (``_spec_partition63``): every other block is held
+to the JAX package as it is, and partition-63 blocks to the
+specification.
 """
 
 import dataclasses as dc
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mt_renderer_tpu import native as jnative
 from mt_renderer_tpu.formats import tex as jtex
 from mt_renderer_tpu.render import bcn as jbcn
 from mt_renderer_tpu.render import device as jd
@@ -43,6 +53,32 @@ from test_torch_upload import SCENES
 
 W, H = 128, 64
 SIZES = [(37, 23), (1, 1), (5, 9), (3, 17), (64, 64)]
+
+
+# two-subset partition 63 by the BC7 specification, and as the JAX
+# package reads it (texels 8, 10, 12 and 14 in the other subset)
+SPEC_P2_63 = np.array([0, 1, 0, 0, 0, 1, 0, 0, 0, 1, 1, 1, 0, 1, 1, 1],
+                      np.uint8)
+JAX_P2_63 = np.array([0, 1, 0, 0, 0, 1, 0, 0, 1, 1, 0, 1, 1, 1, 0, 1],
+                     np.uint8)
+JAX_P2 = jbcn._P2          # the JAX package's own table, unpatched
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _spec_partition63():
+    """The JAX package, in this process and for this module only,
+    decodes BC7 with the specification's partition 63: its ``_P2`` a
+    copy with row 63 mended, its native BC7 decode through its own NumPy
+    decoder (the path it takes without its library), JAX's compiled
+    caches cleared on entry and on exit."""
+    mended = jbcn._P2.copy()
+    mended[63] = SPEC_P2_63
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jbcn, "_P2", mended)
+        mp.setattr(jnative, "decode_bc7", jbcn.decode_bc7_numpy)
+        jax.clear_caches()
+        yield
+    jax.clear_caches()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -111,9 +147,14 @@ def mode6_chains(batch):
 
 
 def test_bc7_tables_match_reference():
+    """Every table equals the JAX package's, but for two-subset
+    partition 63, which is the specification's."""
     for name in ("_P2", "_P3", "_ANCHOR2_1", "_ANCHOR3_1", "_ANCHOR3_2"):
         np.testing.assert_array_equal(getattr(tbcn, name),
                                       getattr(jbcn, name), err_msg=name)
+    np.testing.assert_array_equal(tbcn._P2[:63], JAX_P2[:63])
+    np.testing.assert_array_equal(tbcn._P2[63], SPEC_P2_63)
+    np.testing.assert_array_equal(JAX_P2[63], JAX_P2_63)
     assert tbcn._MODES == jbcn._MODES
     assert sorted(tbcn._WEIGHTS) == sorted(jbcn._WEIGHTS)
     for k in tbcn._WEIGHTS:
@@ -284,6 +325,65 @@ def test_bc7_every_bit_offset():
                                  4 * len(flips), 4).numpy()
     np.testing.assert_array_equal(
         got, jbcn.decode_bc7_numpy(flips.tobytes(), 4 * len(flips), 4))
+
+
+def _set_bits(blk: np.ndarray, start: int, count: int, value: int) -> None:
+    """Bits [start, start + count) of each (n, 16) block set to ``value``
+    (0 or 1), bit 0 the lowest bit of byte 0."""
+    for k in range(start, start + count):
+        if value:
+            blk[:, k // 8] |= np.uint8(1 << (k % 8))
+        else:
+            blk[:, k // 8] &= np.uint8(~(1 << (k % 8)) & 0xFF)
+
+
+# per two-subset mode: (first endpoint bit, channels, bits an endpoint,
+# first p-bit, p-bits per subset); endpoints run channel by channel,
+# subset 0's two before subset 1's two
+_TWO_SUBSET = {1: (8, 3, 6, 80, 1), 3: (10, 3, 7, 94, 2),
+               7: (14, 4, 5, 94, 2)}
+
+
+def _agreed_texels(blk: np.ndarray, mode: int) -> np.ndarray:
+    """(n, 16) blocks of ``mode`` → (n, 16, 4) texels, once the NumPy,
+    native and device decoders (whole level, and per texel with and
+    without hints) are seen to agree on them."""
+    n = len(blk)
+    want = tbcn.decode_bc7_numpy(blk.tobytes(), 4 * n, 4)
+    np.testing.assert_array_equal(
+        tnative.decode_bc7(blk.tobytes(), 4 * n, 4), want)
+    np.testing.assert_array_equal(tbcn.decode_bc7_device(
+        torch.from_numpy(blk.reshape(-1)), 4 * n, 4).numpy(), want)
+    texels = want.reshape(4, n, 4, 4).transpose(1, 0, 2, 3).reshape(n, 16, 4)
+    for hint in (False, True):
+        np.testing.assert_array_equal(_texels(blk, (mode,), hint), texels)
+    return texels
+
+
+@pytest.mark.parametrize("mode", sorted(_TWO_SUBSET))
+def test_partition63_decodes_to_the_specification(mode):
+    """4,096 random blocks of a two-subset mode, every one on partition
+    63: the NumPy, native and device decoders agree. With subset 0's
+    endpoints all zero bits and subset 1's all one bits (p-bits too),
+    every texel of subset 0 decodes to 0 and of subset 1 to 255 whatever
+    its index, so the texels show the specification's row."""
+    assert tnative.available()
+    blk = seeded_blocks(4096, seed=90 + mode, modes=(mode,))
+    _set_bits(blk, mode + 1, 6, 1)                  # partition 63
+    _agreed_texels(blk, mode)
+    start, chans, cb, p0, npb = _TWO_SUBSET[mode]
+    for c in range(chans):
+        for e in range(4):
+            _set_bits(blk, start + (4 * c + e) * cb, cb, e // 2)
+    for k in range(2 * npb):
+        _set_bits(blk, p0 + k, 1, k // npb)
+    texels = _agreed_texels(blk, mode)
+    assert set(np.unique(texels)) == {0, 255}
+    assert (texels[..., :3] == 255 * SPEC_P2_63[None, :, None]).all()
+    if mode == 7:                                   # alpha by subset too
+        assert (texels[..., 3] == 255 * SPEC_P2_63[None]).all()
+    else:
+        assert (texels[..., 3] == 255).all()
 
 
 # ------------------------------------------------------------ the pool

@@ -13,7 +13,11 @@ context and records nothing. Under ``profiling.trace``:
   opens only when the guard grows a cap, and no host predictor's
   ``predict.*`` span opens;
 - a served request records ``serve.request`` around ``serve.inputs``,
-  ``serve.step`` and ``serve.queue``, once each.
+  ``serve.step`` and ``serve.queue``, once each;
+- a bc7 pool's frame opens ``shade.bc7`` inside ``frame.shade`` once a
+  shade, and counts ``bc7.texels`` (``profiling.count``): the shaded
+  rows' pixels times the trilinear tap's eight texels; a tri frame
+  records neither, and off, neither is recorded.
 
 The exported graph holds no profiler op, even when exported under a
 profiler. The card's half (K1's kernel launched inside ``frame.raster``
@@ -28,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from mt_renderer_tpu_torch import serving
+from mt_renderer_tpu_torch import entry, serving
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.render.engine import FrameEngine
@@ -188,3 +192,72 @@ def test_the_exported_graph_holds_no_profiler_op(tmp_path, case, profiled):
                if n.op == "call_function"]
     assert any("raster_fwd_tap" in t for t in targets)
     assert not [t for t in targets if "profiler" in t]
+
+
+# ------------------------------------------------- the bc7 pool's shade
+
+WH = 96
+BC7 = ("shade.bc7", "bc7.texels")
+
+
+@pytest.fixture(scope="module")
+def bc7_world():
+    """A small archive world on the bc7 pool → (case, view, palette)."""
+    case = entry.world_case("cpu", buildings=8, width=W, height=WH,
+                            characters=2, variants=3, terrain_subdiv=2,
+                            building_subdivs=(1,), pool_mode="bc7")
+    return case, case.view_proj(), case.bone_mats(6.0)
+
+
+@pytest.mark.parametrize("capped", [False, True])
+def test_a_bc7_frame_opens_its_shade_span_and_counts_its_texels(
+        tmp_path, bc7_world, capped):
+    """Two frames: ``shade.bc7`` twice, each inside its ``frame.shade``;
+    ``bc7.texels`` the rows the shade ran (every tile, or at most the
+    guard's tap cap) times their pixels times eight texels, twice."""
+    case, vp, pal = bc7_world
+    assert case.scene.pool_mode == "bc7"
+    taps = (td.auto_tap_tiles(case.batch, vp, pal, width=W, height=WH)
+            if capped else None)
+    pw, ph = td._padded(W, WH)
+    rows = min(taps or pw * ph, pw * ph // td.SEG_PX)
+    with profiling.trace(str(tmp_path)) as log_dir:
+        for _ in range(2):
+            td.render_frame(case.scene, vp, pal, width=W, height=WH,
+                            packed=True, mipmap=True, tap_tiles=taps)
+    assert profiling.span_totals()["shade.bc7"][0] == 2
+    assert profiling.count_totals() == {
+        "bc7.texels": 2 * rows * td.SEG_PX * td.TRILINEAR_TEXELS}
+    events = trace_events(log_dir)
+    shades = annotations(events, "frame.shade")
+    bc7 = annotations(events, "shade.bc7")
+    assert len(bc7) == len(shades) == 2
+    assert all(inside(b, s) for b, s in zip(bc7, shades))
+
+
+def test_off_a_bc7_frame_records_neither(bc7_world):
+    case, vp, pal = bc7_world
+    td.render_frame(case.scene, vp, pal, width=W, height=WH, packed=True,
+                    mipmap=True)
+    assert profiling.span_totals() == {} and profiling.count_totals() == {}
+
+
+def test_a_tri_frame_records_neither(tmp_path, case):
+    batch, _, vp, bones = case
+    scene = td.upload(batch, "tri", device="cpu")
+    with profiling.trace(str(tmp_path)):
+        td.render_frame(scene, vp, bones, width=W, height=H, mipmap=True)
+    assert set(profiling.span_totals()) == set(FRAME_SPANS)
+    assert profiling.count_totals() == {}
+
+
+def test_a_count_adds_only_under_a_profiler(tmp_path):
+    profiling.count("bc7.texels", 5)
+    assert profiling.count_totals() == {}
+    profiling._COUNTS["stale"] = 3
+    with profiling.trace(str(tmp_path)):
+        profiling.count("bc7.texels", 5)
+        profiling.count("bc7.texels", 7)
+    assert profiling.count_totals() == {"bc7.texels": 12}  # reset on entry
+    profiling.reset_spans()
+    assert profiling.count_totals() == {}
