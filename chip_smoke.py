@@ -26,8 +26,9 @@ backend at 1920x1080. Phases, each of which raises on failure:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build K1 (``csrc/raster_fwd.cu``), K2 (``csrc/raster_fwd_ml.cu``),
-   K3 (``csrc/raster_micro.cu``) and K4 (``csrc/bilin_swar.cu``), every
-   ``nvcc`` process at once, and print ptxas' register, shared memory
+   K3 (``csrc/raster_micro.cu``), K4 (``csrc/bilin_swar.cu``) and the
+   bc7 trilinear sample (``csrc/bc7_trilinear.cu``), every ``nvcc``
+   process at once, and print ptxas' register, shared memory
    and spill report;
 3. K1 against its plain PyTorch version on the card at the headline
    shapes: winner ids, tap addresses and coverage equal, z and the tap
@@ -139,7 +140,11 @@ backend at 1920x1080. Phases, each of which raises on failure:
 20. (f) the same world's textures as seeded random BC7 blocks of all
     eight modes (``upload(pool_mode="bc7", bc7_chains=)``): every mode
     present and the hint pool built; frame 0 equal, bit for bit, to a tri
-    pool of the decoded chains; the device frame and shade times of both;
+    pool of the decoded chains, the bc7 trilinear kernel launched; the
+    device frame and shade times of both; the bc7 trilinear kernel
+    against its plain twin, bit for bit, on frame 0's taps over every
+    live row (the ``world_bc7.orbit`` loop's shapes), timed beside its
+    byte bound and the twin's time;
 21. (g) the glass headline with the bc7 pool as (b): its split peel
     L = 4, mip+light, equal to its decoded chains' frame, K2 (mtap + lit)
     against its plain version;
@@ -249,8 +254,8 @@ frame (m1), mtap on the world's (m2), tap on the 4-shard geometry split
 ((p1)'s pass 1, its launches those of (p3)'s 20 frames) and attrs +
 zlow + lit ((p2)'s pass 1, its launches (p2)'s frame's); and K2 a fourth
 and a fifth, mtap + lit on the bc1 and the bc7 glass headline's split
-peel, and a sixth, tap on the 8-band split peel (m3)) as one JSON line
-before the last, and as
+peel, and a sixth, tap on the 8-band split peel (m3); the bc7 trilinear
+kernel's record from (f)) as one JSON line before the last, and as
 its last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when no CUDA device is visible.
@@ -278,6 +283,9 @@ MICRO_SOURCE = "mt_renderer_tpu_torch/csrc/raster_micro.cu"
 MICRO_REPLACES = "tools/bench/raster_roofline.py:177"
 SWAR_SOURCE = "mt_renderer_tpu_torch/csrc/bilin_swar.cu"
 SWAR_REPLACES = "tools/bench/bilin_ab.py:87"
+BC7_SOURCE = "mt_renderer_tpu_torch/csrc/bc7_trilinear.cu"
+BC7_REPLACES = "none (the JAX package decodes BC7 with jnp ops)"
+BC7_TAP_BYTES = 232         # inputs 24, pool row 128, hint row 64, out 16
 HEADLINE = dict(instances=1024, subdiv=4, width=1920, height=1080)
 GLASS = dict(HEADLINE, translucent=True, cam_scale=0.3)
 MIP = dict(HEADLINE, pool_mode="tri")
@@ -579,6 +587,7 @@ def reset_launches() -> None:
     rs.raster_fwd_ml.launches = 0
     rs.raster_micro.launches = 0
     dv.bilin_swar.launches = 0
+    dv.bc7_trilinear.launches = 0
 
 
 def headline_case(device, *, instances: int, subdiv: int, width: int,
@@ -1488,7 +1497,77 @@ def phase_bcn_world(device, mode: str, earlier: dict | None = None) -> dict:
                 **bnd)
 
 
-def phase_bc7_multimode(device) -> None:
+def bc7_kernel_reading(scene, vp, pal, fkw) -> dict:
+    """The bc7 trilinear kernel at the ``world_bc7.orbit`` cell's shapes:
+    the taps of frame 0's compacted shade over every live row (the cell's
+    engine holds every tile), caught at the op ``device.BC7_OP`` as the
+    shade hands them over. The kernel against its plain twin on them (bit
+    for bit, NaN for NaN), its time (CUDA-graph replays) and the twin's
+    (events), and its bound: each tap's 24 B of inputs and 16 B of
+    output, each distinct 128 B pool row (and 64 B hint row) read once;
+    beside it the bound at ``BC7_TAP_BYTES`` a tap, as if no two taps
+    shared a row."""
+    import torch
+
+    from mt_renderer_tpu_torch.render import device as dv
+    from mt_renderer_tpu_torch.render import raster as rs
+
+    w, h = fkw["width"], fkw["height"]
+    pw, ph = dv._padded(w, h)
+    cols, bbox = dv.setup_packed_cols(
+        scene, dv.vertex_stage(scene, dv._f32(vp, scene.device), pal), w, h)
+    pre = rs.prebin(cols, bbox, 0, 0, width=pw, height=ph, maxc=fkw["maxc"])
+    _, ib, mattrs = rs.raster_fwd(cols, *pre[:3], (0, 0), width=pw,
+                                  height=ph, w_eps=dv.W_EPS, mode="mtap")
+    caught = []
+    real = dv.BC7_OP
+
+    def catch(*args):
+        caught.append(args)
+        return real(*args)
+
+    dv.BC7_OP = catch
+    try:
+        dv.shade_mip_tap_flat_channels(scene, mattrs, ib, tap_tiles=None)
+    finally:
+        dv.BC7_OP = real
+    args = caught[0]
+    pool, aux, taps, num_mips, modes = (args[0], args[1], args[2:8],
+                                        args[8], args[9])
+    got = dv._bc7_trilinear_cuda(*args)
+    want = dv.bc7_trilinear_reference(*args)
+    torch.cuda.synchronize()
+    same = (got == want) | (got.isnan() & want.isnan())
+    n_off = int((~same).sum())
+    n_nan = int(got.isnan().sum())
+    err = float(torch.where(same, 0.0, (got - want).abs()).max())
+    ms = graph_ms(lambda: dv._bc7_trilinear_cuda(*args))
+    plain_ms = cuda_ms(lambda: dv.bc7_trilinear_reference(*args),
+                       warmup=1, reps=3)
+    _, m0, _, _, _ = dv._levels(taps[1], taps[2], taps[3], num_mips)
+    off_a, hm0, wm0 = dv._mip_arith_bc1(taps[0], taps[1], taps[2], m0,
+                                        num_mips)
+    x0c, y0c, _, _, _, _ = dv._footprint(wm0, hm0, taps[4], taps[5])
+    idx = off_a + (y0c >> 2) * ((wm0 + 3) >> 2) + (x0c >> 2)
+    rows = int(torch.unique(idx.clamp(0, pool.shape[0] - 1)).numel())
+    n = taps[0].numel()
+    n_bytes = n * (24 + 16) + rows * (128 + (64 if aux is not None else 0))
+    bnd = bound(n_bytes, 0)
+    per_tap_ms = n * BC7_TAP_BYTES / HBM_BYTES_PER_S * 1e3
+    log(f"bc7 trilinear kernel vs plain, world at {w}x{h}, all modes "
+        f"{modes}: {n} taps ({n // dv.SEG_PX} rows of {dv.SEG_PX} px), "
+        f"{rows} distinct pool rows, {n_off} values differ, {n_nan} NaN, "
+        f"max_abs_err {err!r}; bc7_trilinear_kernel_ms {ms!r}, plain "
+        f"{plain_ms!r} ms; bound {bnd['bound_ms']!r} ms ({n_bytes} B), "
+        f"{per_tap_ms!r} ms at {BC7_TAP_BYTES} B a tap")
+    if n_off:
+        raise AssertionError("the bc7 trilinear kernel differs from its "
+                             "plain twin")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, taps=n,
+                rows=rows, per_tap_bound_ms=per_tap_ms, **bnd)
+
+
+def phase_bc7_multimode(device) -> dict:
     """(f) The world's textures as seeded random BC7 blocks of all eight
     modes through ``upload(pool_mode="bc7", bc7_chains=)``: every mode
     present and the hint pool built; frame 0 (K1 launches counted from 0)
@@ -1528,13 +1607,15 @@ def phase_bc7_multimode(device) -> None:
     reset_launches()
     a, ad = dv.render_frame(scene, vp0, pal, **fkw)
     launches = rs.raster_fwd.launches
+    bc7_launches = dv.bc7_trilinear.launches
     b, bd = dv.render_frame(ref, vp0, pal, **fkw)
     rs.flush_overflow_checks()
     n_px = int((a != b).sum())
     log(f"bc7 all-mode world frame 0 vs the tri pool of its decoded "
         f"chains: {n_px} pixels differ, depth equal "
-        f"{bool(torch.equal(ad, bd))}, K1 launches {launches}")
-    if n_px or not torch.equal(ad, bd) or launches < 1 \
+        f"{bool(torch.equal(ad, bd))}, K1 launches {launches}, bc7 "
+        f"trilinear launches {bc7_launches}")
+    if n_px or not torch.equal(ad, bd) or min(launches, bc7_launches) < 1 \
             or rs.OVERFLOW_EVENTS or not bool((ad < 1.0).any()):
         raise AssertionError("the all-mode bc7 world frame differs from its "
                              "decoded chains' frame")
@@ -1542,6 +1623,8 @@ def phase_bc7_multimode(device) -> None:
     times = {"bc7 all-mode": frame_and_shade_ms(scene, vp0, pal, fkw),
              "tri": frame_and_shade_ms(ref, vp0, pal, fkw)}
     log_times("bc7 all-mode world", times)
+    kernel = bc7_kernel_reading(scene, vp0, pal, fkw)
+    return dict(kernel, launches=bc7_launches)
 
 
 def with_opacity_flags(ref, scene, what: str):
@@ -3289,7 +3372,7 @@ def main() -> int:
     roof = phase_roofline(device)
     k4 = phase_bilin(device)
     bc7_world = phase_bcn_world(device, "bc7", earlier=bc1_world["stats"])
-    phase_bc7_multimode(device)
+    bc7_kernel = phase_bc7_multimode(device)
     bc7_peel = phase_bcn_peel(device, "bc7")
     legs = phase_bench_legs(device)
     phase_scan(device, dev_info["card"])
@@ -3368,6 +3451,10 @@ def main() -> int:
                surviving=k3["surviving"], test_ns=sol["test_ns"],
                eval_ns=sol["eval_ns"]),
         record("bilin_swar", SWAR_SOURCE, SWAR_REPLACES, k4["launches"], k4),
+        record("bc7_trilinear", BC7_SOURCE, BC7_REPLACES,
+               bc7_kernel["launches"], bc7_kernel, taps=bc7_kernel["taps"],
+               rows=bc7_kernel["rows"],
+               per_tap_bound_ms=bc7_kernel["per_tap_bound_ms"]),
     ]
     for rec in records:
         for v in (rec["max_abs_err"], rec["ms"], rec["plain_ms"],

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = {"raster_fwd": ["raster_fwd.cu"],
            "raster_fwd_ml": ["raster_fwd_ml.cu"],
            "raster_micro": ["raster_micro.cu"],
-           "bilin_swar": ["bilin_swar.cu"]}
+           "bilin_swar": ["bilin_swar.cu"],
+           "bc7_trilinear": ["bc7_trilinear.cu"]}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

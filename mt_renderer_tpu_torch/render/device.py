@@ -60,6 +60,9 @@ few uint32 ops); ``unpack_rgba`` views it as (H, W, 4) uint8 on the
 host. ``bilin_swar`` (kernel K4, ``csrc/bilin_swar.cu``) is the integer
 SWAR form of the bilinear contraction that
 ``mt_renderer_tpu_torch.tools.bilin_ab`` prices against the f32 one.
+``bc7_trilinear`` (the op ``mtr::bc7_trilinear``, ``csrc/bc7_trilinear.cu``
+on CUDA) is a bc7 pool's trilinear sample, its plain twin
+``bc7_trilinear_reference``.
 """
 
 from __future__ import annotations
@@ -1310,20 +1313,10 @@ def _trilinear_fused(pool, off0, hm0, wm0, hm1, wm1, m0, m1, u, v):
     return s0, [torch.where(deep, a, b) for a, b in zip(s1, s0)]
 
 
-def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int,
-                     mode: str = "quad", aux=None,
-                     bc7_modes: tuple = ()) -> list:
-    """Trilinear sample with arithmetic mip addressing (``_mip_arith``)
-    → 4 channel tensors: lod clipped to [0, num_mips - 1], both levels
-    clamped to the texture's last real level. ``mode`` is the scene's
-    pool mode: a tri pool takes both levels from one gather
-    (``_trilinear_fused``), a bc1 pool from one gather and eight texel
-    decodes (``_bc1_trilinear_fused``; ``off0`` and the offset walk are
-    then in block rows), a bc7 pool likewise from one 128 B gather (and
-    one 64 B row of the hint pool ``aux`` where ``bc7_modes`` holds a
-    partitioned mode) and eight decodes of the modes ``bc7_modes``
-    (``_bc7_trilinear_fused``), a quad or narrow pool from two
-    ``_quad_bilinear`` taps."""
+def _levels(th, tw, lod, num_mips: int):
+    """A trilinear tap's two levels from the mip-0 extents: lod clipped
+    to [0, num_mips - 1], both levels clamped to the texture's last real
+    level → (fm, m0, m1, hm1, wm1)."""
     big = torch.maximum(th, tw)
     mmax = torch.zeros_like(th)
     for m in range(1, num_mips):
@@ -1333,16 +1326,31 @@ def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int,
     fm = lod - m0f
     m0 = torch.minimum(rs._trunc_i32(m0f), mmax)
     m1 = torch.minimum(m0 + 1, mmax)
-    hm1 = (th >> m1).clamp(min=1)
-    wm1 = (tw >> m1).clamp(min=1)
-    if mode in ("bc1", "bc7"):
+    return fm, m0, m1, (th >> m1).clamp(min=1), (tw >> m1).clamp(min=1)
+
+
+def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int,
+                     mode: str = "quad", aux=None,
+                     bc7_modes: tuple = ()) -> list:
+    """Trilinear sample with arithmetic mip addressing (``_mip_arith``)
+    → 4 channel tensors: lod clipped to [0, num_mips - 1], both levels
+    clamped to the texture's last real level (``_levels``). ``mode`` is
+    the scene's pool mode: a tri pool takes both levels from one gather
+    (``_trilinear_fused``), a bc1 pool from one gather and eight texel
+    decodes (``_bc1_trilinear_fused``; ``off0`` and the offset walk are
+    then in block rows), a bc7 pool likewise through the op
+    ``mtr::bc7_trilinear`` (``bc7_trilinear``: one 128 B row, the hint
+    pool ``aux`` where ``bc7_modes`` holds a partitioned mode, eight
+    decodes of the modes ``bc7_modes``), a quad or narrow pool from two
+    ``_quad_bilinear`` taps."""
+    if mode == "bc7":
+        return bc7_trilinear(pool, aux, off0, th, tw, lod, u, v, num_mips,
+                             bc7_modes)
+    fm, m0, m1, hm1, wm1 = _levels(th, tw, lod, num_mips)
+    if mode == "bc1":
         off_a, hm0, wm0 = _mip_arith_bc1(off0, th, tw, m0, num_mips)
-        if mode == "bc7":
-            s0, s1 = _bc7_trilinear_fused(pool, aux, bc7_modes, off_a, hm0,
-                                          wm0, hm1, wm1, m0, m1, u, v)
-        else:
-            s0, s1 = _bc1_trilinear_fused(pool, off_a, hm0, wm0, hm1, wm1,
-                                          m0, m1, u, v)
+        s0, s1 = _bc1_trilinear_fused(pool, off_a, hm0, wm0, hm1, wm1,
+                                      m0, m1, u, v)
         return [a * (1 - fm) + b * fm for a, b in zip(s0, s1)]
     off_a, hm0, wm0 = _mip_arith(off0, th, tw, m0, num_mips)
     if mode == "tri":
@@ -1590,6 +1598,128 @@ def _bc7_trilinear_fused(pool, aux, modes, off0, hm0, wm0, hm1, wm1, m0, m1,
         fx1, fy1)
     deep = m1 > m0
     return s0, [torch.where(deep, a, b) for a, b in zip(s1, s0)]
+
+
+# ------------------------------------- the bc7 trilinear sample (a hand kernel)
+
+
+def bc7_trilinear_reference(pool, aux, off0, th, tw, lod, u, v,
+                            num_mips: int, modes) -> torch.Tensor:
+    """Plain PyTorch version of ``bc7_trilinear``, same contract: the
+    levels (``_levels``), the level-m0 block row (``_mip_arith_bc1``),
+    ``_bc7_trilinear_fused``'s eight decodes of every listed mode in
+    int64 ops, and the lerp between the levels."""
+    _check_bc7_args(pool, aux, off0, th, tw, lod, u, v, num_mips, modes)
+    fm, m0, m1, hm1, wm1 = _levels(th, tw, lod, num_mips)
+    off_a, hm0, wm0 = _mip_arith_bc1(off0, th, tw, m0, num_mips)
+    s0, s1 = _bc7_trilinear_fused(pool, aux, tuple(modes),
+                                  off_a, hm0, wm0, hm1, wm1, m0, m1, u, v)
+    return torch.stack([a * (1 - fm) + b * fm for a, b in zip(s0, s1)])
+
+
+def _check_bc7_args(pool, aux, off0, th, tw, lod, u, v, num_mips, modes):
+    if (pool.dtype != torch.uint8 or pool.dim() != 2
+            or pool.shape[1] != 128 or pool.shape[0] < 1):
+        raise ValueError(f"pool must be u8 (rows >= 1, 128), got "
+                         f"{pool.dtype} {tuple(pool.shape)}")
+    if _bc7_needs_hint(modes) and (
+            aux is None or aux.dtype != torch.uint8 or aux.dim() != 2
+            or aux.shape[1] != 128 or aux.shape[0] < 1):
+        raise ValueError("a partitioned BC7 mode needs the hint pool: aux "
+                         "u8 (rows >= 1, 128)")
+    n = off0.shape
+    for name, x, dt in (("off0", off0, torch.int32), ("th", th, torch.int32),
+                        ("tw", tw, torch.int32), ("lod", lod, torch.float32),
+                        ("u", u, torch.float32), ("v", v, torch.float32)):
+        if x.dtype != dt or x.dim() != 1 or x.shape != n:
+            raise ValueError(f"{name} must be {dt} {tuple(n)} (1-D), "
+                             f"got {x.dtype} {tuple(x.shape)}")
+        if x.device != pool.device:
+            raise ValueError(f"{name} on {x.device}, pool on {pool.device}")
+    if not 1 <= num_mips <= 31 or not set(modes) <= set(range(8)):
+        raise ValueError(f"num_mips {num_mips} not in [1, 31] or modes "
+                         f"{tuple(modes)} not BC7 modes")
+
+
+_BC7_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_uint] + [ctypes.c_void_p] * 7 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def _bc7_trilinear_cuda(pool, aux, off0, th, tw, lod, u, v, num_mips: int,
+                        modes) -> torch.Tensor:
+    """``csrc/bc7_trilinear.cu`` on CUDA tensors, one thread a tap; counts
+    ``bc7_trilinear.launches`` and, under a profiler, the taps in
+    ``bc7.kernel_taps``."""
+    _check_bc7_args(pool, aux, off0, th, tw, lod, u, v, num_mips, modes)
+    # the kernel reads aux only for a listed partitioned mode, which the
+    # check holds to a hint pool: without one the pool stands in
+    aux = pool if aux is None else aux
+    dev = pool.device
+    for name, x in (("pool", pool), ("aux", aux)):
+        if x.device != dev or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned "
+                             f"and on {dev}")
+    taps = [x.contiguous() for x in (off0, th, tw, lod, u, v)]
+    n = taps[0].shape[0]
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    fn = _build.fn("bc7_trilinear", "mtr_bc7_trilinear", _BC7_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(pool.data_ptr(), pool.shape[0], aux.data_ptr(),
+                 aux.numel() // 64, sum(1 << m for m in set(modes)),
+                 *(x.data_ptr() for x in taps), out.data_ptr(), n, num_mips,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"bc7_trilinear kernel launch failed: cudaError "
+                           f"{err}")
+    bc7_trilinear.launches += 1
+    count("bc7.kernel_taps", n)
+    return out
+
+
+# The sample as a ``torch.library`` op, as K1 is (``raster.K1_OPS``): a
+# served program of a bc7 scene holds it as one node and dispatches as
+# eager code does, the plain version on the CPU, the hand kernel on CUDA.
+BC7_OP = torch.library.custom_op(
+    "mtr::bc7_trilinear", bc7_trilinear_reference, mutates_args=(),
+    device_types="cpu",
+    schema=("(Tensor pool, Tensor? aux, Tensor off0, Tensor th, Tensor tw, "
+            "Tensor lod, Tensor u, Tensor v, int num_mips, int[] modes) "
+            "-> Tensor"))
+BC7_OP.register_kernel("cuda")(_bc7_trilinear_cuda)
+
+
+@BC7_OP.register_fake
+def _bc7_op_fake(pool, aux, off0, th, tw, lod, u, v, num_mips, modes):
+    return lod.new_empty((4, lod.shape[0]))
+
+
+def bc7_trilinear(pool, aux, off0, th, tw, lod, u, v, num_mips: int,
+                  modes) -> list:
+    """Trilinear sample of a bc7 pool at taps of any (broadcast) shape →
+    4 channel tensors f32 of that shape: ``pool`` (rows, 128) u8 (8 BC7
+    blocks a row, ``_build_bc7_pool``), ``aux`` its hint pool (read only
+    where ``modes`` holds a partitioned mode; None otherwise), ``off0``,
+    ``th``, ``tw`` each texture's mip-0 block-row offset and extents,
+    ``lod``, ``u``, ``v`` the tap; ``modes`` the BC7 modes decoded (a
+    block of another mode is zeros).
+
+    Runs the op ``mtr::bc7_trilinear`` on the taps flattened: a CPU
+    tensor the plain ``bc7_trilinear_reference``, a CUDA tensor the hand
+    kernel ``csrc/bc7_trilinear.cu`` (counted in
+    ``bc7_trilinear.launches``), or raises."""
+    shape = torch.broadcast_shapes(off0.shape, th.shape, tw.shape, lod.shape,
+                                   u.shape, v.shape)
+    taps = [x.expand(shape).reshape(-1).to(dt) for x, dt in (
+        (off0, torch.int32), (th, torch.int32), (tw, torch.int32),
+        (lod, torch.float32), (u, torch.float32), (v, torch.float32))]
+    out = BC7_OP(pool, aux if _bc7_needs_hint(modes) else None, *taps,
+                 num_mips, sorted(set(modes)))
+    return list(out.reshape((4,) + tuple(shape)).unbind(0))
+
+
+bc7_trilinear.launches = 0
 
 
 def shade_mip_tap_flat_channels(scene: DeviceScene, mattrs, ib,

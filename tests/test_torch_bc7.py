@@ -8,7 +8,11 @@ the budget, the bc7 trilinear sampler (one 128 B row gather, the hint
 row, eight texel decodes), the frames it feeds through the plain K1 and
 K2 (single-layer mip, lit and unlit; split and ml peeled mip), for
 mode-6 content and for random blocks of all eight modes,
-``formats.tex``'s ``bc7_chain``, and a JAX bc7 scene carried across.
+``formats.tex``'s ``bc7_chain``, a JAX bc7 scene carried across, and
+the op ``mtr::bc7_trilinear`` the sampler runs through (its CPU kernel
+the plain twin, bit-equal to the sampler before the op on
+``bc7_taps``' cases; its fake kernel; one node of a served program; the
+CUDA kernel's tables).
 
 Tolerance: none, every comparison bit for bit.
 - Host code, the device decodes (integer torch ops), the pool builds and
@@ -29,24 +33,29 @@ specification.
 """
 
 import dataclasses as dc
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+import bc7_taps
 from mt_renderer_tpu import native as jnative
 from mt_renderer_tpu.formats import tex as jtex
 from mt_renderer_tpu.render import bcn as jbcn
 from mt_renderer_tpu.render import device as jd
 from mt_renderer_tpu.scene import demo
-from mt_renderer_tpu_torch import entry
+from mt_renderer_tpu_torch import entry, serving
 from mt_renderer_tpu_torch import native as tnative
 from mt_renderer_tpu_torch.formats import tex as ttex
 from mt_renderer_tpu_torch.render import bcn as tbcn
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
+from mt_renderer_tpu_torch.utils import profiling
 from test_torch_bc1 import alpha_batch
 from test_torch_pools import assert_scene_equal
 from test_torch_upload import SCENES
@@ -586,10 +595,11 @@ def test_bc7_sampler_dense_sweep_matches_jax(monkeypatch, content):
     got = _port_sample(ts, u, v, lod).numpy()
     np.testing.assert_array_equal(got, want)
     assert len(seen["jax"]) == len(seen["port"]) == 2   # child, parent
+    # the port samples the taps flattened (``bc7_trilinear``)
     for (gq, gx, gy), (wq, wx, wy) in zip(seen["port"], seen["jax"]):
-        np.testing.assert_array_equal(gq, wq)
-        np.testing.assert_array_equal(gx, wx)
-        np.testing.assert_array_equal(gy, wy)
+        np.testing.assert_array_equal(gq, wq.reshape(gq.shape))
+        np.testing.assert_array_equal(gx, wx.reshape(gx.shape))
+        np.testing.assert_array_equal(gy, wy.reshape(gy.shape))
 
 
 @pytest.mark.parametrize("mode", ["quad", "narrow", "tri"])
@@ -789,3 +799,128 @@ def test_frame_profile_runs_the_bc7_world(capsys):
     assert '"pool_mode": "bc7"' in out
     assert "pool build (bc7, on the device at upload)" in out
     assert "the rebuild equals the pool: True" in out
+
+
+# ------------------------------------------- the op mtr::bc7_trilinear
+
+
+class _Ops(TorchDispatchMode):
+    """Records the name of every op dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.seen.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("case", bc7_taps.CASES)
+def test_bc7_trilinear_dispatches_through_the_op_and_equals_the_twin(case):
+    """``_trilinear_arith(mode="bc7")`` runs one ``mtr::bc7_trilinear``,
+    and on the CPU equals, bit for bit, the sampler as it was before the
+    op (the levels, ``_bc7_trilinear_fused``, the lerp), on blocks of
+    every mode, partition-63 blocks, modes left out of the list (which
+    decode to zeros), 1x1 to 4x4 tail levels where m1 == m0, and scenes
+    with and without a hint pool."""
+    sc, modes = bc7_taps.scene(case, "cpu")
+    taps = bc7_taps.taps(sc)
+    with _Ops() as ops:
+        got = td._trilinear_arith(sc.mip_pool, *taps, sc.num_mips,
+                                  mode="bc7", aux=sc.aux_pool,
+                                  bc7_modes=modes)
+    assert [f for f in ops.seen if f.startswith("mtr.")] == [
+        "mtr.bc7_trilinear.default"]
+    want = bc7_taps.twin(sc, modes, *taps)
+    assert torch.equal(torch.stack(got), want)
+    assert (sc.aux_pool.shape[0] == 1) == (case == "no_hint")
+    if case == "unlisted":
+        every = bc7_taps.twin(sc, sc.bc7_modes, *taps)
+        assert not torch.equal(want, every)
+    if case == "tails":
+        th, tw, lod = taps[1], taps[2], taps[3]
+        last = (torch.maximum(th, tw).float().log2().floor()
+                <= lod.clamp(min=0).floor())
+        assert bool(last.any()) and bool((~last).any())
+
+
+def test_bc7_trilinear_fake_kernel_and_opcheck():
+    """The op's fake kernel gives the CPU kernel's shape and dtype, and
+    ``torch.library.opcheck`` passes on the CPU, with and without the
+    hint pool."""
+    for case in ("all_modes", "no_hint"):
+        sc, modes = bc7_taps.scene(case, "cpu")
+        taps = bc7_taps.taps(sc, n=24)
+        aux = sc.aux_pool if td._bc7_needs_hint(modes) else None
+        args = (sc.mip_pool, aux, *taps, sc.num_mips, list(modes))
+        real = td.BC7_OP(*args)
+        fake = td._bc7_op_fake(*args)
+        assert fake.shape == real.shape == (4, taps[0].shape[0])
+        assert fake.dtype == real.dtype == torch.float32
+        torch.library.opcheck(td.BC7_OP, args)
+
+
+def test_bc7_trilinear_refuses_bad_taps():
+    sc, modes = bc7_taps.scene("all_modes", "cpu")
+    off0, th, tw, lod, u, v = bc7_taps.taps(sc, n=8)
+    with pytest.raises(ValueError, match="hint pool"):
+        td.bc7_trilinear_reference(sc.mip_pool, None, off0, th, tw, lod, u,
+                                   v, sc.num_mips, modes)
+    with pytest.raises(ValueError, match="lod must be"):
+        td.bc7_trilinear_reference(sc.mip_pool, sc.aux_pool, off0, th, tw,
+                                   lod.double(), u, v, sc.num_mips, modes)
+
+
+def test_served_bc7_program_holds_the_op_as_one_node():
+    """``serving.export_render`` of a small mipmapped bc7 scene holds
+    ``mtr::bc7_trilinear`` as one node, and the loaded program's frame
+    equals ``render_frame``'s."""
+    case = entry.demo_case("cpu", instances=4, subdiv=1, width=64,
+                           height=64, pool_mode="bc7")
+    art = serving.load_render(serving.export_render(
+        case.scene, width=64, height=64, mipmap=True))
+    targets = [str(n.target) for n in art._program.graph.nodes
+               if n.op == "call_function"]
+    assert sum("bc7_trilinear" in t for t in targets) == 1
+    vp, bones = case.view_proj(), case.bone_mats(0.3)
+    color, depth = art(case.scene, vp, bones)
+    want, wdepth = td.render_frame(case.scene, vp, bones, width=64,
+                                   height=64, mipmap=True)
+    tr.flush_overflow_checks()
+    assert torch.equal(depth, wdepth) and bool((depth < 1.0).any())
+    assert torch.equal(color, want)
+
+
+def test_kernel_taps_are_counted_only_on_the_card():
+    """Under a profiler, a bc7 sample on the CPU counts no
+    ``bc7.kernel_taps``: the plain twin ran, not the kernel."""
+    sc, modes = bc7_taps.scene("no_hint", "cpu")
+    taps = bc7_taps.taps(sc, n=8)
+    profiling.reset_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        td._trilinear_arith(sc.mip_pool, *taps, sc.num_mips, mode="bc7",
+                            aux=sc.aux_pool, bc7_modes=modes)
+    assert "bc7.kernel_taps" not in profiling.count_totals()
+    profiling.reset_spans()
+
+
+def _cu_table(src: str, name: str) -> list:
+    body = re.search(name + r"\[\d+\] = \{([^}]*)\}", src).group(1)
+    return [int(x) for x in body.replace("\n", " ").split(",") if x.strip()]
+
+
+def test_bc7_kernel_source_holds_the_specifications_tables():
+    """The CUDA kernel's weight tables and per-mode field widths (it runs
+    only on the card) equal ``render/bcn.py``'s."""
+    src = (Path(td.__file__).parents[1] / "csrc" /
+           "bc7_trilinear.cu").read_text()
+    for ib in (2, 3, 4):
+        assert _cu_table(src, f"kWeight{ib}") == tbcn._WEIGHTS[ib].tolist()
+    modes = dict(re.findall(r"struct Mode<(\d)> : Fields<([^>]*)>", src))
+    assert sorted(modes) == [str(m) for m in range(8)]
+    for m, fields in modes.items():
+        got = tuple(int(x == "true") if x in ("true", "false") else int(x)
+                    for x in (f.strip() for f in fields.split(",")))
+        assert got == tuple(int(x) for x in tbcn._MODES[int(m)]), m

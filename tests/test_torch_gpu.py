@@ -32,6 +32,9 @@ the scan backend's frames on the card lie under the golden rule against
 the CPU's (coverage exact, depth within 1e-5). The frame engine's cap
 guard, counted on the card, holds a 20-frame headline orbit at 1920x1080
 with no overflow, each frame ``render_frame``'s at the engine's caps.
+The bc7 trilinear kernel equals its plain twin, on the card and on the
+CPU, bit for bit on ``bc7_taps``' cases, and a bc7 ``FrameEngine``'s
+every frame shades through it.
 """
 
 import os
@@ -46,6 +49,9 @@ from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.scene import demo
 from mt_renderer_tpu_torch.scene.model import DrawBatch
+from mt_renderer_tpu_torch.utils import profiling
+
+import bc7_taps
 from test_torch_k1_cull import adversarial_cols, heavy_tile_case
 
 W, H = 256, 128
@@ -936,6 +942,67 @@ def test_bc7_world_frame_on_card_equals_decoded_chains(cuda):
     assert case.scene.bc7_modes == (6,)
     assert torch.equal(got, want) and torch.equal(gd, wd)
     assert bool((wd < 1.0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", bc7_taps.CASES)
+def test_bc7_trilinear_kernel_matches_plain_version(cuda, case):
+    """The bc7 trilinear kernel (``csrc/bc7_trilinear.cu``, one launch
+    through ``mtr::bc7_trilinear``) equals its plain twin on the card and
+    on the CPU bit for bit, on ``bc7_taps``' cases; under a profiler it
+    counts its taps in ``bc7.kernel_taps``."""
+    sc, modes = bc7_taps.scene(case, cuda)
+    taps = bc7_taps.taps(sc, n=4096)
+    launches = td.bc7_trilinear.launches
+    profiling.reset_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = torch.stack(td._trilinear_arith(
+            sc.mip_pool, *taps, sc.num_mips, mode="bc7", aux=sc.aux_pool,
+            bc7_modes=modes))
+    torch.cuda.synchronize()
+    assert td.bc7_trilinear.launches == launches + 1
+    assert profiling.count_totals() == {"bc7.kernel_taps": taps[0].numel()}
+    profiling.reset_spans()
+    aux = sc.aux_pool if td._bc7_needs_hint(modes) else None
+    want = td.bc7_trilinear_reference(sc.mip_pool, aux, *taps, sc.num_mips,
+                                      modes)
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    cpu, _ = bc7_taps.scene(case, "cpu")
+    assert torch.equal(got.cpu(), bc7_taps.twin(
+        cpu, modes, *(x.cpu() for x in taps)))
+
+
+@pytest.mark.gpu
+def test_bc7_frame_engine_shades_through_the_kernel(cuda):
+    """A small all-mode bc7 world through ``FrameEngine(mipmap=True)``:
+    every frame's compacted shade launches the bc7 kernel, and the frame
+    equals ``render_frame``'s at the engine's caps."""
+    from mt_renderer_tpu_torch.render import engine as en
+
+    case = entry.world_case(cuda, buildings=8, width=W, height=H,
+                            characters=2, variants=4, terrain_subdiv=2,
+                            building_subdivs=(1,), pool_mode="quad")
+    chains = [[(bc7_taps.blocks(((h + 3) // 4) * ((w + 3) // 4),
+                                seed=31 * ti + li), h, w)
+               for li, (h, w) in enumerate(
+                   img.shape[:2] for img in td.mip_chain(t))]
+              for ti, t in enumerate(case.batch.textures)]
+    scene = td.upload(case.batch, "bc7", device=cuda, bc7_chains=chains)
+    assert scene.bc7_modes == tuple(range(8))
+    eng = en.FrameEngine(scene, case.batch, width=W, height=H, mipmap=True)
+    for t in range(3):
+        case.camera.yaw += 4.0
+        vp, pal = case.view_proj(), case.bone_mats_device(2.0 * t)
+        before = td.bc7_trilinear.launches
+        color, depth = eng.render(vp, pal)
+        assert td.bc7_trilinear.launches > before
+        want, wdepth = td.render_frame(
+            scene, vp, pal, width=W, height=H, packed=True, mipmap=True,
+            maxc=eng.maxc, tap_tiles=eng.tap_tiles)
+        assert torch.equal(color, want) and torch.equal(depth, wdepth)
+    eng.check()
+    tr.flush_overflow_checks()
 
 
 @pytest.mark.gpu
