@@ -72,14 +72,12 @@ backend at 1920x1080. Phases, each of which raises on failure:
    set to 0 just before it: K1 launched 4 times (tap; tap + zlow on
    passes 1-3); every pass of the same frame recorded and equal, bit for
    bit, to K1's plain version on its own inputs; the frame against the
-   ml peel at L = 4 (coverage exact, the golden rule); the frame's ms
-   (``multipass_frame_ms``, CUDA events) beside the ml peel's; K1 + zlow
-   on pass 1's inputs timed against its plain version, with its
-   breakdown;
+   ml peel at L = 4 (coverage exact, the golden rule); K1 + zlow on
+   pass 1's inputs timed against its plain version, with its breakdown;
    (p3) 20 frames of ``FrameEngine(peel=4, peel_mode="multipass")`` on
    the glass headline as in phase 5: 4 K1 launches every frame, no
    overflow, the unpacked frame, frame 0 equal to
-   ``render_frame_peeled``; ``multipass_peel_frame_ms``;
+   ``render_frame_peeled``;
 9. K1's mtap + lit epilogues against their plain version at the
    mip+light headline (tri pool), and 20 frames of
    ``FrameEngine(mipmap=True, lighting=True)`` as in phase 5;
@@ -96,7 +94,7 @@ backend at 1920x1080. Phases, each of which raises on failure:
     under the golden rule against both plain rasters;
     (p2) the peeled mip+light headline's multipass peel as (p1): K1's
     attrs epilogue (lit, + zlow on passes 1-3), ``shade_fwd``, the
-    plane-major composite; ``multipass_mip_frame_ms``;
+    plane-major composite;
 12. the world's verify legs (``verify.world_legs``: 256x144, 130
     buildings): the invariants, the packed and the characters' frames
     against the NumPy oracle, the mipmapped frame against the scan
@@ -111,11 +109,10 @@ backend at 1920x1080. Phases, each of which raises on failure:
     pool_mode="bc1")``, its textures BC1-encoded through the port's
     ``native`` binding, whose state it prints): frame 0 equal, bit for
     bit, to the frame of a tri pool of its BC1-decoded chains; the
-    ``pool_stats`` of the bc1, tri and quad world scenes; the device
-    frame and trilinear shade times of the bc1 and that tri pool with the
-    caps fixed; K1 (mtap) against its plain version on frame 0's inputs;
-    20 frames of ``FrameEngine(mipmap=True)`` with the palette on the
-    card: K1 in every frame, no overflow, frame 0, median and max times;
+    ``pool_stats`` of the bc1, tri and quad world scenes; K1 (mtap)
+    against its plain version on frame 0's inputs; 20 frames of
+    ``FrameEngine(mipmap=True)`` with the palette on the card: K1 in
+    every frame, no overflow;
 15. (b) the glass headline with the bc1 pool, split peel L = 4,
     mipmapped and lit: equal, bit for bit, to the frame of a tri pool of
     its decoded chains; K2 (mtap + lit) against its plain version as
@@ -141,10 +138,9 @@ backend at 1920x1080. Phases, each of which raises on failure:
     eight modes (``upload(pool_mode="bc7", bc7_chains=)``): every mode
     present and the hint pool built; frame 0 equal, bit for bit, to a tri
     pool of the decoded chains, the bc7 trilinear kernel launched; the
-    device frame and shade times of both; the bc7 trilinear kernel
-    against its plain twin, bit for bit, on frame 0's taps over every
-    live row (the ``world_bc7.orbit`` loop's shapes), timed beside its
-    byte bound and the twin's time;
+    bc7 trilinear kernel against its plain twin, bit for bit, on frame
+    0's taps over every live row (the ``world_bc7.orbit`` loop's
+    shapes), timed beside its byte bound and the twin's time;
 21. (g) the glass headline with the bc7 pool as (b): its split peel
     L = 4, mip+light, equal to its decoded chains' frame, K2 (mtap + lit)
     against its plain version;
@@ -162,7 +158,6 @@ backend at 1920x1080. Phases, each of which raises on failure:
     mipmap, each bit-equal to the scan frame of a quad pool of its
     decoded chains; the scan band split over 8 slots and the scan
     geometry split over 2 shards, each bit-equal to the scan frame;
-    ``scan_frame_ms`` beside the pallas frame's;
 23. the viewers at 1920x1080, each run through the CLI's ``main`` with
     the launch counts set to 0 just before it, every ``FrameEngine``
     frame watched (its K1 and K2 launches, the overflow its checks
@@ -170,13 +165,12 @@ backend at 1920x1080. Phases, each of which raises on failure:
     fixture GMD), 20 frames: K1 in every frame, no overflow, frame 0
     below the HUD band under the golden rule against the plain K1, the
     band equal, bit for bit, to the CPU composite of the same band onto
-    the same frame; the viewer's frame times (mean, median, max), the
-    HUD's host raster (as ``bench.py:555-567`` times it), the band
-    composite's device time, ``encode_png`` of a frame, and K1 (mtap)
-    against its plain version on frame 0's inputs; (v2) the bench's
-    ``world+hud`` composite (its world, a joint cube at every character
-    joint, the HUD band) through ``RendererAppManager``, 20 frames, as
-    (v1); (v3) the fixture tree's skinned character with ``--overlay
+    the same frame; the HUD's host raster (as ``bench.py:555-567`` times
+    it), the band composite's device time, ``encode_png`` of a frame, and
+    K1 (mtap) against its plain version on frame 0's inputs; (v2) the
+    bench's ``world+hud`` composite (its world, a joint cube at every
+    character joint, the HUD band) through ``RendererAppManager``, 20
+    frames, as (v1); (v3) the fixture tree's skinned character with ``--overlay
     --sdl --mipmap --lighting --peel 4``: K1 and K2 in every frame;
     (v4) ``--demo 40 --events`` with WASD and mouse: the camera after
     every frame equals the host-computed trajectory, and the frames
@@ -213,10 +207,8 @@ backend at 1920x1080. Phases, each of which raises on failure:
     render_frame_multichip``) over n slots of the card for n in 1, 2, 3,
     8, packed with taps from ``auto_tap_tiles(bands=n)``: each frame
     bit-equal (color and depth) to ``render_frame``, K1 launched n times;
-    8 bands unpacked and with ``setup_shard`` too; the banded frame's ms
-    beside the single frame's (one card runs the bands one after another
-    and repeats the vertex and setup stages per band: no speed-up is
-    claimed); K1 against its plain version on band 4 of 8;
+    8 bands unpacked and with ``setup_shard`` too; K1 against its plain
+    version on band 4 of 8;
 29. (m2) the world (280 buildings, mipmapped, palette on the card) in 8
     bands with the tri pool and with the bc7 pool, each bit-equal to its
     single-device frame; K1 (mtap) on band 4 of 8;
@@ -699,8 +691,7 @@ def phase_golden(device) -> None:
 def phase_main(case: dict, mipmap: bool = False,
                lighting: bool = False) -> dict:
     """FRAMES frames of the single-layer production loop (mipmapped and
-    lit as asked) → the K1 launch count of this run, coverage and frame
-    times."""
+    lit as asked) → the K1 launch count of this run and coverage."""
     import torch
 
     from mt_renderer_tpu_torch.render import device as dv
@@ -708,7 +699,6 @@ def phase_main(case: dict, mipmap: bool = False,
     from mt_renderer_tpu_torch.render import raster as rs
 
     what = "mip+light main path" if mipmap or lighting else "main path"
-    metric = "mip_frame_ms" if mipmap or lighting else "frame_ms"
     w, h, demo = case["width"], case["height"], case["demo"]
     cam = demo.camera
     frames = FRAMES
@@ -719,12 +709,8 @@ def phase_main(case: dict, mipmap: bool = False,
     if rs.OVERFLOW_EVENTS:
         raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events "
                              f"before the {what}")
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(frames + 1)]
     per_frame = []
-    t0 = time.perf_counter()
     reset_launches()
-    ev[0].record()
     for t in range(frames):
         before = rs.raster_fwd.launches
         cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
@@ -734,10 +720,7 @@ def phase_main(case: dict, mipmap: bool = False,
         per_frame.append(rs.raster_fwd.launches - before)
         if t == 0:
             first = (color, depth, vp, bones, eng.maxc, eng.tap_tiles)
-        ev[t + 1].record()
-    ev[-1].synchronize()
     launches = rs.raster_fwd.launches
-    wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     cam.yaw = base_yaw
     eng.check()
     rs.flush_overflow_checks()
@@ -766,12 +749,7 @@ def phase_main(case: dict, mipmap: bool = False,
         f"1, {n_diff} pixels differ; coverage {coverage:.4f}")
     if share > GOLDEN_SHARE or not 0.0 < coverage < 1.0:
         raise AssertionError(f"{what} frame 0 is wrong")
-    per = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
-    frame_ms = ev[0].elapsed_time(ev[-1]) / frames
-    log(f"{metric} {frame_ms!r} (CUDA events over {frames} frames; host "
-        f"clock {wall_ms!r} ms/frame); per frame: median "
-        f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
-    return dict(launches=launches, coverage=coverage, frame_ms=frame_ms)
+    return dict(launches=launches, coverage=coverage)
 
 
 def k2_split_reading(glass: dict, n: int, band: int, what: str) -> dict:
@@ -891,7 +869,7 @@ def phase_peel_main(glass: dict, mipmap: bool = False,
                     lighting: bool = False) -> dict:
     """FRAMES frames of the glass production loop (split peel, L=4,
     mipmapped and lit as asked) → the K1 and K2 launch counts of this
-    run and frame times."""
+    run."""
     import torch
 
     from mt_renderer_tpu_torch.render import device as dv
@@ -900,7 +878,6 @@ def phase_peel_main(glass: dict, mipmap: bool = False,
 
     what = ("peeled mip+light glass main path" if mipmap or lighting
             else "glass main path")
-    metric = "peel_mip_frame_ms" if mipmap or lighting else "peel_frame_ms"
     w, h, demo = glass["width"], glass["height"], glass["demo"]
     cam = demo.camera
     frames = FRAMES
@@ -912,12 +889,8 @@ def phase_peel_main(glass: dict, mipmap: bool = False,
     if rs.OVERFLOW_EVENTS:
         raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events "
                              f"before the {what}")
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(frames + 1)]
     per_frame = []
-    t0 = time.perf_counter()
     reset_launches()
-    ev[0].record()
     for t in range(frames):
         before = (rs.raster_fwd.launches, rs.raster_fwd_ml.launches)
         cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
@@ -928,10 +901,7 @@ def phase_peel_main(glass: dict, mipmap: bool = False,
                           rs.raster_fwd_ml.launches - before[1]))
         if t == 0:
             first = (color, depth, vp, bones, eng.maxc, eng.tap_tiles)
-        ev[t + 1].record()
-    ev[-1].synchronize()
     k1, k2 = rs.raster_fwd.launches, rs.raster_fwd_ml.launches
-    wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     cam.yaw = base_yaw
     eng.check()
     rs.flush_overflow_checks()
@@ -965,12 +935,7 @@ def phase_peel_main(glass: dict, mipmap: bool = False,
         f"> 1, {n_diff} pixels differ; coverage {coverage:.4f}")
     if share > GOLDEN_SHARE or not 0.0 < coverage <= 1.0:
         raise AssertionError(f"{what} frame 0 is wrong")
-    per = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
-    frame_ms = ev[0].elapsed_time(ev[-1]) / frames
-    log(f"{metric} {frame_ms!r} (CUDA events over {frames} frames; "
-        f"host clock {wall_ms!r} ms/frame); per frame: median "
-        f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
-    return dict(k1=k1, k2=k2, frame_ms=frame_ms)
+    return dict(k1=k1, k2=k2)
 
 
 def with_normals(batch):
@@ -1124,7 +1089,7 @@ def phase_world_main(device) -> dict:
     scheduler frame 2t). Frame 0 is rendered from the host palette too:
     palette and frame must agree bit for bit. K1 (mtap, unlit) is held
     against its plain version on frame 0's inputs. → K1's launch count
-    of the loop, its record and frame times."""
+    of the loop and its record."""
     import torch
 
     from mt_renderer_tpu_torch.entry import world_case
@@ -1163,12 +1128,8 @@ def phase_world_main(device) -> dict:
         raise AssertionError(f"{rs.OVERFLOW_EVENTS} overflow events before "
                              "the world main path")
     dur = max(case.world.timeline.duration, 1)
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(FRAMES + 1)]
     per_frame = []
-    t0 = time.perf_counter()
     reset_launches()
-    ev[0].record()
     for t in range(FRAMES):
         before = rs.raster_fwd.launches
         cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
@@ -1176,10 +1137,7 @@ def phase_world_main(device) -> dict:
             case.scene, case.view_proj(),
             case.bone_mats_device((2.0 * t) % dur), **fkw)
         per_frame.append(rs.raster_fwd.launches - before)
-        ev[t + 1].record()
-    ev[-1].synchronize()
     launches = rs.raster_fwd.launches
-    wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
     cam.yaw = base_yaw
     rs.flush_overflow_checks()
     coverage = float((depth < 1.0).float().mean())
@@ -1191,12 +1149,7 @@ def phase_world_main(device) -> dict:
     if (tuple(color.shape) != (h, w) or color.dtype != torch.int32
             or not 0.0 < coverage <= 1.0):
         raise AssertionError("the last world frame is malformed")
-    per = [x.elapsed_time(y) for x, y in zip(ev[:-1], ev[1:])]
-    frame_ms = ev[0].elapsed_time(ev[-1]) / FRAMES
-    log(f"world_frame_ms {frame_ms!r} (CUDA events over {FRAMES} frames; "
-        f"host clock {wall_ms!r} ms/frame); per frame: median "
-        f"{float(np.median(per))!r}, max {max(per)!r}, frame 0 {per[0]!r}")
-    return dict(launches=launches, frame_ms=frame_ms, **k1)
+    return dict(launches=launches, **k1)
 
 
 def k1_reading(args, kw, what: str) -> dict:
@@ -1310,68 +1263,17 @@ def log_pool_stats(what: str, scene) -> dict:
     return st
 
 
-def frame_and_shade_ms(scene, vp, pal, fkw) -> tuple:
-    """Device ms of the mipmapped frame with the caps fixed (``fkw``;
-    view and palette on the card; CUDA events around 5 frames), of its
-    trilinear shade stage alone (``shade_mip_tap_flat_channels`` on that
-    view's K1 outputs), and, from ``torch.profiler`` over one shade
-    call, its device kernels and their busy ms (the union of their
-    intervals): busy near the shade's time means the device's work
-    bounds it, far below it the launches do."""
-    import torch
-
-    from mt_renderer_tpu_torch.frame_profile import _device_busy
-    from mt_renderer_tpu_torch.render import device as dv
-    from mt_renderer_tpu_torch.render import raster as rs
-
-    w, h = fkw["width"], fkw["height"]
-    vp_d = dv._f32(vp, scene.device)
-    frame = cuda_ms(lambda: dv.render_frame(scene, vp_d, pal, **fkw),
-                    warmup=2, reps=5)
-    rs.flush_overflow_checks()
-    pw, ph = dv._padded(w, h)
-    cols, bbox = dv.setup_packed_cols(
-        scene, dv.vertex_stage(scene, vp_d, pal), w, h)
-    pre = rs.prebin(cols, bbox, 0, 0, width=pw, height=ph, maxc=fkw["maxc"])
-    _, ib, mattrs = rs.raster_fwd(cols, *pre[:3], (0, 0), width=pw,
-                                  height=ph, w_eps=dv.W_EPS, mode="mtap")
-    def shade():
-        return dv.shade_mip_tap_flat_channels(scene, mattrs, ib,
-                                              tap_tiles=fkw["tap_tiles"])
-
-    shade_ms = cuda_ms(shade, warmup=2, reps=5)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        shade()
-        torch.cuda.synchronize()
-    kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
-                  for e in prof.events())
-    busy = _device_busy(prof, 1)[0]
-    return frame, shade_ms, kernels, busy
-
-
-def log_times(what: str, times: dict) -> None:
-    log(f"{what}, device path with the caps fixed (CUDA events): "
-        + "; ".join(f"{k} pool frame {f!r} ms, trilinear shade {s!r} ms "
-                    f"({n} device events, busy {b!r} ms)"
-                    for k, (f, s, n, b) in times.items()))
-
-
 def phase_bcn_world(device, mode: str, earlier: dict | None = None) -> dict:
     """(a) and (e): the full world (the bench's ``pallas world`` row)
     with the ``mode`` ("bc1" or "bc7", mode-6 content) texel pool,
     ``entry.world_case(pool_mode=mode)``: frame 0 equal, bit for bit, to
     the frame of a tri pool of its decoded chains (``upload(
     mip_chains=)``); the pool_stats of the pool, that tri pool, (bc1) a
-    quad scene and the ``earlier`` stats again, by name; the device
-    frame and shade times of both pools with the caps fixed
-    (``frame_and_shade_ms``); K1 (mtap) against its plain version on
-    frame 0's inputs; then FRAMES frames of ``FrameEngine(mipmap=True)``
-    with each palette computed on the card, launches counted from 0: K1
-    in every frame, no overflow. → K1's launch count, its record, frame
-    times and the stats."""
+    quad scene and the ``earlier`` stats again, by name; K1 (mtap)
+    against its plain version on frame 0's inputs; then FRAMES frames of
+    ``FrameEngine(mipmap=True)`` with each palette computed on the card,
+    launches counted from 0: K1 in every frame, no overflow. → K1's
+    launch count, its record and the stats."""
     import torch
 
     from mt_renderer_tpu_torch import native
@@ -1427,11 +1329,7 @@ def phase_bcn_world(device, mode: str, earlier: dict | None = None) -> dict:
             or rs.OVERFLOW_EVENTS:
         raise AssertionError(f"the {mode} world frame differs from its "
                              "decoded chains' frame")
-    del a, b
-    times = {mode: frame_and_shade_ms(case.scene, vp0, pal, fkw),
-             "tri": frame_and_shade_ms(ref, vp0, pal, fkw)}
-    log_times(f"{mode} world", times)
-    del ref
+    del a, b, ref
 
     pw, ph = dv._padded(w, h)
     kw = dict(width=pw, height=ph, w_eps=dv.W_EPS, mode="mtap")
@@ -1457,22 +1355,15 @@ def phase_bcn_world(device, mode: str, earlier: dict | None = None) -> dict:
                          mipmap=True)
     rs.flush_overflow_checks()
     dur = max(case.world.timeline.duration, 1)
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(FRAMES + 1)]
     per_frame = []
-    t0 = time.perf_counter()
     reset_launches()
-    ev[0].record()
     for t in range(FRAMES):
         before = rs.raster_fwd.launches
         cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
         color, depth = eng.render(case.view_proj(),
                                   case.bone_mats_device((2.0 * t) % dur))
         per_frame.append(rs.raster_fwd.launches - before)
-        ev[t + 1].record()
-    ev[-1].synchronize()
     launches = rs.raster_fwd.launches
-    wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
     cam.yaw = base_yaw
     eng.check()
     rs.flush_overflow_checks()
@@ -1486,15 +1377,8 @@ def phase_bcn_world(device, mode: str, earlier: dict | None = None) -> dict:
     if (tuple(color.shape) != (h, w) or color.dtype != torch.int32
             or not bool((depth < 1.0).any())):
         raise AssertionError(f"the last {mode} world frame is malformed")
-    per = [x.elapsed_time(y) for x, y in zip(ev[:-1], ev[1:])]
-    frame_ms = ev[0].elapsed_time(ev[-1]) / FRAMES
-    log(f"{mode}_world_frame_ms {frame_ms!r} (CUDA events over {FRAMES} "
-        f"frames, cap guard included; host clock {wall_ms!r} ms/frame); "
-        f"per frame: median {float(np.median(per))!r}, max {max(per)!r}, "
-        f"frame 0 {per[0]!r}")
-    return dict(launches=launches, frame_ms=frame_ms, max_abs_err=err,
-                ms=kernel_ms, plain_ms=plain_ms, stats=stats, times=times,
-                **bnd)
+    return dict(launches=launches, max_abs_err=err, ms=kernel_ms,
+                plain_ms=plain_ms, stats=stats, **bnd)
 
 
 def bc7_kernel_reading(scene, vp, pal, fkw) -> dict:
@@ -1572,8 +1456,8 @@ def phase_bc7_multimode(device) -> dict:
     modes through ``upload(pool_mode="bc7", bc7_chains=)``: every mode
     present and the hint pool built; frame 0 (K1 launches counted from 0)
     equal, bit for bit, to the frame of a tri pool of the decoded chains;
-    the device frame and shade times of both pools with the caps fixed;
-    its pool_stats."""
+    its pool_stats; the bc7 trilinear kernel's record
+    (``bc7_kernel_reading``)."""
     import torch
 
     from mt_renderer_tpu_torch.entry import world_case
@@ -1619,10 +1503,7 @@ def phase_bc7_multimode(device) -> dict:
             or rs.OVERFLOW_EVENTS or not bool((ad < 1.0).any()):
         raise AssertionError("the all-mode bc7 world frame differs from its "
                              "decoded chains' frame")
-    del a, b
-    times = {"bc7 all-mode": frame_and_shade_ms(scene, vp0, pal, fkw),
-             "tri": frame_and_shade_ms(ref, vp0, pal, fkw)}
-    log_times("bc7 all-mode world", times)
+    del a, b, ref
     kernel = bc7_kernel_reading(scene, vp0, pal, fkw)
     return dict(kernel, launches=bc7_launches)
 
@@ -1967,8 +1848,8 @@ class ViewerWatch:
     """Around one viewer run: each ``FrameEngine.render`` (its K1 and K2
     launches, a checksum of its frame, and frame 0's inputs and outputs),
     the first HUD composite (frame in, frame out, the band), each
-    manager frame (the frame time before and after it, the camera after
-    it) and every overflow count the engines' checks drain. Entering
+    manager frame (the frame time before it, the camera after it) and
+    every overflow count the engines' checks drain. Entering
     sets every launch count to 0."""
 
     def __enter__(self):
@@ -1978,7 +1859,7 @@ class ViewerWatch:
 
         self.frames, self.sums, self.overflow = [], [], []
         self.first = self.hud = None
-        self.dt_before, self.frame_times, self.cameras = [], [], []
+        self.dt_before, self.cameras = [], []
         self._saved = [
             (engine.FrameEngine, "render", engine.FrameEngine.render),
             (rs, "flush_overflow_counts", rs.flush_overflow_counts),
@@ -2016,7 +1897,6 @@ class ViewerWatch:
         def w_run_frame(mgr):
             watch.dt_before.append(mgr.frame_time)
             frame = run_frame(mgr)
-            watch.frame_times.append(mgr.frame_time)
             c = mgr.camera
             watch.cameras.append((c.yaw, c.pitch, c.position.copy()))
             return frame
@@ -2133,19 +2013,13 @@ def png_size(data: bytes) -> tuple:
     return w, h
 
 
-def timing_line(name: str, times_ms: list, card: str) -> None:
-    log(f"{name}: mean {float(np.mean(times_ms))!r} ms, median "
-        f"{float(np.median(times_ms))!r}, max {max(times_ms)!r} over "
-        f"{len(times_ms)} ({card})")
-
-
 def phase_viewer_demo(device, card: str) -> dict:
     """(v1) ``modelviewer --demo 280 --hud --hud-gmd`` at 1920x1080, 20
     frames: K1 in every frame, no overflow, frame 0 below the band under
     the golden rule against the plain K1, the band bit-equal to the CPU
-    composite; the viewer's frame times, the HUD's host raster, the
-    band composite's device time, ``encode_png``; K1 against its plain
-    version on frame 0's inputs → K1's record on this path."""
+    composite; the HUD's host raster, the band composite's device time,
+    ``encode_png``; K1 against its plain version on frame 0's inputs →
+    K1's record on this path."""
     import torch
 
     from mt_renderer_tpu_torch import fixtures
@@ -2167,9 +2041,6 @@ def phase_viewer_demo(device, card: str) -> dict:
                               f"{VIEWER_WORLD} --hud", FRAMES)
     band_rows = hud_band_check(watch, "(v1)")
     viewer_frame0_vs_plain(watch, "(v1)", rows=slice(band_rows, None))
-    timing_line(f"viewer_frame_time_ms (v1, modelviewer --demo "
-                f"{VIEWER_WORLD} --hud, {w}x{h}, host clock around "
-                "app.render)", [t * 1e3 for t in watch.frame_times], card)
 
     hud = watch.hud["hud"]
     c = hud.overlay.canvas
@@ -2222,7 +2093,7 @@ def rs_flush_before(what: str) -> None:
                              f"{what}")
 
 
-def phase_viewer_world_hud(device, card: str) -> None:
+def phase_viewer_world_hud(device) -> None:
     """(v2) the bench's ``world+hud`` composite (bench.py:430-447,
     :550-575): the bench's world, a joint cube at every character joint,
     mipmapped, and the HUD band composited on the card, 20 frames
@@ -2280,9 +2151,6 @@ def phase_viewer_world_hud(device, card: str) -> None:
     viewer_frame0_vs_plain(watch, "(v2)", rows=slice(band_rows, None))
     if last.shape != (h, w, 4):
         raise AssertionError(f"(v2) frame of shape {last.shape}")
-    timing_line(f"viewer_frame_time_ms (v2, world+hud through "
-                f"RendererAppManager, {w}x{h}, host clock around "
-                "app.render)", [t * 1e3 for t in watch.frame_times], card)
 
 
 def phase_viewer_fixture(device) -> None:
@@ -2504,7 +2372,7 @@ def phase_viewers(device, card: str) -> dict:
     """(v1)-(v7) → K1's record on the viewer path (v1)."""
     t0 = time.perf_counter()
     k1 = phase_viewer_demo(device, card)
-    phase_viewer_world_hud(device, card)
+    phase_viewer_world_hud(device)
     phase_viewer_fixture(device)
     phase_viewer_events(device)
     phase_viewer_serve(device)
@@ -2775,15 +2643,13 @@ def split_check(what: str, got, want) -> None:
         raise AssertionError(f"{what} differs from the single-device frame")
 
 
-def phase_bands(case: dict, card: str) -> dict:
+def phase_bands(case: dict) -> dict:
     """(m1) The headline band split over n slots of the card for n in
     BANDS: packed, taps from ``auto_tap_tiles(bands=n)``, each frame
     bit-equal (color and depth) to ``render_frame`` at the same maxc and
     its own taps, K1 launched n times; n = SLOTS unpacked and with
-    ``setup_shard`` too. The banded frame's ms beside the single frame's
-    (one card doing n times the vertex and setup work: no speed-up is
-    claimed). → K1's launches in the SLOTS-band frame (counts set to 0
-    just before it) and K1's reading on band SLOTS // 2."""
+    ``setup_shard`` too. → K1's launches in the SLOTS-band frame (counts
+    set to 0 just before it) and K1's reading on band SLOTS // 2."""
     from mt_renderer_tpu_torch.parallel import tiles
     from mt_renderer_tpu_torch.render import device as dv
     from mt_renderer_tpu_torch.render import raster as rs
@@ -2795,10 +2661,7 @@ def phase_bands(case: dict, card: str) -> dict:
     kw = dict(width=w, height=h, maxc=maxc)
     want = dv.render_frame(scene, vp, bones, packed=True,
                            tap_tiles=case["taps"], **kw)
-    single_ms = cuda_ms(lambda: dv.render_frame(
-        scene, vp, bones, packed=True, tap_tiles=case["taps"], **kw),
-        warmup=1, reps=10)
-    out = {}
+    launches = {}
     for n in BANDS:
         mesh = tiles.make_row_mesh(n, device=scene.device)
         taps = dv.auto_tap_tiles(demo.batch, vp, bones, width=w, height=h,
@@ -2811,13 +2674,7 @@ def phase_bands(case: dict, card: str) -> dict:
                     f"launches {k1}", got, want)
         if k1 != n:
             raise AssertionError(f"(m1) {n} bands launched K1 {k1} times")
-        band_ms = cuda_ms(lambda: tiles.render_frame_multichip(
-            scene, vp, bones, **bkw), warmup=1, reps=10)
-        log(f"(m1) band_frame_ms n={n} {band_ms!r} beside the single "
-            f"frame's {single_ms!r} (CUDA events, 10 frames each; one card "
-            f"runs the n bands one after another and n times the vertex "
-            f"and setup work: not a speed-up; {card})")
-        out[n] = dict(launches=k1, ms=band_ms)
+        launches[n] = k1
     mesh = tiles.make_row_mesh(SLOTS, device=scene.device)
     unpacked = dv.render_frame(scene, vp, bones, **kw)
     split_check(f"(m1) headline in {SLOTS} bands, unpacked",
@@ -2837,11 +2694,10 @@ def phase_bands(case: dict, card: str) -> dict:
     reading = k1_reading(args, dict(width=pw, height=pb, w_eps=dv.W_EPS),
                          f"headline band {SLOTS // 2} of {SLOTS}, tap")
     log(f"(m1) in {time.perf_counter() - t0:.1f} s")
-    return dict(launches=out[SLOTS]["launches"], single_ms=single_ms,
-                band_ms={n: v["ms"] for n, v in out.items()}, **reading)
+    return dict(launches=launches[SLOTS], **reading)
 
 
-def phase_banded_world(device, card: str) -> dict:
+def phase_banded_world(device) -> dict:
     """(m2) The world (280 buildings, mipmapped, palette on the card) in
     SLOTS bands with the tri pool and with the bc7 pool, each bit-equal
     to its single-device frame (taps from ``auto_tap_tiles(bands=)``),
@@ -2875,11 +2731,6 @@ def phase_banded_world(device, card: str) -> dict:
                     f"{taps}), K1 launches {k1}", got, want)
         if k1 != SLOTS:
             raise AssertionError(f"(m2) {pool} world launched K1 {k1} times")
-        band_ms = cuda_ms(lambda: tiles.render_frame_multichip(
-            case.scene, vp, pal, mesh=mesh, tap_tiles=taps, **kw),
-            warmup=1, reps=5)
-        log(f"(m2) {pool} world band_frame_ms n={SLOTS} {band_ms!r} (CUDA "
-            f"events, 5 frames; {card})")
         out[pool] = k1
         if pool == "tri":
             _, args, (pw, pb), _ = band_args(case.scene, vp, pal, w, h, SLOTS,
@@ -2895,15 +2746,13 @@ def phase_banded_world(device, card: str) -> dict:
     return dict(launches=out["tri"], **reading)
 
 
-def phase_banded_peel(device, card: str) -> dict:
+def phase_banded_peel(device) -> dict:
     """(m3) The glass headline's split peel, L = LAYERS, in SLOTS bands
     with the cap pair from ``measure_live_tap_tiles(mode="split",
     bands=SLOTS)``, bit-equal to ``render_frame_peeled(peel_mode=
     "split")`` at its own caps; K1 and K2 launched SLOTS times each. →
     K2's launches in that frame and K2's reading on band SLOTS // 2 (the
     translucent set behind the band's opaque z)."""
-    import torch
-
     from mt_renderer_tpu_torch.parallel import tiles
     from mt_renderer_tpu_torch.render import device as dv
     from mt_renderer_tpu_torch.render import raster as rs
@@ -2928,11 +2777,6 @@ def phase_banded_peel(device, card: str) -> dict:
                 f"{caps}), K1 launches {k1}, K2 launches {k2}", got, want)
     if (k1, k2) != (SLOTS, SLOTS):
         raise AssertionError(f"(m3) launches K1 {k1}, K2 {k2}")
-    band_ms = cuda_ms(lambda: tiles.render_frame_multichip(
-        scene, vp, bones, mesh=mesh, peel_layers=LAYERS, tap_tiles=caps,
-        **kw), warmup=1, reps=5)
-    log(f"(m3) peel band_frame_ms n={SLOTS} {band_ms!r} (CUDA events, 5 "
-        f"frames; {card})")
     rs.flush_overflow_checks()
     if rs.OVERFLOW_EVENTS:
         raise AssertionError("(m3) overflow")
@@ -2942,7 +2786,7 @@ def phase_banded_peel(device, card: str) -> dict:
     return dict(launches=k2, k1=k1, **reading)
 
 
-def phase_geomsplit(case: dict, card: str) -> dict:
+def phase_geomsplit(case: dict) -> dict:
     """(m4) The headline's geometry split over n slots of the card for n
     in SHARDS, packed at the single frame's caps, bit-equal to
     ``render_frame``; K1 launched n times. → K1's launches in the
@@ -2969,10 +2813,6 @@ def phase_geomsplit(case: dict, card: str) -> dict:
         if launches != n:
             raise AssertionError(f"(m4) {n} shards launched K1 {launches} "
                                  "times")
-        ms = cuda_ms(lambda: tiles.render_frame_geomsplit(
-            scene, vp, bones, mesh=mesh, **kw), warmup=1, reps=5)
-        log(f"(m4) geomsplit_frame_ms n={n} {ms!r} (CUDA events, 5 frames; "
-            f"one card runs every shard over the full frame; {card})")
     rs.flush_overflow_checks()
     if rs.OVERFLOW_EVENTS:
         raise AssertionError("(m4) overflow")
@@ -3078,9 +2918,9 @@ def phase_multipass(case: dict, what: str, mipmap: bool = False,
     mipmapped the attrs epilogue, with zlow on every pass but the first),
     then every pass of the same frame recorded and held to its plain
     version on its own inputs, bit for bit; the frame against the ml
-    peel at L = LAYERS (coverage exact, the golden rule); the frame's ms
-    by CUDA events; K1 on pass 1's inputs (a zlow pass) timed against its
-    plain version, with its breakdown → a record's readings."""
+    peel at L = LAYERS (coverage exact, the golden rule); K1 on pass 1's
+    inputs (a zlow pass) timed against its plain version, with its
+    breakdown → a record's readings."""
     import torch
 
     from mt_renderer_tpu_torch.render import device as dv
@@ -3131,12 +2971,6 @@ def phase_multipass(case: dict, what: str, mipmap: bool = False,
     if n_cov or share > GOLDEN_SHARE or not cover[0] > 0.0 \
             or not bool(torch.isfinite(depth).all()):
         raise AssertionError(f"{what}: the frame is wrong")
-    metric = "multipass_mip_frame_ms" if mipmap else "multipass_frame_ms"
-    frame_ms = cuda_ms(lambda: dv.render_frame_peeled(
-        *args, peel_mode="multipass", check_overflow=False, **kw),
-        warmup=1, reps=5)
-    log(f"{metric} {frame_ms!r} (CUDA events over 5 frames; the ml peel "
-        f"{cuda_ms(lambda: dv.render_frame_peeled(*args, peel_mode='ml', check_overflow=False, **kw), warmup=1, reps=5)!r})")
 
     a, k, out = calls[1]
     kernel_ms = graph_ms(lambda: rs.raster_fwd(*a, **k))
@@ -3146,7 +2980,7 @@ def phase_multipass(case: dict, what: str, mipmap: bool = False,
     log(f"raster_{modes[1].replace('+', '_')}_plain_ms {plain_ms!r}")
     bnd = k1_breakdown(a, k, out, f"{what}, pass 1, {modes[1]}")
     return dict(launches=launches, max_abs_err=err, ms=kernel_ms,
-                plain_ms=plain_ms, frame_ms=frame_ms, **bnd)
+                plain_ms=plain_ms, **bnd)
 
 
 def phase_multipass_main(glass: dict) -> dict:
@@ -3154,8 +2988,7 @@ def phase_multipass_main(glass: dict) -> dict:
     peel_mode="multipass")`` on the glass headline, yaw and bones varying
     as in phase 5, the launch counts set to 0 just before: LAYERS K1
     launches every frame, no overflow, the unpacked frame, frame 0 equal
-    to ``render_frame_peeled`` at the engine's cap → the launches and
-    ``multipass_peel_frame_ms``."""
+    to ``render_frame_peeled`` at the engine's cap → the launches."""
     import torch
 
     from mt_renderer_tpu_torch.render import device as dv
@@ -3168,11 +3001,8 @@ def phase_multipass_main(glass: dict) -> dict:
     eng = en.FrameEngine(demo.scene, demo.batch, width=w, height=h,
                          peel=LAYERS, peel_mode="multipass")
     rs.flush_overflow_checks()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(FRAMES + 1)]
     per_frame = []
     reset_launches()
-    ev[0].record()
     for t in range(FRAMES):
         before = rs.raster_fwd.launches
         cam.yaw = base_yaw + 8.0 * np.sin(0.25 * t)
@@ -3181,8 +3011,6 @@ def phase_multipass_main(glass: dict) -> dict:
         per_frame.append(rs.raster_fwd.launches - before)
         if t == 0:
             first = (color, depth, vp, bones, eng.maxc)
-        ev[t + 1].record()
-    ev[-1].synchronize()
     launches = rs.raster_fwd.launches
     cam.yaw = base_yaw
     eng.check()
@@ -3191,8 +3019,6 @@ def phase_multipass_main(glass: dict) -> dict:
     want, want_d = dv.render_frame_peeled(
         demo.scene, vp0, bones0, width=w, height=h, layers=LAYERS,
         maxc=maxc0, peel_mode="multipass")
-    per = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
-    frame_ms = ev[0].elapsed_time(ev[-1]) / FRAMES
     log(f"multipass main path: {FRAMES} frames, K1 launches {launches} "
         f"(per frame {sorted(set(per_frame))}), overflow events "
         f"{rs.OVERFLOW_EVENTS}, maxc={eng.maxc}, packed {eng.packed}; frame "
@@ -3202,10 +3028,7 @@ def phase_multipass_main(glass: dict) -> dict:
             or tuple(color0.shape) != (h, w, 4) \
             or not (torch.equal(color0, want) and torch.equal(depth0, want_d)):
         raise AssertionError("the multipass main path is wrong")
-    log(f"multipass_peel_frame_ms {frame_ms!r} (CUDA events over {FRAMES} "
-        f"frames); per frame: median {float(np.median(per))!r}, max "
-        f"{max(per)!r}, frame 0 {per[0]!r}")
-    return dict(launches=launches, frame_ms=frame_ms)
+    return dict(launches=launches)
 
 
 def offedge_mismatch(depth, ref_depth) -> int:
@@ -3218,7 +3041,7 @@ def offedge_mismatch(depth, ref_depth) -> int:
     return int(((a != b) & ~verify.coverage_edge(b)).sum())
 
 
-def phase_scan(device, card: str) -> dict:
+def phase_scan(device) -> dict:
     """(c1) The scan backend at 1920x1080 on the demo scene ``SCAN`` (64
     instances at subdiv 2, 3,072 triangles): single, ``ml``-peeled (L =
     LAYERS),
@@ -3228,8 +3051,7 @@ def phase_scan(device, card: str) -> dict:
     binned raster refuses), each equal, bit for bit, to the scan frame of
     a quad pool of its decoded chains; the scan band split over SLOTS
     slots and the scan geometry split over 2 shards, each equal to the
-    scan frame bit for bit; the scan frame's ms beside the pallas
-    frame's → the readings."""
+    scan frame bit for bit → the triangle counts."""
     import torch
 
     from mt_renderer_tpu_torch.parallel import tiles
@@ -3302,27 +3124,21 @@ def phase_scan(device, card: str) -> dict:
             f"frame {same}")
         if not same:
             raise AssertionError(f"scan {split.__name__} differs")
-    scan_ms = cuda_ms(lambda: dv.render_frame(*args, backend="scan", **size),
-                      warmup=1, reps=2)
-    pallas_ms = cuda_ms(lambda: dv.render_frame(*args, maxc=case["maxc"],
-                                                check_overflow=False,
-                                                **size), warmup=1, reps=5)
     rs.flush_overflow_checks()
-    log(f"scan_frame_ms {scan_ms!r} ({out['tris']} tris, {n_tris} padded, "
-        f"{n_tris // dv.DEFAULT_CHUNK} steps of {dv.DEFAULT_CHUNK}, "
-        f"{w}x{h}, {card}); the pallas frame {pallas_ms!r} ms; phase "
+    log(f"scan phase (c1): {out['tris']} tris, {n_tris} padded, "
+        f"{n_tris // dv.DEFAULT_CHUNK} steps of {dv.DEFAULT_CHUNK}, {w}x{h}, "
         f"{time.perf_counter() - t_all:.1f} s")
-    return dict(out, frame_ms=scan_ms, pallas_ms=pallas_ms)
+    return out
 
 
-def phase_split_frames(device, case: dict, legs: dict, card: str) -> dict:
+def phase_split_frames(device, case: dict, legs: dict) -> dict:
     """(m1)-(m6) → each banded or sharded record's launches and
     readings."""
     t0 = time.perf_counter()
-    out = dict(bands=phase_bands(case, card),
-               world=phase_banded_world(device, card),
-               peel=phase_banded_peel(device, card),
-               geomsplit=phase_geomsplit(case, card))
+    out = dict(bands=phase_bands(case),
+               world=phase_banded_world(device),
+               peel=phase_banded_peel(device),
+               geomsplit=phase_geomsplit(case))
     phase_multihost(device)
     phase_dryrun(device, legs)
     log(f"split-frame phases (m1)-(m6) in {time.perf_counter() - t0:.1f} s")
@@ -3375,11 +3191,11 @@ def main() -> int:
     bc7_kernel = phase_bc7_multimode(device)
     bc7_peel = phase_bcn_peel(device, "bc7")
     legs = phase_bench_legs(device)
-    phase_scan(device, dev_info["card"])
+    phase_scan(device)
     viewer = phase_viewers(device, dev_info["card"])
     served_launches, k1_served = phase_serving(device, case,
                                                dev_info["card"])
-    split = phase_split_frames(device, case, legs, dev_info["card"])
+    split = phase_split_frames(device, case, legs)
     from mt_renderer_tpu_torch.tools import raster_roofline
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

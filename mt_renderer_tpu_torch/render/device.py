@@ -1997,41 +1997,37 @@ def _chunk_bboxes(batch, view_proj, bone_mats=None, *,
     (C,) f32, textured (C,) bool), in NumPy from the host batch: mirrors
     ``upload``'s padding and the group bboxes of ``setup_packed_cols``
     at chunk granularity."""
-    with span("predict.skin"):
-        pos = cr.skin_positions(batch, bone_mats)
-    with span("predict.project"):
-        homo = np.concatenate([pos, np.ones((len(pos), 1), np.float32)],
-                              axis=1)
-        clip = homo @ np.asarray(view_proj, np.float32).T
-        c = clip[batch.tris]                              # (T, 3, 4)
-        w = c[..., 3]
-        ndc = c[..., :3] / np.where(np.abs(w) < W_EPS, W_EPS,
-                                    w)[..., None]
-        sx = (ndc[..., 0] + 1.0) * (0.5 * width)
-        sy = (1.0 - ndc[..., 1]) * (0.5 * height)
-        area2 = (sx[:, 1] - sx[:, 0]) * (sy[:, 2] - sy[:, 0]) - (
-            sy[:, 1] - sy[:, 0]) * (sx[:, 2] - sx[:, 0])
-        valid = (w > W_EPS).all(axis=1) & (area2 < 0.0)
+    pos = cr.skin_positions(batch, bone_mats)
+    homo = np.concatenate([pos, np.ones((len(pos), 1), np.float32)], axis=1)
+    clip = homo @ np.asarray(view_proj, np.float32).T
+    c = clip[batch.tris]                              # (T, 3, 4)
+    w = c[..., 3]
+    ndc = c[..., :3] / np.where(np.abs(w) < W_EPS, W_EPS, w)[..., None]
+    sx = (ndc[..., 0] + 1.0) * (0.5 * width)
+    sy = (1.0 - ndc[..., 1]) * (0.5 * height)
+    area2 = (sx[:, 1] - sx[:, 0]) * (sy[:, 2] - sy[:, 0]) - (
+        sy[:, 1] - sy[:, 0]) * (sx[:, 2] - sx[:, 0])
+    valid = (w > W_EPS).all(axis=1) & (area2 < 0.0)
 
-        t = len(batch.tris)
-        tp = max(TRI_PAD, -(-t // TRI_PAD) * TRI_PAD)
-        big = np.float32(1e30)
-        xmin = np.full(tp, big, np.float32)
-        xmax = np.full(tp, -big, np.float32)
-        ymin = np.full(tp, big, np.float32)
-        ymax = np.full(tp, -big, np.float32)
-        xmin[:t] = np.where(valid, sx.min(1), big)
-        xmax[:t] = np.where(valid, sx.max(1), -big)
-        ymin[:t] = np.where(valid, sy.min(1), big)
-        ymax[:t] = np.where(valid, sy.max(1), -big)
-        cc = tp // rs.CT
-        tex = np.full(tp, -1, np.int32)
-        tex[:t] = batch.tri_texture
-        return (xmin.reshape(cc, rs.CT).min(1),
-                xmax.reshape(cc, rs.CT).max(1),
-                ymin.reshape(cc, rs.CT).min(1),
-                ymax.reshape(cc, rs.CT).max(1),
-                (tex.reshape(cc, rs.CT) >= 0).any(1))
+    t = len(batch.tris)
+    tp = max(TRI_PAD, -(-t // TRI_PAD) * TRI_PAD)
+    big = np.float32(1e30)
+    xmin = np.full(tp, big, np.float32)
+    xmax = np.full(tp, -big, np.float32)
+    ymin = np.full(tp, big, np.float32)
+    ymax = np.full(tp, -big, np.float32)
+    xmin[:t] = np.where(valid, sx.min(1), big)
+    xmax[:t] = np.where(valid, sx.max(1), -big)
+    ymin[:t] = np.where(valid, sy.min(1), big)
+    ymax[:t] = np.where(valid, sy.max(1), -big)
+    cc = tp // rs.CT
+    tex = np.full(tp, -1, np.int32)
+    tex[:t] = batch.tri_texture
+    return (xmin.reshape(cc, rs.CT).min(1),
+            xmax.reshape(cc, rs.CT).max(1),
+            ymin.reshape(cc, rs.CT).min(1),
+            ymax.reshape(cc, rs.CT).max(1),
+            (tex.reshape(cc, rs.CT) >= 0).any(1))
 
 
 def predict_bin_counts(batch, view_proj, bone_mats=None, *,
@@ -2045,13 +2041,12 @@ def predict_bin_counts(batch, view_proj, bone_mats=None, *,
     pw, ph = _padded(width, height)
     xmin, xmax, ymin, ymax, _ = _chunk_bboxes(
         batch, view_proj, bone_mats, width=width, height=height)
-    with span("predict.bins"):
-        n_ty, n_tx = (grid_rows or ph) // rs.TILE_H, pw // rs.TILE_W
-        ty0 = np.arange(n_ty, dtype=np.float32) * rs.TILE_H + y0
-        tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
-        ovy = (ymax[:, None] >= ty0) & (ymin[:, None] <= ty0 + rs.TILE_H)
-        ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
-        return (ovy[:, :, None] & ovx[:, None, :]).sum(axis=0)
+    n_ty, n_tx = (grid_rows or ph) // rs.TILE_H, pw // rs.TILE_W
+    ty0 = np.arange(n_ty, dtype=np.float32) * rs.TILE_H + y0
+    tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
+    ovy = (ymax[:, None] >= ty0) & (ymin[:, None] <= ty0 + rs.TILE_H)
+    ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
+    return (ovy[:, :, None] & ovx[:, None, :]).sum(axis=0)
 
 
 def predict_live_rows(batch, view_proj, bone_mats=None, *,
@@ -2063,18 +2058,17 @@ def predict_live_rows(batch, view_proj, bone_mats=None, *,
     pw, ph = _padded(width, height)
     xmin, xmax, ymin, ymax, tex = _chunk_bboxes(
         batch, view_proj, bone_mats, width=width, height=height)
-    with span("predict.rows"):
-        xmin, xmax = xmin[tex], xmax[tex]
-        ymin, ymax = ymin[tex], ymax[tex]
-        seg_h = SEG_PX // rs.TILE_W     # pixel rows per compaction segment
-        n_tx = pw // rs.TILE_W
-        tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
-        ys = (np.arange((grid_rows or ph) // seg_h, dtype=np.float32) * seg_h
-              + y0)
-        ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
-        ovy = (ymax[:, None] >= ys) & (ymin[:, None] <= ys + float(seg_h))
-        live = (ovy.astype(np.float32).T @ ovx.astype(np.float32)) > 0.0
-        return int(live.sum())
+    xmin, xmax = xmin[tex], xmax[tex]
+    ymin, ymax = ymin[tex], ymax[tex]
+    seg_h = SEG_PX // rs.TILE_W     # pixel rows per compaction segment
+    n_tx = pw // rs.TILE_W
+    tx0 = np.arange(n_tx, dtype=np.float32) * rs.TILE_W
+    ys = (np.arange((grid_rows or ph) // seg_h, dtype=np.float32) * seg_h
+          + y0)
+    ovx = (xmax[:, None] >= tx0) & (xmin[:, None] <= tx0 + rs.TILE_W)
+    ovy = (ymax[:, None] >= ys) & (ymin[:, None] <= ys + float(seg_h))
+    live = (ovy.astype(np.float32).T @ ovx.astype(np.float32)) > 0.0
+    return int(live.sum())
 
 
 def auto_maxc(batch, view_proj, bone_mats=None, *,

@@ -39,6 +39,7 @@ from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render.engine import FrameEngine
 from mt_renderer_tpu_torch.scene import demo as tdemo
 from mt_renderer_tpu_torch.utils import png as tpng
+from torch_threads import one_thread  # noqa: F401
 
 S = 64
 GOLDEN_SHARE = 0.003
@@ -55,17 +56,6 @@ EVENTS = [
     [("key_up", "A"), ("key_down", "D"), ("mouse", -7.25, 4000.0)],
     [("key_up", "S"), ("key_up", "D")],
 ]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small tensor ops, which
-    slow down by an order of magnitude when the parallel test workers'
-    threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def golden_share(got_u8, want_u8) -> float:

@@ -44,20 +44,10 @@ from mt_renderer_tpu_torch.render import engine as te
 from mt_renderer_tpu_torch.render import raster as tr
 from test_torch_pools import assert_scene_equal
 from test_torch_upload import SCENES
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 128, 64
 SIZES = [(37, 23), (1, 1), (5, 9), (3, 17), (64, 64)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small tensor ops, which
-    slow down by an order of magnitude when the parallel test workers'
-    threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def seeded_blocks(n: int, seed: int = 0) -> np.ndarray:

@@ -16,6 +16,7 @@ from mt_renderer_tpu.scene import demo
 from mt_renderer_tpu.scene.model import DrawBatch
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
+from torch_threads import one_thread  # noqa: F401
 
 
 def _random_bbox(seed: int, chunks: int = 9):

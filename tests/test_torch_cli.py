@@ -17,6 +17,7 @@ import pytest
 
 from mt_renderer_tpu import fixtures as jfix
 from mt_renderer_tpu_torch import fixtures as tfix
+from torch_threads import one_thread  # noqa: F401
 
 PACKAGES = ("mt_renderer_tpu", "mt_renderer_tpu_torch")
 

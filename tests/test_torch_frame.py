@@ -21,6 +21,7 @@ from mt_renderer_tpu.scene import demo
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import engine as te
 from mt_renderer_tpu_torch.render import raster as tr
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 256, 128
 GOLDEN_DIR = Path(__file__).parent / "golden"

@@ -53,6 +53,7 @@ from mt_renderer_tpu_torch.utils import profiling
 
 import bc7_taps
 from test_torch_k1_cull import adversarial_cols, heavy_tile_case
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 256, 128
 

@@ -31,6 +31,7 @@ from mt_renderer_tpu_torch.render import engine as te
 from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.scene import demo
 from mt_renderer_tpu_torch.utils import profiling
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 256, 128
 CASES = ("demo", "world", "glass")

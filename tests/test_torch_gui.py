@@ -29,6 +29,7 @@ from mt_renderer_tpu_torch import fixtures as tfix
 from mt_renderer_tpu_torch.app import hud as thud
 from mt_renderer_tpu_torch.formats import gmd as tgmd
 from mt_renderer_tpu_torch.scene import gui as tgui
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 80, 64
 ALPHAS = (0, 1, 127, 128, 254, 255)

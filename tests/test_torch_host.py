@@ -37,6 +37,7 @@ from mt_renderer_tpu_torch.formats import sdl as tsdl
 from mt_renderer_tpu_torch.scene import animation as tanim
 from mt_renderer_tpu_torch.scene import demo as tdemo
 from mt_renderer_tpu_torch.scene import world as tworld
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = dict(buildings=18, characters=3, variants=6, terrain_subdiv=3)
 

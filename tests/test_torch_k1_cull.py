@@ -29,6 +29,7 @@ from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.scene import demo
 from mt_renderer_tpu_torch.tools import raster_roofline
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 256, 128
 

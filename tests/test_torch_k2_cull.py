@@ -36,19 +36,9 @@ from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.tools import raster_roofline
 from test_torch_gpu import _glass, stack_batch, stack_view_proj
 from test_torch_k1_cull import W, H, adversarial_cols, heavy_tile_case
+from torch_threads import one_thread  # noqa: F401
 
 SCENES = ["stack", "glass", "adversarial", "heavy"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small tensor ops, which
-    slow down by an order of magnitude when the parallel test workers'
-    threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 VARIANTS = ["full", "full_zhi", "nocull", "nocull_zhi"]
 INF = float("inf")

@@ -37,6 +37,7 @@ from mt_renderer_tpu.scene.model import DrawBatch
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import engine as te
 from mt_renderer_tpu_torch.render import raster as tr
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 256, 128
 GOLDEN_SHARE = 0.003

@@ -21,6 +21,8 @@ from pathlib import Path
 
 import pytest
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 TIMEOUT = 120
 
@@ -91,7 +93,9 @@ assert got.signbit()[0] and got[1] == 2.5, got
 assert slots.reduce([torch.tensor([rank], dtype=torch.int32)], "max") == 1
 # tear the group down before exit: a gloo group left to the interpreter's
 # exit can abort the process ("terminate called without an active
-# exception") on a loaded machine
+# exception") on a loaded machine, and it outlives destroy_process_group
+# while these names still hold it
+del slots, group
 torch.distributed.destroy_process_group()
 print("BITS OK", flush=True)
 """

@@ -25,9 +25,12 @@ names K1's op), runs the ``schedulerdump`` CLI on the fixture tree, and
 checks that no module of jax or of the JAX package was loaded on the
 way."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
+
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -220,6 +223,7 @@ print("ok")
 
 def test_port_imports_and_renders_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("ok")

@@ -40,20 +40,10 @@ from mt_renderer_tpu.scene.model import DrawBatch
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import engine as te
 from mt_renderer_tpu_torch.render import raster as tr
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 256, 128
 GOLDEN_SHARE = 0.003
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small tensor ops, which
-    slow down by an order of magnitude when the parallel test workers'
-    threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def golden_share(got_u8, want_u8) -> float:

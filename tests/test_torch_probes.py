@@ -37,6 +37,7 @@ from mt_renderer_tpu_torch import entry
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.tools import bilin_ab, raster_roofline
+from torch_threads import one_thread  # noqa: F401
 
 BENCH = Path(__file__).resolve().parent.parent / "tools" / "bench"
 

@@ -15,6 +15,7 @@ from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
 from mt_renderer_tpu_torch.scene import demo
 from mt_renderer_tpu_torch.utils import profiling
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 128, 64
 

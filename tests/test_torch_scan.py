@@ -47,20 +47,11 @@ from mt_renderer_tpu_torch.parallel import tiles
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import engine as te
 from mt_renderer_tpu_torch.scene import demo
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 96, 64
 CHUNK = td.DEFAULT_CHUNK
 GOLDEN_SHARE = 0.003
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: many small tensor ops (see
-    ``test_torch_peel_mip.py``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def golden_share(got_u8, want_u8) -> float:

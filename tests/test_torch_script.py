@@ -20,6 +20,7 @@ from mt_renderer_tpu_torch.formats import gmd as tgmd
 from mt_renderer_tpu_torch.formats import gui as tgui
 from mt_renderer_tpu_torch.formats import script as tscript
 from mt_renderer_tpu_torch.formats import xfs as txfs
+from torch_threads import one_thread  # noqa: F401
 
 MESSAGES = [
     "Hello <E3 10>world<E1>",

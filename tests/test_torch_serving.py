@@ -34,22 +34,12 @@ from mt_renderer_tpu.scene import demo
 from mt_renderer_tpu_torch import serving
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
+from torch_threads import one_thread  # noqa: F401
 
 W = H = 64
 GOLDEN_SHARE = 0.003
 DEPTH_TOL = 1e-5
 VIEWS = [(0.0, 0.5), (6.0, 1.1), (-9.0, 2.3)]     # (yaw offset, bone phase)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the frames run many small tensor ops, which
-    slow down by an order of magnitude when the parallel test workers'
-    threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def golden_share(got_u8, want_u8) -> float:

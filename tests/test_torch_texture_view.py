@@ -25,6 +25,7 @@ import torch
 
 from mt_renderer_tpu.render import texture_view as jtv
 from mt_renderer_tpu_torch.render import texture_view as ttv
+from torch_threads import one_thread  # noqa: F401
 
 F = np.float32
 

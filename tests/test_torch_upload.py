@@ -12,6 +12,7 @@ from mt_renderer_tpu.render import device as jd
 from mt_renderer_tpu.scene import demo
 from mt_renderer_tpu.scene.model import DrawBatch
 from mt_renderer_tpu_torch.render import device as td
+from torch_threads import one_thread  # noqa: F401
 
 
 def _flat_batch():

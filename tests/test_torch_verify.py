@@ -25,21 +25,11 @@ from mt_renderer_tpu.scene import demo as jdemo
 from mt_renderer_tpu_torch import verify
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = dict(width=64, height=64, instances=4, subdiv=1)
 LEGS = ("scan", "pallas", "peel_scan", "peel_pallas", "packed",
         "peel_packed", "mipmap_packed", "peel_split", "multichip_1dev")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the scan legs run many small tensor ops,
-    which slow down by an order of magnitude when the parallel test
-    workers' threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from mt_renderer_tpu.render import pallas_raster as pr
 from mt_renderer_tpu.scene import demo
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 256, 128
 

@@ -42,6 +42,7 @@ from mt_renderer_tpu_torch.cli import modelviewer as tmv
 from mt_renderer_tpu_torch.cli import sceneviewer as tsv
 from mt_renderer_tpu_torch.cli import textureviewer as ttv
 from mt_renderer_tpu_torch.render import engine as tengine
+from torch_threads import one_thread  # noqa: F401
 
 S = 64
 GOLDEN_SHARE = 0.003
@@ -59,17 +60,6 @@ FIXTURE_FILES = [
 ]
 EVENTS = [[["mouse", 10, 0]], [["key_down", "W"]], [["key_down", "D"]],
           [["key_up", "W"], ["mouse", -4, 6]]]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small tensor ops, which
-    slow down by an order of magnitude when the parallel test workers'
-    threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def read_png(path) -> np.ndarray:
