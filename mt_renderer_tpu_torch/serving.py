@@ -25,6 +25,14 @@ as the reference's artifact is. Where it differs from the reference's:
   step's ops per ``DEFAULT_CHUNK`` triangles, so its size grows with the
   triangle count, where the reference's ``lax.scan`` stays one loop.
   Its overflow counts are zeros: the scan backend has no caps.
+* On a CUDA device ``RenderArtifact`` replays the binned program as
+  one CUDA graph (``_Graph``), where the reference's XLA executable is
+  one compiled program: captured on the second call with the same scene
+  leaves (the first runs eagerly and warms up), replayed from then on,
+  so a request costs the host a few copies and one launch instead of
+  the program's hundreds. On the CPU, and for the scan program (its
+  unrolled loop copies host constants to the device, which a capture
+  refuses), every call runs the program.
 """
 
 from __future__ import annotations
@@ -35,8 +43,8 @@ import json
 import numpy as np
 import torch
 
-from .render import device
-from .utils.profiling import span
+from .render import device, raster
+from .utils.profiling import count, recording, span
 
 _META = "mtr_render.json"
 
@@ -108,10 +116,64 @@ def export_render(scene: device.DeviceScene, *, width: int, height: int,
                         device=dev))
     program = torch.export.export(step, args)
     program.example_inputs = None     # the scene itself stays out of it
-    meta = dict(device=str(dev), width=width, height=height)
+    meta = dict(device=str(dev), width=width, height=height, backend=backend)
     buf = io.BytesIO()
     torch.export.save(program, buf, extra_files={_META: json.dumps(meta)})
     return buf.getvalue()
+
+
+def _call_key(leaves, view_proj, bone_mats) -> tuple:
+    """What a captured graph is bound to: each leaf's address, shape,
+    dtype and strides, and the view's and the palette's shapes."""
+    shapes = tuple(tuple(x.shape) if isinstance(x, torch.Tensor)
+                   else np.shape(x) for x in (view_proj, bone_mats))
+    return tuple((x.data_ptr(), tuple(x.shape), x.dtype, x.stride())
+                 for x in leaves) + shapes
+
+
+# the hand kernels a step can launch, whose ``launches`` counters a
+# replay advances as the eager call would
+_COUNTED = ((raster, "raster_fwd"), (device, "bc7_trilinear"))
+
+
+class _Graph:
+    """The loaded step captured as one CUDA graph on one set of scene
+    leaves (``key``): input buffers for the view and the palette, the
+    outputs it writes, and what the capture counted (the kernels'
+    ``launches`` and ``profiling.count``'s counters), which every replay
+    counts again. Capturing launches nothing; the first replay renders
+    the capture's inputs."""
+
+    def __init__(self, key, step, leaves, vp, bones):
+        self.key = key
+        self.vp, self.bones = vp.clone(), bones.clone()
+        fns = [getattr(mod, name) for mod, name in _COUNTED]
+        before = [f.launches for f in fns]
+        self.graph = torch.cuda.CUDAGraph()
+        with recording() as self.counts:
+            with torch.cuda.graph(self.graph):
+                self.out = step(leaves, self.vp, self.bones)
+        self.launches = [(f, f.launches - n) for f, n in zip(fns, before)]
+        for f, n in zip(fns, before):
+            f.launches = n
+
+    def load(self, view_proj, bone_mats) -> None:
+        """Copy the request's view and palette (the capture's shapes)
+        into the input buffers, one copy each."""
+        for buf, x in ((self.vp, view_proj), (self.bones, bone_mats)):
+            buf.copy_(x if isinstance(x, torch.Tensor)
+                      else torch.as_tensor(np.asarray(x, np.float32)))
+
+    def replay(self) -> list:
+        """Render the loaded inputs → the outputs, cloned: the next
+        replay overwrites the graph's own."""
+        self.graph.replay()
+        for f, n in self.launches:
+            f.launches += n
+        for name, n in self.counts.items():
+            count(name, n)
+        count("serve.replays", 1)
+        return [x.clone() for x in self.out]
 
 
 class RenderArtifact:
@@ -124,6 +186,12 @@ class RenderArtifact:
         self.meta = json.loads(extra[_META])
         self.device = torch.device(self.meta["device"])
         self._step = self._program.module()
+        # the scan program copies host constants to the device, which a
+        # capture refuses: it stays eager, as does an artifact on the CPU
+        self._graphed = (self.device.type == "cuda"
+                         and self.meta.get("backend") == "pallas")
+        self._graph = None      # the step captured
+        self._eager_key = None  # ``_call_key`` of the last eager call
 
     def _leaves(self, scene) -> list:
         """The scene's leaves on the artifact's device: NumPy arrays are
@@ -151,18 +219,47 @@ class RenderArtifact:
         overflow counts go to the deferred queue with the reference's
         default caps (``MAXC_DEFAULT`` chunks, every tap row).
 
+        On a CUDA device the binned program (``backend="pallas"``) runs
+        as one CUDA graph keyed by the leaves' identity (``_call_key``):
+        a call on the leaves of the graph replays it; a call on new
+        leaves runs the program eagerly, and the next call on the same
+        leaves captures it (``_Graph``, replacing the graph of other
+        leaves) and replays. A replay's
+        outputs are its own copies, so a frame the caller holds never
+        changes.
+
         Under a profiler the request is the span ``serve.request``, around
-        ``serve.inputs``, ``serve.step`` (the loaded program's call: the
-        host issuing every launch; the graph itself holds no span) and
-        ``serve.queue``."""
+        ``serve.inputs``, ``serve.step`` (the program's call or the
+        graph's replay; the graph itself holds no span; ``serve.capture``
+        inside it where the call captures) and ``serve.queue``; the
+        counters ``serve.replays`` and ``serve.captures`` count the
+        requests that replayed and the captures."""
         with span("serve.request"):
             with span("serve.inputs"):
                 leaves = self._leaves(scene)
-                vp = device._f32(view_proj, self.device)
-                bones = device._f32(bone_mats, self.device)
+                key = (_call_key(leaves, view_proj, bone_mats)
+                       if self._graphed else None)
+                graph = self._graph
+                if graph is not None and graph.key == key:
+                    graph.load(view_proj, bone_mats)
+                else:
+                    graph = None
+                    vp = device._f32(view_proj, self.device)
+                    bones = device._f32(bone_mats, self.device)
             with span("serve.step"):
-                color, depth, n_over, n_over_tap = self._step(leaves, vp,
-                                                              bones)
+                if graph is None and key is not None \
+                        and key == self._eager_key:
+                    self._graph = None      # its memory goes first
+                    with span("serve.capture"):
+                        graph = self._graph = _Graph(key, self._step,
+                                                     leaves, vp, bones)
+                    count("serve.captures", 1)
+                if graph is not None:
+                    out = graph.replay()
+                else:
+                    out = self._step(leaves, vp, bones)
+                    self._eager_key = key
+                color, depth, n_over, n_over_tap = out
             with span("serve.queue"):
                 device._queue_frame_overflow((n_over, n_over_tap), None,
                                              None, self.meta["width"],

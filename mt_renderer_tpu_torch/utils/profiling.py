@@ -13,8 +13,10 @@ The reference's only instrumentation is an unused per-frame ``Duration``
   ``reset_spans``). Off, it costs one flag test;
 * ``count(name, n)`` — adds ``n`` to a process-wide counter table beside
   the spans' (``count_totals``; ``reset_spans`` clears it too), on the
-  same terms: only while a ``torch.profiler`` records, one flag test
-  off. A caller counts from tensor shapes, never from a readback;
+  same terms: only while a ``torch.profiler`` records, two flag tests
+  off. A caller counts from tensor shapes, never from a readback.
+  ``recording()`` takes the counts of a block whatever the profiler
+  does (a CUDA graph's capture, which its replays count again);
 * ``trace(...)`` — a context manager around ``torch.profiler``; the
   Chrome trace it writes opens in Perfetto (or ``chrome://tracing``) and
   shows the spans, the CUDA kernels (K1 under its ``__global__`` name,
@@ -50,6 +52,8 @@ _OFF = contextlib.nullcontext()
 _TOTALS: dict = {}
 # name -> sum of ``count``'s n under a profiler
 _COUNTS: dict = {}
+# the open ``recording()`` tables, innermost last
+_RECORDING: list = []
 
 
 @contextlib.contextmanager
@@ -74,9 +78,26 @@ def span(name: str):
 
 def count(name: str, n: int) -> None:
     """Add ``n`` to counter ``name`` while a ``torch.profiler`` records;
-    off, nothing."""
-    if _profiler._is_profiler_enabled:
+    off, nothing. Inside ``recording()`` it adds to the recording
+    instead, profiler or not."""
+    if _RECORDING:
+        _RECORDING[-1][name] = _RECORDING[-1].get(name, 0) + n
+    elif _profiler._is_profiler_enabled:
         _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Yield a ``{name: total}`` table that takes every ``count`` made
+    inside the block, with or without a profiler, in place of the
+    counter table: what a CUDA graph's capture counts, for each of its
+    replays to ``count`` again."""
+    table: dict = {}
+    _RECORDING.append(table)
+    try:
+        yield table
+    finally:
+        _RECORDING.pop()
 
 
 def span_totals() -> dict:

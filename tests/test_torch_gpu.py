@@ -23,7 +23,8 @@ The viewers' torch stages give the CPU's bits on the card (the HUD
 composite, the texture view), and ``modelviewer --demo`` on the card
 launches K1 in every frame with no overflow, its frame under the golden
 rule against the CPU's. The frame served from ``serving.export_render``'s
-program equals ``render_frame`` bit for bit on the card, K1's two ops
+program equals ``render_frame`` bit for bit on the card, eager and as
+replays of its CUDA graph, K1's two ops
 pass ``torch.library.opcheck`` on CUDA inputs, and a CPU artifact
 refuses card tensors. K1's zlow instantiations and its attrs epilogue
 equal the plain version bit for bit on the hard inputs; pass 0 of the
@@ -1149,6 +1150,99 @@ def test_served_headline_on_card_equals_render_frame(cuda, mipmap):
         assert color.device.type == "cuda"
         assert torch.equal(color, want) and torch.equal(depth, wdepth)
     assert all(n == 0 for n, _ in tr.flush_overflow_counts().values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mipmap", [False, True])
+def test_served_graph_replays_equal_render_frame(cuda, mipmap):
+    """The served artifact on the card as one CUDA graph: the headline
+    scene (quad pool) and, mipmapped, on the tri pool, at 256x256. Six
+    requests on scene A (the first eager, the second captures, then
+    replays), three on scene B (A with every other triangle left out: a
+    leaf at another address), one on A again (eager: the graph is B's).
+    Every request equals ``render_frame`` bit for bit, launches K1 once
+    and queues its two overflow counts, equal to the eager frame's; a
+    frame held from one request is unchanged after the next; under a
+    profiler ``serve.replays`` counts the requests less the three eager
+    ones and ``serve.captures`` the two captures. A palette of another
+    shape raises, as the program does."""
+    import dataclasses
+
+    from mt_renderer_tpu_torch import serving
+
+    case = entry.demo_case(cuda, instances=1024, subdiv=4, width=256,
+                           height=256, pool_mode="tri" if mipmap else "quad")
+    a = case.scene
+    keep = (torch.arange(a.tri_vis.shape[0], device=cuda) % 2 == 0)
+    b = dataclasses.replace(a, tri_vis=a.tri_vis & keep)
+    art = serving.load_render(serving.export_render(
+        a, width=256, height=256, mipmap=mipmap, platforms=["cuda"]))
+    tr.flush_overflow_counts()
+    plan = [a] * 6 + [b] * 3 + [a]
+    held, queued = None, []
+    profiling.reset_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for i, scene in enumerate(plan):
+            case.camera.yaw += 7.0
+            vp, bones = case.view_proj(), case.bone_mats(0.2 * i)
+            k1 = tr.raster_fwd.launches
+            color, depth = art(scene, vp, bones)
+            assert tr.raster_fwd.launches == k1 + 1, i
+            assert sorted(len(q) for q in tr._PENDING.values()) == [i + 1] * 2
+            got = sorted((w, q[-1]) for w, q in tr._PENDING.items())
+            want, wdepth = td.render_frame(scene, vp, bones, width=256,
+                                           height=256, mipmap=mipmap,
+                                           check_overflow=False)
+            assert torch.equal(color, want) and torch.equal(depth, wdepth), i
+            if held is not None:
+                assert torch.equal(held[0], held[1]), i
+            held = (color, color.clone())
+            n_over = td._render_frame_core(
+                scene, vp, bones, width=256, height=256,
+                clear_color=(255, 255, 255, 255), maxc=None, tap_tiles=None,
+                mipmap=mipmap)[2]
+            queued.append(([x for _, x in got], [int(n) for n in n_over]))
+    assert art._graph is not None and art._graph.key == serving._call_key(
+        serving.scene_leaves(b), vp, bones)
+    # each request's pair, read after the last: no replay overwrote one
+    for i, (pair, want) in enumerate(queued):
+        assert sorted(int(x) for x in pair) == sorted(want), i
+    assert all(n == 0 for n, _ in tr.flush_overflow_counts().values())
+    calls = profiling.count_totals()
+    assert calls.get("serve.replays") == len(plan) - 3
+    assert calls.get("serve.captures") == 2
+    assert profiling.span_totals()["serve.capture"][0] == 2
+    profiling.reset_spans()
+    # a palette of another shape runs the program, which refuses it
+    with pytest.raises(RuntimeError, match="shape"):
+        art(b, vp, bones[:1])
+
+
+@pytest.mark.gpu
+def test_served_scan_artifact_on_card_stays_eager(cuda):
+    """The scan backend's artifact (its chunk loop unrolled; here on a
+    bc1 pool, which the binned raster refuses unmipmapped) on the card:
+    its program copies host constants to the device, which a CUDA graph's
+    capture refuses, so it never captures; four requests, each equal to
+    ``render_frame(backend="scan")`` bit for bit."""
+    from mt_renderer_tpu_torch import serving
+
+    case = entry.demo_case(cuda, instances=4, subdiv=1, width=64,
+                           height=64, pool_mode="bc1")
+    art = serving.load_render(serving.export_render(
+        case.scene, width=64, height=64, backend="scan"))
+    assert art.meta["backend"] == "scan"
+    for i in range(4):
+        case.camera.yaw += 3.0
+        vp, bones = case.view_proj(), case.bone_mats(0.3 * i)
+        got = art(case.scene, vp, bones)
+        want = td.render_frame(case.scene, vp, bones, width=64, height=64,
+                               backend="scan")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool((want[1] < 1.0).any())
+    assert art._graph is None
+    tr.flush_overflow_checks()
 
 
 @pytest.mark.gpu

@@ -19,7 +19,12 @@ with the tri pool:
 - the served frame's overflow counts equal ``_render_frame_core``'s and
   reach the deferred queue with the reference's default caps;
 - ``backend="scan"``, a foreign ``platforms`` and leaves on another
-  device raise.
+  device raise;
+- a CPU artifact never captures a CUDA graph: every request runs the
+  program, under a profiler no ``serve.capture`` span opens and no
+  ``serve.replays`` or ``serve.captures`` is counted, and its frames
+  are ``render_frame``'s; the graph's key tells leaves apart by their
+  memory and the view and the palette by their shapes.
 """
 
 import jax.numpy as jnp
@@ -34,6 +39,7 @@ from mt_renderer_tpu.scene import demo
 from mt_renderer_tpu_torch import serving
 from mt_renderer_tpu_torch.render import device as td
 from mt_renderer_tpu_torch.render import raster as tr
+from mt_renderer_tpu_torch.utils import profiling
 from torch_threads import one_thread  # noqa: F401
 
 W = H = 64
@@ -226,3 +232,44 @@ def test_artifact_refuses_leaves_on_another_device(served):
         art(moved, vp, bones)
     with pytest.raises(ValueError, match="leaves"):
         art(leaves[:-1], vp, bones)
+
+
+def test_a_cpu_artifact_never_captures(served, tmp_path):
+    """Five requests on one scene, under a profiler: each runs the
+    program (no graph, no ``serve.capture``, no ``serve.replays`` or
+    ``serve.captures``), each frame ``render_frame``'s, and a frame held
+    from one request is unchanged after the next."""
+    mipmap, scene, art = served
+    held = []
+    with profiling.trace(str(tmp_path)):
+        for k in range(5):
+            vp, bones = view(*VIEWS[k % len(VIEWS)])
+            color, depth = art(scene, vp, bones)
+            want, wdepth = td.render_frame(scene, vp, bones, width=W,
+                                           height=H, mipmap=mipmap)
+            assert torch.equal(color, want) and torch.equal(depth, wdepth)
+            held.append((color, color.clone()))
+    assert art._graph is None and art.meta["backend"] == "pallas"
+    assert all(torch.equal(a, b) for a, b in held)
+    spans = profiling.span_totals()
+    assert spans["serve.request"][0] == spans["serve.step"][0] == 5
+    assert "serve.capture" not in spans
+    counts = profiling.count_totals()
+    assert "serve.replays" not in counts and "serve.captures" not in counts
+    profiling.reset_spans()
+    tr.flush_overflow_checks()
+
+
+def test_the_graph_key_is_the_leaves_memory_and_the_input_shapes(served):
+    """``_call_key``: the same leaves and shapes give one key; a leaf at
+    another address (equal values), or a palette of another shape, gives
+    another."""
+    _, scene, _ = served
+    leaves = serving.scene_leaves(scene)
+    vp, bones = view(0.0, 0.5)
+    key = serving._call_key(leaves, vp, bones)
+    assert serving._call_key(list(leaves), torch.as_tensor(vp),
+                             bones.tolist()) == key
+    moved = [leaves[0].clone()] + leaves[1:]
+    assert serving._call_key(moved, vp, bones) != key
+    assert serving._call_key(leaves, vp, bones[:1]) != key

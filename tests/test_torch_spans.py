@@ -262,3 +262,29 @@ def test_a_count_adds_only_under_a_profiler(tmp_path):
     assert profiling.count_totals() == {"bc7.texels": 12}  # reset on entry
     profiling.reset_spans()
     assert profiling.count_totals() == {}
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_a_recording_takes_the_counts_profiler_or_not(tmp_path, profiled):
+    """Inside ``recording()`` every count goes to the recording's table
+    and none to the counter table, with or without a profiler (a CUDA
+    graph's capture); the recordings nest, and outside them counting is
+    as before."""
+    def counted():
+        with profiling.recording() as outer:
+            profiling.count("bc7.kernel_taps", 4)
+            with profiling.recording() as inner:
+                profiling.count("bc7.kernel_taps", 2)
+            profiling.count("bc7.texels", 3)
+        profiling.count("bc7.texels", 1)
+        return outer, inner
+
+    if profiled:
+        with profiling.trace(str(tmp_path)):
+            outer, inner = counted()
+    else:
+        outer, inner = counted()
+    assert outer == {"bc7.kernel_taps": 4, "bc7.texels": 3}
+    assert inner == {"bc7.kernel_taps": 2}
+    assert profiling.count_totals() == ({"bc7.texels": 1} if profiled
+                                        else {})
