@@ -1363,17 +1363,17 @@ def _trilinear_arith(pool, off0, th, tw, lod, u, v, num_mips: int,
     return [a * (1 - fm) + b * fm for a, b in zip(s0, s1)]
 
 
-# texels a trilinear tap decodes from a bc7 pool: the 2x2 footprint at
-# each of its two levels
+# texels a trilinear tap decodes from a bc1 or bc7 pool: the 2x2
+# footprint at each of its two levels
 TRILINEAR_TEXELS = 8
 
 
 def _mip_albedo_channels(scene: DeviceScene, m) -> list:
     """Trilinear albedo from mtap planes ``m`` (..., 17, X) → 4 channel
     tensors (..., X): analytic LOD, arithmetic mip addressing; elementwise
-    per pixel, so it runs on compacted rows as on dense ones. A bc7
-    pool's sampling opens the span ``shade.bc7`` and counts the texels it
-    decodes, from the shapes, in ``bc7.texels``."""
+    per pixel, so it runs on compacted rows as on dense ones. A bc1 or
+    bc7 pool's sampling opens the span ``shade.<pool>`` and counts the
+    texels it decodes, from the shapes, in ``<pool>.texels``."""
     u = m[..., 0, :]
     v = m[..., 1, :]
     off0 = rs._trunc_i32(m[..., 3, :]) * 4096 + rs._trunc_i32(m[..., 4, :])
@@ -1388,10 +1388,11 @@ def _mip_albedo_channels(scene: DeviceScene, m) -> list:
                                 aux=scene.aux_pool,
                                 bc7_modes=scene.bc7_modes)
 
-    if scene.pool_mode != "bc7":
+    pool = scene.pool_mode
+    if pool not in ("bc1", "bc7"):
         return sample()
-    with span("shade.bc7"):
-        count("bc7.texels", u.numel() * TRILINEAR_TEXELS)
+    with span(f"shade.{pool}"):
+        count(f"{pool}.texels", u.numel() * TRILINEAR_TEXELS)
         return sample()
 
 

@@ -24,7 +24,8 @@ composite, the texture view), and ``modelviewer --demo`` on the card
 launches K1 in every frame with no overflow, its frame under the golden
 rule against the CPU's. The frame served from ``serving.export_render``'s
 program equals ``render_frame`` bit for bit on the card, eager and as
-replays of its CUDA graph, K1's two ops
+replays of its CUDA graph (a bc7 world's too, its replays advancing
+the bc7 kernel's counters as the eager call does), K1's two ops
 pass ``torch.library.opcheck`` on CUDA inputs, and a CPU artifact
 refuses card tensors. K1's zlow instantiations and its attrs epilogue
 equal the plain version bit for bit on the hard inputs; pass 0 of the
@@ -975,14 +976,10 @@ def test_bc7_trilinear_kernel_matches_plain_version(cuda, case):
         cpu, modes, *(x.cpu() for x in taps)))
 
 
-@pytest.mark.gpu
-def test_bc7_frame_engine_shades_through_the_kernel(cuda):
-    """A small all-mode bc7 world through ``FrameEngine(mipmap=True)``:
-    every frame's compacted shade launches the bc7 kernel, and the frame
-    equals ``render_frame``'s at the engine's caps."""
-    from mt_renderer_tpu_torch.render import engine as en
-
-    case = entry.world_case(cuda, buildings=8, width=W, height=H,
+def _all_mode_bc7_world(dev):
+    """A small world on the bc7 pool, every texture's chain random blocks
+    of all eight modes (``bc7_taps.blocks``) → (case, scene)."""
+    case = entry.world_case(dev, buildings=8, width=W, height=H,
                             characters=2, variants=4, terrain_subdiv=2,
                             building_subdivs=(1,), pool_mode="quad")
     chains = [[(bc7_taps.blocks(((h + 3) // 4) * ((w + 3) // 4),
@@ -990,8 +987,19 @@ def test_bc7_frame_engine_shades_through_the_kernel(cuda):
                for li, (h, w) in enumerate(
                    img.shape[:2] for img in td.mip_chain(t))]
               for ti, t in enumerate(case.batch.textures)]
-    scene = td.upload(case.batch, "bc7", device=cuda, bc7_chains=chains)
+    scene = td.upload(case.batch, "bc7", device=dev, bc7_chains=chains)
     assert scene.bc7_modes == tuple(range(8))
+    return case, scene
+
+
+@pytest.mark.gpu
+def test_bc7_frame_engine_shades_through_the_kernel(cuda):
+    """A small all-mode bc7 world through ``FrameEngine(mipmap=True)``:
+    every frame's compacted shade launches the bc7 kernel, and the frame
+    equals ``render_frame``'s at the engine's caps."""
+    from mt_renderer_tpu_torch.render import engine as en
+
+    case, scene = _all_mode_bc7_world(cuda)
     eng = en.FrameEngine(scene, case.batch, width=W, height=H, mipmap=True)
     for t in range(3):
         case.camera.yaw += 4.0
@@ -1243,6 +1251,52 @@ def test_served_scan_artifact_on_card_stays_eager(cuda):
         assert bool((want[1] < 1.0).any())
     assert art._graph is None
     tr.flush_overflow_checks()
+
+
+@pytest.mark.gpu
+def test_served_bc7_world_replays_its_graph(cuda):
+    """A small world on the bc7 pool with blocks of all eight modes (the
+    ``world_bc7`` configuration's pool) served from ``export_render``'s
+    program on the card: the first call is eager, the second captures
+    and replays, the third and fourth replay. On the same inputs every
+    replay equals the eager call's frame bit for bit, and on a new view
+    ``render_frame``'s; each call advances ``bc7_trilinear.launches`` by
+    one and, under a profiler, ``bc7.kernel_taps`` by the eager call's
+    taps."""
+    from mt_renderer_tpu_torch import serving
+
+    case, scene = _all_mode_bc7_world(cuda)
+    art = serving.load_render(serving.export_render(
+        scene, width=W, height=H, mipmap=True, platforms=["cuda"]))
+    tr.flush_overflow_counts()
+    vp, pal = case.view_proj(), case.bone_mats_device(2.0)
+    frames, launched, taps = [], [], []
+    profiling.reset_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(4):
+            before = td.bc7_trilinear.launches
+            t0 = profiling.count_totals().get("bc7.kernel_taps", 0)
+            frames.append(art(scene, vp, pal))
+            launched.append(td.bc7_trilinear.launches - before)
+            taps.append(profiling.count_totals()["bc7.kernel_taps"] - t0)
+        counts = profiling.count_totals()
+    profiling.reset_spans()
+    assert counts.get("serve.captures") == 1
+    assert counts.get("serve.replays") == 3
+    assert launched == [1] * 4 and taps == [taps[0]] * 4 and taps[0] > 0
+    color, depth = frames[0]
+    assert bool((depth < 1.0).any())
+    for got, gdepth in frames[1:]:
+        assert torch.equal(got, color) and torch.equal(gdepth, depth)
+    case.camera.yaw += 9.0
+    vp, pal = case.view_proj(), case.bone_mats_device(3.0)
+    got, gdepth = art(scene, vp, pal)
+    want, wdepth = td.render_frame(scene, vp, pal, width=W, height=H,
+                                   mipmap=True, check_overflow=False)
+    assert torch.equal(got, want) and torch.equal(gdepth, wdepth)
+    assert art._graph is not None
+    assert all(n == 0 for n, _ in tr.flush_overflow_counts().values())
 
 
 @pytest.mark.gpu

@@ -16,8 +16,9 @@ context and records nothing. Under ``profiling.trace``:
   ``serve.step`` and ``serve.queue``, once each;
 - a bc7 pool's frame opens ``shade.bc7`` inside ``frame.shade`` once a
   shade, and counts ``bc7.texels`` (``profiling.count``): the shaded
-  rows' pixels times the trilinear tap's eight texels; a tri frame
-  records neither, and off, neither is recorded.
+  rows' pixels times the trilinear tap's eight texels; a bc1 pool's
+  frame likewise ``shade.bc1`` and ``bc1.texels``; a tri frame, of the
+  demo or of the world, records neither, and off, neither is recorded.
 
 The exported graph holds no profiler op, even when exported under a
 profiler. The card's half (K1's kernel launched inside ``frame.raster``
@@ -195,29 +196,37 @@ def test_the_exported_graph_holds_no_profiler_op(tmp_path, case, profiled):
     assert not [t for t in targets if "profiler" in t]
 
 
-# ------------------------------------------------- the bc7 pool's shade
+# ------------------------------------- the bc1 and bc7 pools' shade
 
 WH = 96
 BC7 = ("shade.bc7", "bc7.texels")
 
 
-@pytest.fixture(scope="module")
-def bc7_world():
-    """A small archive world on the bc7 pool → (case, view, palette)."""
+def _world(pool_mode):
+    """A small archive world on ``pool_mode`` → (case, view, palette)."""
     case = entry.world_case("cpu", buildings=8, width=W, height=WH,
                             characters=2, variants=3, terrain_subdiv=2,
-                            building_subdivs=(1,), pool_mode="bc7")
+                            building_subdivs=(1,), pool_mode=pool_mode)
     return case, case.view_proj(), case.bone_mats(6.0)
 
 
-@pytest.mark.parametrize("capped", [False, True])
-def test_a_bc7_frame_opens_its_shade_span_and_counts_its_texels(
-        tmp_path, bc7_world, capped):
-    """Two frames: ``shade.bc7`` twice, each inside its ``frame.shade``;
-    ``bc7.texels`` the rows the shade ran (every tile, or at most the
-    guard's tap cap) times their pixels times eight texels, twice."""
-    case, vp, pal = bc7_world
-    assert case.scene.pool_mode == "bc7"
+@pytest.fixture(scope="module")
+def bc7_world():
+    return _world("bc7")
+
+
+@pytest.fixture(scope="module")
+def bc1_world():
+    return _world("bc1")
+
+
+def _frames_open_the_pools_span(tmp_path, world, pool, capped):
+    """Two frames: ``shade.<pool>`` twice, each inside its
+    ``frame.shade``, and no other pool's; ``<pool>.texels`` the rows the
+    shade ran (every tile, or at most the guard's tap cap) times their
+    pixels times eight texels, twice."""
+    case, vp, pal = world
+    assert case.scene.pool_mode == pool
     taps = (td.auto_tap_tiles(case.batch, vp, pal, width=W, height=WH)
             if capped else None)
     pw, ph = td._padded(W, WH)
@@ -226,21 +235,52 @@ def test_a_bc7_frame_opens_its_shade_span_and_counts_its_texels(
         for _ in range(2):
             td.render_frame(case.scene, vp, pal, width=W, height=WH,
                             packed=True, mipmap=True, tap_tiles=taps)
-    assert profiling.span_totals()["shade.bc7"][0] == 2
+    spans = profiling.span_totals()
+    assert spans[f"shade.{pool}"][0] == 2
+    assert {n for n in spans if n.startswith("shade.")} == {f"shade.{pool}"}
     assert profiling.count_totals() == {
-        "bc7.texels": 2 * rows * td.SEG_PX * td.TRILINEAR_TEXELS}
+        f"{pool}.texels": 2 * rows * td.SEG_PX * td.TRILINEAR_TEXELS}
     events = trace_events(log_dir)
     shades = annotations(events, "frame.shade")
-    bc7 = annotations(events, "shade.bc7")
-    assert len(bc7) == len(shades) == 2
-    assert all(inside(b, s) for b, s in zip(bc7, shades))
+    opened = annotations(events, f"shade.{pool}")
+    assert len(opened) == len(shades) == 2
+    assert all(inside(b, s) for b, s in zip(opened, shades))
 
 
-def test_off_a_bc7_frame_records_neither(bc7_world):
-    case, vp, pal = bc7_world
+@pytest.mark.parametrize("capped", [False, True])
+def test_a_bc7_frame_opens_its_shade_span_and_counts_its_texels(
+        tmp_path, bc7_world, capped):
+    _frames_open_the_pools_span(tmp_path, bc7_world, "bc7", capped)
+
+
+@pytest.mark.parametrize("capped", [False, True])
+def test_a_bc1_frame_opens_its_shade_span_and_counts_its_texels(
+        tmp_path, bc1_world, capped):
+    _frames_open_the_pools_span(tmp_path, bc1_world, "bc1", capped)
+
+
+def _off_records_nothing(world):
+    case, vp, pal = world
     td.render_frame(case.scene, vp, pal, width=W, height=WH, packed=True,
                     mipmap=True)
     assert profiling.span_totals() == {} and profiling.count_totals() == {}
+
+
+def test_off_a_bc7_frame_records_neither(bc7_world):
+    _off_records_nothing(bc7_world)
+
+
+def test_off_a_bc1_frame_records_neither(bc1_world):
+    _off_records_nothing(bc1_world)
+
+
+def test_a_tri_world_frame_opens_no_shade_span(tmp_path):
+    case, vp, pal = _world("tri")
+    with profiling.trace(str(tmp_path)):
+        td.render_frame(case.scene, vp, pal, width=W, height=WH,
+                        packed=True, mipmap=True)
+    assert set(profiling.span_totals()) == set(FRAME_SPANS)
+    assert profiling.count_totals() == {}
 
 
 def test_a_tri_frame_records_neither(tmp_path, case):
